@@ -37,93 +37,11 @@
 // across the barrier). The tensor-core pass is described above its kernel.
 // Ragged images are masked at every edge.
 
-#include <cstdint>
 #include <initializer_list>
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "rcab_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kPM = 4;     // pixels per thread item
-constexpr int kCM = 8;     // output channels per thread item
-constexpr int kKC = 8;     // input channels of weights staged at once
-constexpr int kMaxIt = 2;  // thread items per conv (accumulators in registers)
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// One 3x3 conv over a shared-memory region `src` of IH x IW pixels (pixel
-// stride SP floats) into OH x OW = (IH-2) x (IW-2) outputs, accumulated into
-// acc[it][k][j] for the thread's items. Every thread of the block must call
-// it (it holds barriers). Item i covers pixel group g = i % G (pixels
-// g, g+G, g+2G, g+3G of the output region) and channels (i / G) * kCM + j.
-template <typename T>
-__device__ __forceinline__ void conv3x3_smem(
-    const float* src, int IW, int OH, int OW, int C, int SP,
-    const T* __restrict__ w, float* w_s, float (&acc)[kMaxIt][kPM][kCM]) {
-  const int P = OH * OW;
-  const int G = (P + kPM - 1) / kPM;
-  const int n_items = G * (C / kCM);
-  int base[kMaxIt][kPM];
-  int cbase[kMaxIt];
-  bool valid[kMaxIt];
-#pragma unroll
-  for (int it = 0; it < kMaxIt; ++it) {
-    const int item = it * kThreads + threadIdx.x;
-    valid[it] = item < n_items;
-    const int g = valid[it] ? item % G : 0;
-    cbase[it] = valid[it] ? (item / G) * kCM : 0;
-#pragma unroll
-    for (int k = 0; k < kPM; ++k) {
-      int p = g + G * k;
-      p = p < P ? p : 0;  // padded pixels read a valid address; never stored
-      base[it][k] = ((p / OW) * IW + (p % OW)) * SP;
-#pragma unroll
-      for (int j = 0; j < kCM; ++j) acc[it][k][j] = 0.f;
-    }
-  }
-  for (int ci0 = 0; ci0 < C; ci0 += kKC) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < 9 * kKC * C; i += kThreads) {
-      const int t = i / (kKC * C);
-      const int r = i - t * (kKC * C);
-      const int kc = r / C;
-      const int co = r - kc * C;
-      w_s[i] = to_f(w[((size_t)t * C + ci0 + kc) * C + co]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < kMaxIt; ++it) {
-      if (!valid[it]) continue;
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const int off = ((t / 3) * IW + (t % 3)) * SP + ci0;
-        const float* wt = w_s + t * kKC * C + cbase[it];
-#pragma unroll
-        for (int kc = 0; kc < kKC; ++kc) {
-          const float4 wa = *reinterpret_cast<const float4*>(wt + kc * C);
-          const float4 wb = *reinterpret_cast<const float4*>(wt + kc * C + 4);
-          const float wv[kCM] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int k = 0; k < kPM; ++k) {
-            const float xv = src[base[it][k] + off + kc];
-#pragma unroll
-            for (int j = 0; j < kCM; ++j) acc[it][k][j] = fmaf(xv, wv[j], acc[it][k][j]);
-          }
-        }
-      }
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -496,19 +414,6 @@ rcab_apply_kernel(const T* __restrict__ x, const float* __restrict__ h2,
   }
 }
 
-// Raise a kernel's dynamic shared memory limit to `bytes` on the current
-// device, once: `done` remembers the largest limit set on each device.
-template <typename K>
-cudaError_t allow_smem(K* kernel, int bytes, int (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && bytes <= done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = bytes;
-  return err;
-}
-
 // The conv pass's launch plan, decided here and nowhere else: tensor cores
 // or not, the output tile TH x TW and its dynamic shared memory. Tiles are
 // tried in order; the first whose conv work has a thread for every item
@@ -520,8 +425,6 @@ struct Plan {
 };
 
 constexpr int kTiles[][2] = {{16, 16}, {8, 16}, {8, 8}, {4, 8}, {4, 4}};
-constexpr int kSmemTwoPerSm = 113 * 1024;
-constexpr int kSmemMax = 227 * 1024;
 
 int conv_smem(bool mma, int C, int TH, int TW) {
   if (mma) {
@@ -623,6 +526,21 @@ int rcab_fused_workspace(int dtype, int N, int H, int W, int C, long long* float
   const cudaError_t err = make_plan(dtype, C, &p);
   if (err == cudaSuccess) *floats = workspace_floats(p, N, H, W, C);
   return (int)err;
+}
+
+// Where rcab_fused_forward leaves its intermediates in the workspace, for
+// the backward pass: layout[0] is the float offset of the per-tile channel
+// sums of h2 (N, tiles, C), layout[1] that of the gate (N, C), layout[2]
+// the number of tiles an image; h2 (N,H,W,C) is at offset 0.
+int rcab_fused_layout(int dtype, int N, int H, int W, int C, long long* layout) {
+  Plan p;
+  const cudaError_t err = make_plan(dtype, C, &p);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((H + p.th - 1) / p.th) * ((W + p.tw - 1) / p.tw);
+  layout[0] = (long long)N * H * W * C;
+  layout[1] = layout[0] + (long long)N * tiles * C;
+  layout[2] = tiles;
+  return 0;
 }
 
 // dtype as above. x, out: (N,H,W,C) contiguous in that type; w1, w2:

@@ -1,17 +1,18 @@
-"""SISRInterface — the model interface layer (eval half).
+"""SISRInterface — the model interface layer.
 
 Port of ``rumpy_tpu/interface.py``: owns the experiment directory layout
 (``saved_models/``, ``result_outputs/``), config persistence and diff
-arbitration, epoch selection (int | 'best' | 'last'), handler construction
-through the registry, and colorspace post-processing of eval outputs
-(Y-channel models get Cb/Cr carried over from the LR input). Training
-entry points come with the training slice.
+arbitration, epoch selection (int | 'best' | 'last'), branching, handler
+construction through the registry, the train step's entry point, and
+colorspace post-processing of eval outputs (Y-channel models get Cb/Cr
+carried over from the LR input).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import shutil
 import time
 from typing import Any, Dict, Optional
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from rumpy_tpu_torch.config.loader import (NoneDict, config_diff, dump_toml,
                                            load_config)
 from rumpy_tpu_torch.registry import get_model
+from rumpy_tpu_torch.utils import checkpoint as ckpt
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr, ycbcr_to_rgb
 
 
@@ -83,6 +85,9 @@ class SISRInterface:
             self.state, self.model_epoch = self.model.load_model(
                 self.model_save_dir, load_epoch, summary_csv=summary)
             self.model_epoch += 1  # resume from the NEXT epoch
+            # phase-switched handlers must know the loaded epoch
+            if hasattr(self.model, "set_epoch"):
+                self.model.set_epoch(self.model_epoch)
 
     # ------------------------------------------------------------------
     # Config persistence / diff arbitration
@@ -125,8 +130,58 @@ class SISRInterface:
                   os.path.join(self.base_folder, "config.toml"))
 
     # ------------------------------------------------------------------
-    # Eval entry point
+    # Branching: resuming from a non-final epoch forks into
+    # branch_epoch_N to protect existing results.
     # ------------------------------------------------------------------
+
+    def branch(self, epoch: int) -> str:
+        branch_dir = os.path.join(self.base_folder, f"branch_epoch_{epoch}")
+        new_models = os.path.join(branch_dir, "saved_models")
+        new_logs = os.path.join(branch_dir, "result_outputs")
+        os.makedirs(new_models, exist_ok=True)
+        os.makedirs(new_logs, exist_ok=True)
+        src_ckpt = ckpt.checkpoint_path(self.model_save_dir, epoch)
+        if os.path.isfile(src_ckpt):
+            shutil.copy(src_ckpt, ckpt.checkpoint_path(new_models, epoch))
+        summary = os.path.join(self.logs_dir, "summary.csv")
+        if os.path.isfile(summary):
+            shutil.copy(summary, os.path.join(new_logs, "summary.csv"))
+        self.base_folder = branch_dir
+        self.model_save_dir = new_models
+        self.logs_dir = new_logs
+        return branch_dir
+
+    # ------------------------------------------------------------------
+    # Train / eval entry points
+    # ------------------------------------------------------------------
+
+    def train_batch(self, lr=None, hr=None, metadata=None, fetch=True,
+                    **kwargs):
+        """One optimizer step on a batch of NHWC arrays or tensors.
+        ``fetch=False`` keeps the losses as device scalars: every float()
+        is a blocking device-to-host copy, so the training loop fetches
+        once per epoch instead."""
+        batch = {}
+        if lr is not None:
+            batch["lr"] = lr
+        if hr is not None:
+            batch["hr"] = hr
+        if metadata is not None and (
+                metadata.numel() if torch.is_tensor(metadata) else np.size(metadata)):
+            batch["metadata"] = metadata
+        if kwargs.get("tags") is not None and getattr(
+                self.model, "wants_tags", False):
+            batch["tags"] = list(kwargs["tags"])
+        self.state, losses = self.model.train_batch(self.state, batch)
+        if not fetch:
+            return losses
+        return {k: float(v) for k, v in losses.items()}
+
+    def set_epoch(self, epoch: int) -> None:
+        self.model_epoch = epoch
+        # epoch-switched handlers depend on it
+        if hasattr(self.model, "set_epoch"):
+            self.model.set_epoch(epoch)
 
     def net_run_and_process(self, lr=None, hr=None, metadata=None,
                             timing: bool = False,
@@ -192,3 +247,16 @@ class SISRInterface:
 
     def num_parameters(self) -> int:
         return self.model.num_parameters(self.state)
+
+    def print_overview(self) -> None:
+        print(f"Model: {self.name} | params: {self.num_parameters():,} | "
+              f"scale: {self.configuration.get('scale')}")
+
+    def model_structure_dump(self) -> None:
+        """The module tree and its parameter count, into
+        ``result_outputs/model_structure.txt``."""
+        if not self.logs_dir or self.no_directories:
+            return
+        with open(os.path.join(self.logs_dir, "model_structure.txt"), "w") as f:
+            f.write(f"{self.model.module}\n\nparameters: "
+                    f"{self.num_parameters():,}\n")

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rumpy_tpu_torch.models.base import BaseHandler
 from rumpy_tpu_torch.models.common import RCAB, Conv, ResBlock, Upsampler
@@ -60,8 +61,9 @@ class RCAN(nn.Module):
     def __init__(self, scale: int = 4, in_feats: int = 3, out_feats: int = 3,
                  n_feats: int = 64, n_resgroups: int = 10, n_resblocks: int = 20,
                  reduction: int = 16, res_scale: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat = remat
         self.head = Conv(in_feats, n_feats, 3, dtype=dtype)
         self.groups = nn.ModuleList(
             ResidualGroup(n_feats, n_resblocks, reduction, res_scale, dtype=dtype)
@@ -74,7 +76,12 @@ class RCAN(nn.Module):
         x = self.head(x)
         res = x
         for group in self.groups:
-            res = group(res)
+            if self.remat and torch.is_grad_enabled():
+                # keep only the group's input; its blocks run again in
+                # the backward pass
+                res = checkpoint(group, res, use_reentrant=False)
+            else:
+                res = group(res)
         res = self.body_tail(res) + x
         return self.tail(self.upsampler(res))
 
@@ -109,9 +116,10 @@ class RCANHandler(BaseHandler):
 
     def build_module(self, n_resblocks, n_resgroups, n_feats, reduction,
                      res_scale, remat=False):
-        # remat trades recompute for activation memory in the backward
-        # pass; it has no effect on the eval forward.
+        # remat recomputes each residual group in the backward pass
+        # (torch.utils.checkpoint) instead of keeping its activations; it
+        # has no effect on a forward without gradients.
         return RCAN(scale=self.scale, in_feats=self.in_features,
                     n_feats=n_feats, n_resgroups=n_resgroups,
                     n_resblocks=n_resblocks, reduction=reduction,
-                    res_scale=res_scale, dtype=self.dtype)
+                    res_scale=res_scale, remat=remat, dtype=self.dtype)

@@ -138,7 +138,10 @@ class CALayer(nn.Module):
 class RCAB(nn.Module):
     """Residual channel attention block (RCAN), run by the fused kernel
     ``ops/cuda/rcab_fused.py::rcab_fused`` on its (9, Cin, Cout) weight
-    layout, which is rebuilt only when the parameters change."""
+    layout. Without a gradient the packed weights are cached and rebuilt
+    only when the parameters change; with one, they are packed from the
+    live parameters by differentiable layout ops, so the kernel's
+    gradients reach ``conv1``, ``conv2`` and ``ca`` as ``.grad``."""
 
     def __init__(self, features: int, reduction: int = 16,
                  res_scale: float = 1.0, dtype: torch.dtype = torch.float32):
@@ -159,19 +162,27 @@ class RCAB(nn.Module):
                  m["ca"]._modules["up"])
         return tuple(c._parameters[k] for c in convs for k in ("weight", "bias"))
 
+    @staticmethod
+    def _pack(w1, b1, w2, b2, wd, bd, wu, bu):
+        """OIHW parameters -> the kernel's layout, float32: (9, I, O)
+        tap-major conv weights, (C, R) and (R, C) attention weights."""
+        def taps(w):
+            return w.permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0])
+
+        return (taps(w1), b1, taps(w2), b2, wd.flatten(1).t(), bd,
+                wu.flatten(1).t(), bu)
+
     def _kernel_weights(self):
         params = self._params()
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return self._pack(*params)
         key = tuple((p.data_ptr(), p._version) for p in params)
         if self._packed[0] != key:
-            w1, b1, w2, b2, wd, bd, wu, bu = (p.detach() for p in params)
-
-            def taps(w):  # OIHW -> (9, I, O), tap-major as the kernel takes
-                return (w.permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0])
-                        .to(self.dtype).contiguous())
-
-            packed = (taps(w1), b1.float(), taps(w2), b2.float(),
-                      wd.flatten(1).t().float().contiguous(), bd.float(),
-                      wu.flatten(1).t().float().contiguous(), bu.float())
+            w1, b1, w2, b2, wd, bd, wu, bu = self._pack(*(p.detach() for p in params))
+            packed = (w1.to(self.dtype).contiguous(), b1.float(),
+                      w2.to(self.dtype).contiguous(), b2.float(),
+                      wd.float().contiguous(), bd.float(),
+                      wu.float().contiguous(), bu.float())
             self._packed = (key, packed)
         return self._packed[1]
 

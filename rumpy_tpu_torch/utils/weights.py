@@ -1,4 +1,5 @@
-"""Weight bridge from the JAX package: flax param tree -> port state_dict.
+"""Weight bridge to and from the JAX package: flax param tree <-> port
+state_dict.
 
 The inverse of ``rumpy_tpu/utils/torch_convert.py::convert_by_order``, but
 by name rather than by order: a flax tree that has crossed ``jax.jit``
@@ -7,7 +8,8 @@ zip would misassign. Each port module knows which flax auto-name each of
 its children had. ``nn.remat`` renames ``ResidualGroup_<i>`` to
 ``CheckpointResidualGroup_<i>``; both are accepted. Conv kernels go
 HWIO -> OIHW (the CA 1x1 kernels ``(1,1,C,C//r)`` too). Any unused or
-missing leaf, and any shape mismatch, raises.
+missing leaf, and any shape mismatch, raises. ``jax_tree_from_state_dict``
+is the inverse, with flax's plain (not remat) names.
 """
 
 from __future__ import annotations
@@ -123,3 +125,26 @@ def state_dict_from_jax(params, module: nn.Module) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port parameters with no flax leaf: {missing}")
     return out
+
+
+def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                             module: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_jax`: ``module``'s state_dict
+    as a flax param tree (nested dicts of float32 numpy arrays, conv
+    kernels OIHW -> HWIO), so parameters can be compared leaf for leaf."""
+    tree: Dict[str, Any] = {}
+    used = set()
+    for port, flax, conv in _convs(module, "", ()):
+        node = tree
+        for key in flax:
+            node = node.setdefault(key, {})
+        w = state_dict[f"{port}.weight"].detach().cpu().float().numpy()
+        node["kernel"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+        used.add(f"{port}.weight")
+        if conv.bias is not None:
+            node["bias"] = state_dict[f"{port}.bias"].detach().cpu().float().numpy().copy()
+            used.add(f"{port}.bias")
+    unused = sorted(set(state_dict) - used)
+    if unused:
+        raise ValueError(f"state_dict entries with no flax leaf: {unused}")
+    return tree
