@@ -17,9 +17,9 @@ RCAB, 64 features, bf16, seeded random weights):
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
-after it), that outputs and losses are finite, that a fixed batch's loss
-went down, and that the kernel path agrees with the plain path and with
-the CPU.
+after it), that a bf16 train step runs no backward pass on the CUDA cores,
+that outputs and losses are finite, that a fixed batch's loss went down,
+and that the kernel path agrees with the plain path and with the CPU.
 
 Prints the card, then one JSON line per phase, then a ``{"kernels": ...}``
 line, the card's name and power limit, and as its last line
@@ -32,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -76,14 +77,29 @@ EXTRA_SHAPES = [TRAIN_SHAPE, (1, 86, 57, 64), (1, 64, 64, 32), (1, 40, 33, 128),
 # (cuDNN without TF32), per gradient, relative to that gradient's largest
 # entry. f32: the same products summed in another order over up to 36,864
 # pixels. bf16: both sides round h1, dh1 and dx to bf16 (and the plain
-# version its conv-weight gradients), at boundaries that differ: four bf16
-# ulps of the largest entry.
+# version its conv-weight gradients), at boundaries that differ, and the
+# kernel rounds dh2 to bf16 to feed the tensor cores where the plain version
+# keeps it in f32: four bf16 ulps of the largest entry.
 BWD_F32_REL = 2e-4
 BWD_BF16_REL = 2.0 ** -6
+# Backward shapes beside the train step's and the serving path's: tiles
+# ragged on both axes at C=64, the other tensor-core widths (128, 32, 16),
+# and C=24, which stays on the CUDA cores in bf16 too.
+BWD_EXTRA_SHAPES = [(2, 45, 51, 64), (1, 40, 33, 128), (1, 30, 41, 32), (2, 37, 24, 16),
+                    (1, 33, 45, 24)]
+# Channel counts that the kernels run on the tensor cores in bf16. There the
+# backward must beat its plain version (cuDNN in full f32) at every shape held.
+MMA_WIDTHS = (16, 32, 64, 128)
 # One f32 train step of full RCAN x4, parameter gradients of the kernel
 # path against the plain path, relative to each gradient's largest entry:
 # 200 blocks of f32 rounding differences in either direction.
 MODEL_GRAD_F32_REL = 2e-3
+# The same step in bf16. Either path rounds every activation and activation
+# gradient of 200 blocks to bf16, at boundaries that differ between the
+# paths, so they drift apart about as far as bf16 drifts from f32 (printed
+# beside the check as plain_bf16_vs_plain_f32; on an H100 0.0074 between the
+# paths and 0.0125 from f32): allowed eight bf16 ulps of the largest entry.
+MODEL_GRAD_BF16_REL = 2.0 ** -5
 
 # Entropy kernel against its plain version: float32 sums of at most 64
 # terms p * log2(p) in the same order, log2 from two libraries.
@@ -200,14 +216,26 @@ def plain_rcab(rcab):
 
 
 FAMILIES = ("rcab_conv_mma", "rcab_conv_kernel", "rcab_gate", "rcab_apply",
+            "rcab_bwd_wgrad_mma", "rcab_bwd_dh1_mma", "rcab_bwd_dx_mma",
             "rcab_bwd_wgrad", "rcab_bwd_dh1", "rcab_bwd_dx", "rcab_bwd",
             "local_entropy")
+# The backward's CUDA-core passes: a bf16 step at C=64 must launch none.
+CUDA_CORE_BWD = ("rcab_bwd_wgrad", "rcab_bwd_dh1", "rcab_bwd_dx")
 
 
-def traced(fn, name: str, repeats: int):
+def kernel_name(traced_name: str) -> str:
+    """A kernel's own name out of the profiler's: no return type, namespace,
+    template or argument list."""
+    name = traced_name.replace("(anonymous namespace)::", "")
+    m = re.search(r"([A-Za-z_]\w*)\s*[<(]", name.replace("void ", ""))
+    return m.group(1) if m else traced_name
+
+
+def traced(fn, name: str, repeats: int, by_kernel: bool = False):
     """torch.profiler over ``repeats`` calls of ``fn``: device time by
-    kernel family per call, and the share of the traced span the card sat
-    idle. The Chrome trace goes to build/<name>.json."""
+    kernel family per call (with ``by_kernel``, by each kernel's own name
+    too), and the share of the traced span the card sat idle. The Chrome
+    trace goes to build/<name>.json."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(repeats):
@@ -220,13 +248,16 @@ def traced(fn, name: str, repeats: int):
                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
     if not events:
         raise AssertionError("the profiler traced no kernel on the card")
-    by_family = {}
+    by_family, by_name = {}, {}
     for e in events:
         fam = next((k for k in FAMILIES if k in e["name"]), "other")
         by_family[fam] = by_family.get(fam, 0.0) + e["dur"] / repeats
+        name = kernel_name(e["name"])
+        by_name[name] = by_name.get(name, 0.0) + e["dur"] / repeats
     busy = sum(e["dur"] for e in events)
     span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
     return {"per_call_device_us": by_family,
+            **({"per_call_device_us_by_kernel": by_name} if by_kernel else {}),
             "kernels_per_call": len(events) / repeats, "busy_us": busy,
             "span_us": span, "idle_share": 1 - busy / span}
 
@@ -392,19 +423,44 @@ GRAD_NAMES = ["dx", "dw1", "db1", "dw2", "db2", "dwd", "dbd", "dwu", "dbu"]
 
 def rcab_bwd_bound_ms(shape, dtype):
     n, h, w, c = shape
-    ops = 6 * 2 * n * h * w * c * c * 9  # recompute, 2 data and 2 weight gradients
+    # five conv-sized products: conv1 again (the kernel's choice: a backward
+    # that kept h1 would need four), two data and two weight gradients
+    ops = 5 * 2 * n * h * w * c * c * 9
     elt = torch.finfo(dtype).bits // 8
     nbytes = 3 * n * h * w * c * elt + n * h * w * c * 4 + 4 * 9 * c * c * 4
     t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def library_conv_backward_ms(shape):
+    """Two yardsticks the port never calls: one ``convolution_backward`` of a
+    3x3 conv on bf16 channels_last tensors of RCAB's shape, for the weight
+    gradient alone and for the input gradient alone. The backward kernel
+    computes two of each, and conv1 again."""
+    n, h, w, c = shape
+    g = torch.Generator().manual_seed(300)
+    t = lambda *s: torch.randn(*s, generator=g).cuda().to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    grad_out, inp, weight = t(n, c, h, w), t(n, c, h, w), t(c, c, 3, 3)
+
+    def call(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            grad_out, inp, weight, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+
+    return {"library_wgrad_ms": cuda_ms(call([False, True, False]), 20),
+            "library_dgrad_ms": cuda_ms(call([True, False, False]), 20)}
+
+
 def rcab_bwd_phase(rcab):
     """The backward kernel against autograd of the plain version: all nine
-    gradients at the train step's shape and the serving shapes, f32 and
-    bf16, res_scale 1 and 0.5. Returns the bf16 row at the train shape."""
+    gradients at the train step's shape, the serving shapes and
+    BWD_EXTRA_SHAPES, f32 and bf16, res_scale 1 and 0.5, and two runs of one
+    backward bit for bit; fails too where a bf16 backward on the tensor
+    cores is not faster than its plain version. Returns the bf16 row at the
+    train shape, which also holds the device time of each pass and the
+    library's yardsticks."""
     main = None
-    shapes = [TRAIN_SHAPE] + main_path_shapes() + [(1, 33, 45, 24)]
+    shapes = [TRAIN_SHAPE] + main_path_shapes() + BWD_EXTRA_SHAPES
     for i, shape in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
             rel_tol = BWD_F32_REL if dtype == torch.float32 else BWD_BF16_REL
@@ -418,6 +474,9 @@ def rcab_bwd_phase(rcab):
                 torch.cuda.synchronize()
                 if rcab.backward_launches != before + 1:
                     raise AssertionError("the backward kernel was not launched")
+                again = torch.autograd.grad(out, args, dout, retain_graph=True)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"rcab backward: two runs differ at {shape} {dtype}")
                 ref = rcab.rcab_backward_reference(dout, *args, res_scale=res_scale)
                 errs, worst = {}, 0.0
                 for name, a, b in zip(GRAD_NAMES, got, ref):
@@ -431,17 +490,29 @@ def rcab_bwd_phase(rcab):
                             f"res_scale {res_scale}: {errs[name]}, rel tol {rel_tol}")
                 row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
                        "res_scale": res_scale, "worst_rel_err": worst, "rel_tol": rel_tol,
+                       "bit_identical_runs": True,
                        "max_abs_err": errs["dx"]["max_abs_err"], "grads": errs}
                 if res_scale == 1.0:
                     ref_out = rcab.rcab_reference(*args)
-                    row["ms"] = cuda_ms(lambda: torch.autograd.grad(
-                        out, args, dout, retain_graph=True), 10)
+                    backward = lambda: torch.autograd.grad(out, args, dout, retain_graph=True)
+                    row["ms"] = cuda_ms(backward, 10)
                     row["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
                         ref_out, args, dout, retain_graph=True), 10)
                     row["bound_ms"], row["bound_by"] = rcab_bwd_bound_ms(shape, dtype)
+                    if shape == TRAIN_SHAPE:
+                        row["pass_device_us"] = traced(
+                            backward, f"rcab_backward_trace_{row['dtype']}", 5,
+                            by_kernel=True)["per_call_device_us_by_kernel"]
                     if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
+                        row.update(library_conv_backward_ms(shape))
                         main = row
+                    row["faster_than_plain"] = row["ms"] < row["plain_ms"]
                 print(json.dumps({"phase": "rcab_backward_kernel", **row}), flush=True)
+                if (dtype == torch.bfloat16 and shape[3] in MMA_WIDTHS
+                        and not row.get("faster_than_plain", True)):
+                    raise AssertionError(
+                        f"rcab backward on the tensor cores is no faster than its plain "
+                        f"version at {shape}: {row['ms']} ms against {row['plain_ms']} ms")
     return main
 
 
@@ -581,33 +652,51 @@ def train_phase(rcab, ent, card):
            "dataset_item_ms": item_ms,
            "peak_memory_bytes_run": peak_train, "peak_memory_bytes_step": peak_step}
     print(json.dumps(row), flush=True)
-    print(json.dumps({"phase": "train_trace", **traced(step, "rcan_train_step_trace", 1)}),
+    trace = traced(step, "rcan_train_step_trace", 1, by_kernel=True)
+    passes = {k: v for k, v in trace.pop("per_call_device_us_by_kernel").items()
+              if k.startswith("rcab_")}
+    print(json.dumps({"phase": "train_trace", **trace, "rcab_kernels_device_us": passes}),
           flush=True)
+    on_cuda_cores = [k for k in CUDA_CORE_BWD if k in trace["per_call_device_us"]]
+    if on_cuda_cores:
+        raise AssertionError(f"the bf16 train step ran {on_cuda_cores} on the CUDA cores")
     del trainer, iface
 
-    # one f32 step at full width: parameter gradients of the kernel path
-    # against the plain path
-    f32 = get_model("rcan")(device="cuda", optimizer_type="sgd", lr=0.0, **RCAN_FULL)
-    state = f32.init_state(seed=0)
+    # one step at full width, f32 and bf16: parameter gradients of the
+    # kernel path against the plain path
     small = {k: v[:2].contiguous() for k, v in fixed.items()}
 
-    def grads():
-        f32.train_batch(state, small)
-        return {k: p.grad.clone() for k, p in f32.module.named_parameters()}
+    def grads(model, state):
+        model.train_batch(state, small)
+        return {k: p.grad.float().clone() for k, p in model.module.named_parameters()}
 
-    got = grads()
-    with plain_rcab(rcab):
-        plain = grads()
-    worst, where = 0.0, None
-    for k in plain:
-        rel = ((got[k] - plain[k]).abs().max() / plain[k].abs().max()).item()
-        if not rel <= worst:
-            worst, where = rel, k
-    check = {"phase": "f32_grad_check", "worst_rel_err": worst, "at": where,
-             "rel_tol": MODEL_GRAD_F32_REL, "parameters": len(plain)}
-    print(json.dumps(check), flush=True)
-    if not worst <= MODEL_GRAD_F32_REL:
-        raise AssertionError(f"f32 RCAN gradients, kernel path against plain path: {check}")
+    def worst_rel(got, want):
+        worst, where = 0.0, None
+        for k in want:
+            rel = ((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
+            if not rel <= worst:
+                worst, where = rel, k
+        return worst, where
+
+    plain = {}
+    for name, dtype, tol in (("f32", {}, MODEL_GRAD_F32_REL),
+                             ("bf16", {"dtype": "bf16"}, MODEL_GRAD_BF16_REL)):
+        model = get_model("rcan")(device="cuda", optimizer_type="sgd", lr=0.0, **RCAN_FULL,
+                                  **dtype)
+        state = model.init_state(seed=0)
+        got = grads(model, state)
+        with plain_rcab(rcab):
+            plain[name] = grads(model, state)
+        worst, where = worst_rel(got, plain[name])
+        check = {"phase": f"{name}_grad_check", "worst_rel_err": worst, "at": where,
+                 "rel_tol": tol, "parameters": len(got)}
+        if name == "bf16":  # what bf16 itself costs: the plain path, bf16 against f32
+            check["plain_bf16_vs_plain_f32"], check["plain_at"] = worst_rel(
+                plain["bf16"], plain["f32"])
+        print(json.dumps(check), flush=True)
+        if not worst <= tol:
+            raise AssertionError(f"{name} RCAN gradients, kernel path against plain path: {check}")
+        del model, state
     shutil.rmtree(os.path.join(root, "data"))
     return counts
 
@@ -661,6 +750,13 @@ def main() -> int:
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
         "library_ms": None, "at": [bwd_row["shape"], bwd_row["dtype"]],
+        # no single call computes the block's gradient; one 3x3 conv's
+        # weight gradient and input gradient alone (the kernel has two of
+        # each, and conv1 again), and the kernel's own passes
+        "library_wgrad_ms": bwd_row["library_wgrad_ms"],
+        "library_dgrad_ms": bwd_row["library_dgrad_ms"],
+        "worst_rel_err": bwd_row["worst_rel_err"],
+        "pass_device_us": bwd_row["pass_device_us"],
     }, {
         "name": "local_entropy", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/local_entropy.cu",

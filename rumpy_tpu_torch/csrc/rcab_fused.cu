@@ -15,8 +15,9 @@
 // so it is bound by operations (2.4 us at 989 TFLOP/s bf16, 36 us at
 // 67 TFLOP/s for exact f32). In bf16 with C in {16, 32, 64, 128} the convs
 // run on the tensor cores (mma.sync, f32 accumulate); f32, and other C, run
-// on the CUDA cores in f32 (exact products for bf16 inputs). wgmma, TMA and
-// pipelining are later work.
+// on the CUDA cores in f32 (exact products for bf16 inputs). The tensor-core
+// convs take their weights a tap at a time through cp.async, under the mma
+// of the tap before; wgmma and TMA are later work.
 //
 // Design. The TPU kernel holds one whole image in VMEM, so its global
 // average pool is local. A block here has at most 227 KB of shared memory,
@@ -158,96 +159,12 @@ rcab_conv_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 // region (16 a warp tile, any 16 pixels: ldmatrix takes one row address a
 // lane), N = C output channels, K = C input channels. Activations live in
 // shared memory as bf16 [pixel][C + 8] (the pad keeps ldmatrix rows on
-// distinct banks), weights kTapGroup taps at a time as bf16
-// [tap][cin][cout + 8], copied 16 bytes a load and read with ldmatrix.trans.
-// A warp owns up to kMmaAcc / (4 * NT) m-tiles with all NT n-tiles.
+// distinct banks), weights one tap at a time as bf16 [cin][cout + 8] in two
+// buffers, copied by cp.async under the tap before and read with
+// ldmatrix.trans.
+// A warp owns up to kMmaAcc / (4 * NT) m-tiles with all NT n-tiles. The
+// conv routine itself (conv3x3_mma) is in rcab_common.cuh.
 // ---------------------------------------------------------------------------
-
-constexpr int kMmaAcc = 64;   // f32 accumulators a thread
-constexpr int kTapGroup = 3;  // taps of weights staged at once (one row of the 3x3)
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One 3x3 conv from shared memory `src` (region width IW, pixel stride SP)
-// to OH x OW outputs; acc[u][j] is the 16x8 tile (m-tile warp + 8u,
-// n-tile j) in mma's C-fragment layout. Every thread must call it.
-template <int NT>
-__device__ __forceinline__ void conv3x3_mma(
-    const __nv_bfloat16* src, int IW, int OH, int OW, int SP,
-    const __nv_bfloat16* __restrict__ w, __nv_bfloat16* w_s,
-    float (&acc)[kMmaAcc / (4 * NT)][NT][4]) {
-  constexpr int C = NT * 8;
-  constexpr int MU = kMmaAcc / (4 * NT);
-  constexpr int SPW = C + 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int M = OH * OW;
-  const int MT = (M + 15) / 16;
-  int rowoff[MU];
-#pragma unroll
-  for (int u = 0; u < MU; ++u) {
-    int m = (warp + 8 * u) * 16 + (lane & 15);
-    m = m < M ? m : 0;  // padded rows read pixel 0; never stored
-    rowoff[u] = ((m / OW) * IW + m % OW) * SP + (lane >> 4) * 8;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[u][j][q] = 0.f;
-  }
-  // lane's row of the B ldmatrix.trans: k row, n-tile pair (j, j+1)
-  const int brow = ((lane & 7) + ((lane >> 3) & 1) * 8) * SPW + (lane >> 4) * 8;
-  for (int t0 = 0; t0 < 9; t0 += kTapGroup) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kTapGroup * C * (C / 8); i += kThreads) {
-      const int row = i / (C / 8), c8 = (i % (C / 8)) * 8;  // row = tap * C + ci
-      *reinterpret_cast<uint4*>(w_s + row * SPW + c8) =
-          *reinterpret_cast<const uint4*>(w + ((size_t)t0 * C + row) * C + c8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tt = 0; tt < kTapGroup; ++tt) {
-      const int t = t0 + tt;
-      const int toff = ((t / 3) * IW + (t % 3)) * SP;
-      const __nv_bfloat16* wt = w_s + tt * C * SPW + brow;
-#pragma unroll
-      for (int u = 0; u < MU; ++u) {
-        if (warp + 8 * u >= MT) continue;  // warp-uniform
-#pragma unroll
-        for (int k0 = 0; k0 < C; k0 += 16) {
-          uint32_t a[4];
-          ldmatrix_x4(a, src + rowoff[u] + toff + k0);
-#pragma unroll
-          for (int j = 0; j < NT; j += 2) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, wt + k0 * SPW + j * 8);
-            mma_bf16(acc[u][j], a, b[0], b[1]);
-            mma_bf16(acc[u][j + 1], a, b[2], b[3]);
-          }
-        }
-      }
-    }
-  }
-}
 
 template <int NT>
 __global__ void __launch_bounds__(kThreads)
@@ -272,6 +189,7 @@ rcab_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
+  conv_stage_tap<NT, false>(w1, 0, w_s);  // arrives while the x tile is loaded
   // x tile with a 2-pixel halo, zero outside the image, 8 channels a load
   const __nv_bfloat16* xn = x + (size_t)n * H * W * C;
   for (int i = threadIdx.x; i < XH * XW * (C / 8); i += kThreads) {
@@ -287,7 +205,7 @@ rcab_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   const int r0 = lane >> 2, cq = (lane & 3) * 2;
 
   // conv1 on the halo region -> h1 (bf16, zero outside the image)
-  conv3x3_mma<NT>(x_s, XW, H1H, H1W, SP, w1, w_s, acc);
+  conv3x3_mma<NT, false>(x_s, XW, H1H, H1W, SP, w1, w_s, 0, w2, acc);
   {
     const int M = H1H * H1W;
 #pragma unroll
@@ -312,7 +230,7 @@ rcab_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
 
   // conv2 on the tile (its first barrier publishes h1 and ends conv1's
   // reads of x_s, so h2_s may then overwrite it)
-  conv3x3_mma<NT>(h1_s, H1W, TH, TW, SP, w2, w_s, acc);
+  conv3x3_mma<NT, false>(h1_s, H1W, TH, TW, SP, w2, w_s, 1, nullptr, acc);
   {
     const int M = TH * TW;
 #pragma unroll
@@ -432,7 +350,7 @@ int conv_smem(bool mma, int C, int TH, int TW) {
     const int x_bytes = (TH + 4) * (TW + 4) * SP * 2;
     const int h2_bytes = TH * TW * C * 4;
     return (x_bytes > h2_bytes ? x_bytes : h2_bytes) + (TH + 2) * (TW + 2) * SP * 2 +
-           kTapGroup * C * SP * 2;
+           2 * C * SP * 2;
   }
   return (9 * kKC * C + (TH + 4) * (TW + 4) * (C + 1)) * (int)sizeof(float);
 }

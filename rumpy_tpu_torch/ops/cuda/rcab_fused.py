@@ -20,7 +20,10 @@ When a gradient is wanted, ``rcab_fused`` goes through a
 ``torch.autograd.Function`` whose backward is hand-written too
 (``csrc/rcab_fused_bwd.cu``): it keeps the forward's h2 and gate, computes
 h1 again from x, and returns the gradients of all nine inputs, the
-parameters' in float32. The Pallas kernel has no backward; the yardstick
+parameters' in float32. In bfloat16 with C in {16, 32, 64, 128} its
+convolutions and weight gradients run on the tensor cores, and dh2 is
+rounded to bfloat16 on its way into them; float32 and other widths run on
+the CUDA cores. The Pallas kernel has no backward; the yardstick
 is autograd of ``rcab_reference`` (``rcab_backward_reference``), which the
 Function uses for tensors on the CPU and nowhere else.
 """
@@ -164,7 +167,7 @@ def _backward(dout, x, workspace, kargs, res_scale):
     dt = _DTYPES[x.dtype]
     lib = _backward_library()
     partial_at, gate_at, n_tiles = _forward_layout(dt, n, h, w, c)
-    floats = _backward_workspace_floats(dt, n, h, w, c, r)
+    floats = _backward_workspace_floats(dt, n, h, w, c, r, torch.cuda.current_device())
     scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     h1, dh1, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
     grads = [torch.empty_like(t, dtype=torch.float32)
@@ -233,8 +236,10 @@ def _forward_layout(dtype: int, n: int, h: int, w: int, c: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _backward_workspace_floats(dtype: int, n: int, h: int, w: int, c: int, r: int) -> int:
-    """Float32 scratch of one backward launch, as its own plan sizes it."""
+def _backward_workspace_floats(dtype: int, n: int, h: int, w: int, c: int, r: int,
+                              device: int) -> int:
+    """Float32 scratch of one backward launch, as its own plan sizes it for
+    the current device ``device`` (the plan follows the card's SM count)."""
     floats = ctypes.c_longlong()
     _raise_on(_backward_library().rcab_fused_backward_workspace(
         dtype, n, h, w, c, r, ctypes.byref(floats)), "backward plan")

@@ -131,3 +131,127 @@ def test_rcab_module_sends_gradients_to_its_parameters():
     with torch.no_grad():
         block(x)
     assert block._packed[0] is not None
+
+
+# --- the backward kernel's algorithm, walked tile by tile on the CPU ---------
+#
+# The CUDA backward never sees a whole image: it walks TH x TW tiles with a
+# zero halo. These cases redo its sums with PyTorch ops only and hold them
+# against rcab_backward_reference (autograd of the plain version):
+#   * transposed conv: din[p] = sum_t g[p + t] . w[8 - t]^T (tap 8 - t of the
+#     weights as they lie, no flipped copy);
+#   * weight gradient: dw[t] = sum_p a[p + t]^T . g[p] over the tile's pixels p
+#     with a on the halo, or (folded into the pass that holds g on the halo)
+#     dw[t] = sum_q a[q]^T . g[q - t] over the tile's pixels q;
+#   * a pixel outside the image contributes 0 without a mask.
+
+def _tiles(t, th, tw, halo):
+    """(y0, x0, tile) over an (N,H,W,C) tensor: TH x TW tiles, ragged ones
+    zero-filled, with `halo` pixels of zeros or neighbours around."""
+    n, h, w, c = t.shape
+    ph, pw = -h % th, -w % tw
+    padded = torch.nn.functional.pad(t, (0, 0, halo, halo + pw, halo, halo + ph))
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            yield y0, x0, padded[:, y0:y0 + th + 2 * halo, x0:x0 + tw + 2 * halo]
+
+
+def _conv_by_tiles(src, w, th, tw, transposed):
+    """3x3 SAME conv of (N,H,W,C) `src` with tap-major (9,C,C) weights, or
+    its transpose (the gradient with respect to the conv's input)."""
+    n, h, wd_, c = src.shape
+    out = torch.zeros_like(src)
+    for y0, x0, tile in _tiles(src, th, tw, 1):
+        acc = torch.zeros(n, th, tw, c)
+        for t in range(9):
+            ty, tx = divmod(t, 3)
+            k = w[8 - t].T if transposed else w[t]
+            acc += tile[:, ty:ty + th, tx:tx + tw] @ k
+        ye, xe = min(y0 + th, h), min(x0 + tw, wd_)
+        out[:, y0:ye, x0:xe] = acc[:, :ye - y0, :xe - x0]
+    return out
+
+
+def _wgrad_by_tiles(a, g, th, tw, fold):
+    """dw (9,C,C) of a 3x3 SAME conv with input `a` and output gradient `g`."""
+    c = a.shape[-1]
+    dw = torch.zeros(9, c, c)
+    inner, outer = (a, g) if fold else (g, a)
+    for (_, _, small), (_, _, big) in zip(_tiles(inner, th, tw, 0), _tiles(outer, th, tw, 1)):
+        for t in range(9):
+            ty, tx = divmod(t, 3)
+            if fold:  # a on the tile, g shifted back by the tap, from its halo
+                av, gv = small, big[:, 2 - ty:2 - ty + th, 2 - tx:2 - tx + tw]
+            else:     # g on the tile, a shifted by the tap, from its halo
+                av, gv = big[:, ty:ty + th, tx:tx + tw], small
+            dw[t] += av.reshape(-1, c).T @ gv.reshape(-1, c)
+    return dw
+
+
+def _backward_by_tiles(dout, x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale, tile, fold=False,
+                       bf16=False):
+    """All nine gradients the way csrc/rcab_fused_bwd.cu takes them. With
+    `bf16`, h1, dh2, dh1 and dx are rounded to bfloat16 where the kernel
+    rounds them: dh2 once, before the two products that use it (conv2^T and
+    dw2), while db2 sums it unrounded."""
+    th, tw = tile
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
+    hw = x.shape[1] * x.shape[2]
+    h1 = rnd(torch.relu(_conv_by_tiles(x, w1, th, tw, False) + b1))
+    h2 = _conv_by_tiles(h1, w2, th, tw, False) + b2
+    gap = h2.mean(dim=(1, 2))
+    z = gap @ wd + bd
+    d = torch.relu(z)
+    u = torch.sigmoid(d @ wu + bu)
+    g = dout * res_scale
+    ds = (g * h2).sum(dim=(1, 2)) * u * (1 - u)
+    dz = (ds @ wu.T) * (z > 0)
+    dgap = dz @ wd.T
+    dh2_exact = g * u[:, None, None] + dgap[:, None, None] / hw
+    dh2 = rnd(dh2_exact)
+    dh1 = rnd(_conv_by_tiles(dh2, w2, th, tw, True) * (h1 > 0))
+    dx = rnd(_conv_by_tiles(dh1, w1, th, tw, True) + dout)
+    return [dx, _wgrad_by_tiles(x, dh1, th, tw, fold), dh1.sum(dim=(0, 1, 2)),
+            _wgrad_by_tiles(h1, dh2, th, tw, fold), dh2_exact.sum(dim=(0, 1, 2)),
+            gap.T @ dz, dz.sum(0), d.T @ ds, ds.sum(0)]
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["tile", "folded"])
+@pytest.mark.parametrize("shape,tile", [((2, 9, 7, 16), (4, 4)), ((1, 13, 21, 8), (8, 16)),
+                                        ((2, 17, 18, 16), (16, 16)), ((1, 5, 3, 8), (8, 8))])
+def test_tile_walk_identities_match_backward_reference(shape, tile, fold):
+    """f32, ragged tiles on both axes (and an image smaller than a tile):
+    every gradient within 1e-4 of its largest entry."""
+    args, dout = _inputs(5, shape=shape)
+    targs = [torch.from_numpy(a) for a in args]
+    tdout = torch.from_numpy(dout)
+    want = trcab.rcab_backward_reference(tdout, *targs, res_scale=0.5)
+    got = _backward_by_tiles(tdout, *targs, res_scale=0.5, tile=tile, fold=fold)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape, name
+        # <= so that a gradient that is all zero (a gate whose ReLU is shut) passes
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max(), name
+
+
+@pytest.mark.parametrize("res_scale", [1.0, 0.5])
+def test_dh2_rounded_to_bf16_keeps_gradients_within_tolerance(res_scale):
+    """The tensor-core backward feeds dh2 to its mma products as bfloat16.
+    With dh2 rounded once before conv2^T and dw2 (and h1, dh1, dx rounded as
+    before), all nine gradients stay within 2**-6 of their largest entry of
+    f32 jax.grad of rcab_reference at the same bf16-valued inputs."""
+    args, dout = _inputs(6, shape=(2, 12, 10, 16))
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    args = [bf(a) if i in (0, 1, 3) else a for i, a in enumerate(args)]
+    dout = bf(dout)
+    want = _jax_grads(args, dout * res_scale)
+    want[0] = want[0] + dout * (1.0 - res_scale)
+    got = _backward_by_tiles(torch.from_numpy(dout), *map(torch.from_numpy, args),
+                             res_scale=res_scale, tile=(8, 16), bf16=True)
+    exact = _backward_by_tiles(torch.from_numpy(dout), *map(torch.from_numpy, args),
+                               res_scale=res_scale, tile=(8, 16), bf16=False)
+    moved = False
+    for name, g, e, w in zip(NAMES, got, exact, want):
+        assert _rel(g.numpy(), w) < 2.0 ** -6, name
+        assert _rel(e.numpy(), w) < 1e-4, name
+        moved |= not torch.equal(g, e)
+    assert moved  # the rounding is really in the path under test
