@@ -17,9 +17,14 @@ RCAB, 64 features, bf16, seeded random weights):
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
-after it), that a bf16 train step runs no backward pass on the CUDA cores,
-that outputs and losses are finite, that a fixed batch's loss went down,
-and that the kernel path agrees with the plain path and with the CPU.
+after it), that a bf16 train step runs no backward pass on the CUDA cores
+and no separate gate pass, that two runs of a forward or backward give the
+same bits, that the forward's tensor-core conv passes launch a block on
+every SM at the main-path shapes, that outputs and losses are finite, that
+a fixed batch's loss went down, and that the kernel path agrees with the
+plain path and with the CPU. The kernel phases print each forward's launch
+plan, and at the train shape and the largest request's bucket each pass's
+device time beside one cuDNN conv of the same shape.
 
 Prints the card, then one JSON line per phase, then a ``{"kernels": ...}``
 line, the card's name and power limit, and as its last line
@@ -168,13 +173,32 @@ def main_path_shapes():
             in plan_batches(SET5_X4_LR, PAD_MULTIPLE, MAX_BATCH)]
 
 
+def library_conv_ms(shape):
+    """A yardstick the port never calls: one cuDNN 3x3 ``F.conv2d`` on bf16
+    channels_last tensors of RCAB's shape. The kernel computes two such
+    convs, the gate and the residual add."""
+    n, h, w, c = shape
+    g = torch.Generator().manual_seed(301)
+    inp = torch.randn(n, c, h, w, generator=g).cuda().to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    weight = torch.randn(c, c, 3, 3, generator=g).cuda().to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    return cuda_ms(lambda: torch.nn.functional.conv2d(inp, weight, padding=1), 20)
+
+
 def kernel_phase(rcab):
     """Every main-path shape and the extras, f32 and bf16, res_scale 1 and
-    0.5. Returns the bf16 row of the largest request's bucket (the kernels
-    line's numbers) and the largest bf16 error at any shape."""
+    0.5, each with the kernel's launch plan and two runs compared bit for
+    bit (output and workspace: h2, tile sums, gate). At the train shape and
+    the largest request's bucket, each pass's device time and the library's
+    conv beside it. Fails where a bf16 tensor-core plan at a main-path or
+    train shape launches fewer conv blocks than the card has SMs. Returns
+    the bf16 row of the largest request's bucket (the kernels line's
+    numbers), the bf16 row at the train shape, and the largest bf16 error
+    at any shape."""
     main_shapes = main_path_shapes()
     main_shape = max(main_shapes, key=lambda s: s[1] * s[2])
-    rows, main = [], None
+    rows, main, train = [], None, None
     for i, shape in enumerate(main_shapes + EXTRA_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             args = rcab_inputs(shape, dtype, seed=i)
@@ -189,18 +213,39 @@ def kernel_phase(rcab):
                        "dtype": str(dtype).split(".")[-1],
                        "res_scale": res_scale, "max_abs_err": err, "tol": tol}
                 if res_scale == 1.0:
+                    row["plan"] = plan = rcab.plan(shape, dtype)
+                    runs = [rcab._forward(*args, res_scale)[:2] for _ in range(2)]
+                    row["bit_identical_runs"] = all(
+                        torch.equal(a, b) for a, b in zip(*runs))
+                    del runs
                     row["ms"] = cuda_ms(lambda: rcab.rcab_fused(*args), 20)
                     row["host_bound_ms"] = cuda_ms(lambda: rcab.rcab_fused(*args), 20,
                                                    backlog_s=0)
                     row["plain_ms"] = cuda_ms(lambda: rcab.rcab_reference(*args), 20)
                     row["bound_ms"], row["bound_by"] = rcab_bound_ms(shape, dtype)
+                    if shape in (TRAIN_SHAPE, main_shape):
+                        row["pass_device_us"] = traced(
+                            lambda: rcab.rcab_fused(*args),
+                            f"rcab_forward_trace_{row['dtype']}_{shape[1]}", 5,
+                            by_kernel=True)["per_call_device_us_by_kernel"]
+                        if dtype == torch.bfloat16:
+                            row["library_conv_ms"] = library_conv_ms(shape)
                 print(json.dumps({"phase": "kernel", **row}), flush=True)
                 if not err <= tol:
                     raise AssertionError(f"rcab_fused disagrees with rcab_reference: {row}")
+                if not row.get("bit_identical_runs", True):
+                    raise AssertionError(f"rcab_fused: two runs differ at {shape} {dtype}")
+                if (res_scale == 1.0 and plan["tensor_cores"]
+                        and (shape in main_shapes or shape == TRAIN_SHAPE)
+                        and plan["blocks"] < plan["sms"]):
+                    raise AssertionError(f"rcab_fused's conv passes do not fill the SMs: {row}")
                 rows.append(row)
-                if shape == main_shape and dtype == torch.bfloat16 and res_scale == 1.0:
-                    main = row
-    return main, max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+                if dtype == torch.bfloat16 and res_scale == 1.0:
+                    if shape == main_shape:
+                        main = row
+                    if shape == TRAIN_SHAPE:
+                        train = row
+    return main, train, max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
 
 
 @contextlib.contextmanager
@@ -215,7 +260,7 @@ def plain_rcab(rcab):
         rcab.rcab_fused = fused
 
 
-FAMILIES = ("rcab_conv_mma", "rcab_conv_kernel", "rcab_gate", "rcab_apply",
+FAMILIES = ("rcab_conv1_mma", "rcab_conv2_mma", "rcab_conv_kernel", "rcab_apply",
             "rcab_bwd_wgrad_mma", "rcab_bwd_dh1_mma", "rcab_bwd_dx_mma",
             "rcab_bwd_wgrad", "rcab_bwd_dh1", "rcab_bwd_dx", "rcab_bwd",
             "local_entropy")
@@ -254,7 +299,15 @@ def traced(fn, name: str, repeats: int, by_kernel: bool = False):
         by_family[fam] = by_family.get(fam, 0.0) + e["dur"] / repeats
         name = kernel_name(e["name"])
         by_name[name] = by_name.get(name, 0.0) + e["dur"] / repeats
-    busy = sum(e["dur"] for e in events)
+    # busy: the union of the kernels' intervals. A programmatic dependent
+    # launch starts before the kernel ahead of it ends, so the families'
+    # sums above count that overlap twice.
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        start, stop = max(e["ts"], end), e["ts"] + e["dur"]
+        if stop > start:
+            busy += stop - start
+        end = max(end, stop)
     span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
     return {"per_call_device_us": by_family,
             **({"per_call_device_us_by_kernel": by_name} if by_kernel else {}),
@@ -660,6 +713,9 @@ def train_phase(rcab, ent, card):
     on_cuda_cores = [k for k in CUDA_CORE_BWD if k in trace["per_call_device_us"]]
     if on_cuda_cores:
         raise AssertionError(f"the bf16 train step ran {on_cuda_cores} on the CUDA cores")
+    gate_passes = [k for k in passes if k.startswith("rcab_gate")]
+    if gate_passes:  # the forward's gate is folded into its apply pass
+        raise AssertionError(f"the bf16 train step ran a separate gate pass: {gate_passes}")
     del trainer, iface
 
     # one step at full width, f32 and bf16: parameter gradients of the
@@ -724,7 +780,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "nvcc_seconds": build.build_seconds}), flush=True)
 
-    main_row, bf16_err = kernel_phase(rcab)
+    main_row, train_row, bf16_err = kernel_phase(rcab)
     ent_row = entropy_phase(ent)
     bwd_row = rcab_bwd_phase(rcab)
     serve_launches = slice_phase(rcab, card)
@@ -741,6 +797,14 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None, "at": [main_row["shape"], main_row["dtype"]],
+        # no single call computes the fused block; one cuDNN 3x3 conv of
+        # this shape alone (the kernel computes two, the gate and the add)
+        "library_conv_ms": main_row["library_conv_ms"],
+        "plan": main_row["plan"], "pass_device_us": main_row["pass_device_us"],
+        "bit_identical_runs": main_row["bit_identical_runs"],
+        "train_shape": {k: train_row[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "library_conv_ms", "plan",
+            "pass_device_us", "max_abs_err")},
     }, {
         "name": "rcab_fused_backward", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/rcab_fused_bwd.cu",

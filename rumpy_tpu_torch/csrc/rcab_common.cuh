@@ -1,8 +1,10 @@
 // Device code shared by the RCAB forward (rcab_fused.cu) and backward
 // (rcab_fused_bwd.cu) kernels: type conversion, the 3x3 convolution from
-// shared memory on the CUDA cores (conv3x3_smem) and on the tensor cores
-// (conv3x3_mma, which is also the transposed convolution of a backward
-// pass), cp.async helpers, and the shared-memory limit helper.
+// shared memory on the CUDA cores (conv3x3_smem), the mma.sync and
+// ldmatrix helpers, the backward's tensor-core conv (conv3x3_mma, also its
+// transposed conv; the forward's passes tile by warp units in
+// rcab_fused.cu), cp.async helpers, the shared-memory limit helper and the
+// SM count.
 // Each source that includes this file is built into its own library.
 
 #pragma once
@@ -245,6 +247,23 @@ cudaError_t allow_smem(K* kernel, int bytes, int (&done)[kMaxDevices]) {
   if (dev < kMaxDevices && bytes <= done[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = bytes;
+  return err;
+}
+
+// The current device's number of SMs (132 on an H100 SXM), asked once a
+// device: the forward's and the backward's tensor-core plans size their
+// grids by it.
+cudaError_t sm_count(int* sms) {
+  static int known[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && known[dev]) {
+    *sms = known[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) known[dev] = *sms;
   return err;
 }
 

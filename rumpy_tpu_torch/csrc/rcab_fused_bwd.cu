@@ -1047,22 +1047,6 @@ struct Plan {
 
 constexpr int kTiles[][2] = {{16, 16}, {8, 16}, {8, 8}, {4, 8}, {4, 4}};
 
-// The current device's number of SMs (132 on an H100 SXM), asked once a
-// device: the tensor-core plan sizes two of its grids by it.
-cudaError_t sm_count(int* sms) {
-  static int known[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && known[dev]) {
-    *sms = known[dev];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < kMaxDevices) known[dev] = *sms;
-  return err;
-}
-
 // For the current device.
 cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
   if ((dtype != 0 && dtype != 1) || C <= 0 || C % 8 || N <= 0 || H <= 0 || W <= 0)
