@@ -5,9 +5,11 @@
 Builds the port's CUDA kernels from ``rumpy_tpu_torch/csrc`` into
 ``rumpy_tpu_torch/build/`` (one nvcc process a source, side by side), holds
 each against its plain PyTorch version at the shapes the main paths give it
-and at a few others, then drives the two paths the port has, each through
-the entry points a user would call, at full width (RCAN x4, 10 groups x 20
-RCAB, 64 features, bf16, seeded random weights):
+and at a few others (the entropy path's kernels after serving, so that their
+checks do not run in the process ahead of the serving numbers), and drives
+the two paths the port has, each through the entry points a user would
+call, at full width (RCAN x4, 10 groups x 20 RCAB, 64 features, bf16,
+seeded random weights):
 
 * serving: registry -> handler -> checkpoint -> SISRInterface(eval,
   load_epoch="last") -> BatchedPredictor.predict over the Set5 shapes;
@@ -17,7 +19,11 @@ RCAB, 64 features, bf16, seeded random weights):
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
-after it), that a bf16 train step runs no backward pass on the CUDA cores
+after it), that the entropy kernel's fused front gives luma_u8's grey
+levels and the window-sum kernel the plain pooled map, both bit for bit,
+that entropy picks on the card are the CPU's (or near ties), that one
+item's entropy path is at most 4 launches with at most 16 bytes copied to
+the host, that a bf16 train step runs no backward pass on the CUDA cores
 and no separate gate pass, that two runs of a forward or backward give the
 same bits, that the forward's tensor-core conv passes launch a block on
 every SM at the main-path shapes, that outputs and losses are finite, that
@@ -106,11 +112,15 @@ MODEL_GRAD_F32_REL = 2e-3
 # paths and 0.0125 from f32): allowed eight bf16 ulps of the largest entry.
 MODEL_GRAD_BF16_REL = 2.0 ** -5
 
-# Entropy kernel against its plain version: float32 sums of at most 64
-# terms p * log2(p) in the same order, log2 from two libraries.
+# Entropy kernel against its plain version: the kernel's log2(N) - S/N with
+# S in fixed point (the table's rounding moves a value by at most 2**-21),
+# the plain version's float32 sum of p * log2(p) over up to 256 bins.
 ENTROPY_ATOL = 1e-5
+# Two entropy picks are a near tie if their plain pooled scores (sums of
+# crop**2 entropies) differ by at most crop**2 times the kernel's tolerance.
 ENTROPY_SHAPES = [(339, 510), (512, 512), (37, 53)]
 TRAIN_LR_SHAPE, TRAIN_SCALE = ENTROPY_SHAPES[0], 4
+TIE_TOL = TRAIN_CROP ** 2 * ENTROPY_ATOL
 TRAIN_IMAGES, TRAIN_SETS, TRAIN_EPOCHS = 8, 5, 2
 
 
@@ -263,7 +273,7 @@ def plain_rcab(rcab):
 FAMILIES = ("rcab_conv1_mma", "rcab_conv2_mma", "rcab_conv_kernel", "rcab_apply",
             "rcab_bwd_wgrad_mma", "rcab_bwd_dh1_mma", "rcab_bwd_dx_mma",
             "rcab_bwd_wgrad", "rcab_bwd_dh1", "rcab_bwd_dx", "rcab_bwd",
-            "local_entropy")
+            "local_entropy", "window_sum")
 # The backward's CUDA-core passes: a bf16 step at C=64 must launch none.
 CUDA_CORE_BWD = ("rcab_bwd_wgrad", "rcab_bwd_dh1", "rcab_bwd_dx")
 
@@ -420,54 +430,152 @@ def entropy_image(shape, seed):
     return img.clamp(0, 255).to(torch.uint8).cuda()
 
 
-def entropy_bound_ms(ent, img, region, levels):
-    """Bytes over the memory rate: the image read once, the float32 map
-    written once. The operations the function needs (a sliding column
-    histogram: about 2 * region updates a pixel) stay far under that time.
-    Beside it, what this kernel does on this image: one histogram update
-    per window sample and a divide, a log2 and a multiply-add per non-empty
-    bin, and its time at the f32 rate. Returns (bound ms, bound by,
-    kernel's operations, their ms, bytes)."""
-    hist = ent.window_histogram(img, region, levels)
-    ops = float(hist.sum().item()) + 4.0 * float((hist > 0).sum().item())
-    nbytes = img.numel() * (1 + 4)
-    return (nbytes / PEAK_BYTES * 1e3, "bytes", ops,
-            ops / PEAK_OPS[torch.float32] * 1e3, nbytes)
+def entropy_bound_ms(img):
+    """Bytes over the memory rate: the image (uint8 RGB or grey levels) read
+    once, the float32 map written once. The operations the function needs
+    (a sliding histogram: about 2 * region updates a pixel) stay under that
+    time. Returns (bound ms, bound by, bytes)."""
+    h, w = img.shape[:2]
+    nbytes = img.numel() * img.element_size() + 4 * h * w
+    return nbytes / PEAK_BYTES * 1e3, "bytes", nbytes
+
+
+def launch_floor_ms() -> float:
+    """Device ms of one empty kernel among many queued back to back: what a
+    launch costs the card before it does any work."""
+    return cuda_ms(lambda: torch.cuda._sleep(0), 200)
 
 
 def entropy_phase(ent):
     """Kernel against plain version, borders included, at the train path's
-    LR size, 512x512 and a ragged small image. Returns the row at the main
-    path's shape and defaults (region 10, levels 64)."""
+    LR size, 512x512 and a ragged small image, from the two sources the
+    kernel reads: uint8 RGB (``local_entropy_rgb``, the grey levels computed
+    in its load: the main path's variant) against ``local_entropy_reference``
+    of the CPU's ``grey_levels_reference``, and uint8 grey levels
+    (``local_entropy``). Returns the RGB row at the main path's shape and
+    defaults (region 10, levels 64)."""
     main = None
     for i, shape in enumerate(ENTROPY_SHAPES):
-        img = entropy_image(shape, seed=i)
-        for region in (9, 10):
-            for levels in (64, 256):
-                got = ent.local_entropy(img, region, levels)
-                torch.cuda.synchronize()
-                ref = ent.local_entropy_reference(img, region, levels)
-                err = (got - ref).abs().max().item()
-                border = max((got[:region] - ref[:region]).abs().max().item(),
-                             (got[:, :region] - ref[:, :region]).abs().max().item(),
-                             (got[-region:] - ref[-region:]).abs().max().item(),
-                             (got[:, -region:] - ref[:, -region:]).abs().max().item())
-                row = {"shape": shape, "region": region, "levels": levels,
-                       "max_abs_err": err, "border_max_abs_err": border,
-                       "tol": ENTROPY_ATOL, "entropy_max": ref.max().item()}
-                is_main = shape == TRAIN_LR_SHAPE and region == 10 and levels == 64
-                if is_main or (region == 10 and levels == 64):
-                    row["ms"] = cuda_ms(lambda: ent.local_entropy(img, region, levels), 50)
-                    row["plain_ms"] = cuda_ms(
-                        lambda: ent.local_entropy_reference(img, region, levels), 5)
-                    (row["bound_ms"], row["bound_by"], row["operations"],
-                     row["operations_ms"], row["bytes"]) = entropy_bound_ms(
-                         ent, img, region, levels)
-                print(json.dumps({"phase": "entropy_kernel", **row}), flush=True)
-                if not (err <= ENTROPY_ATOL and got.shape == ref.shape):
-                    raise AssertionError(f"local_entropy disagrees with its plain version: {row}")
-                if is_main:
-                    main = row
+        rgb = smoke_rgb(shape, seed=20 + i)
+        grey = entropy_image(shape, seed=i)
+        sources = (("rgb_u8", rgb, ent.grey_levels_reference(rgb.cpu()).cuda(),
+                    ent.local_entropy_rgb, ent.grey_levels_reference),
+                   ("grey_u8", grey, grey, ent.local_entropy, lambda g: g))
+        for source, img, levels_of_img, kernel, plain_front in sources:
+            for region in (9, 10):
+                for levels in (64, 256):
+                    got = kernel(img, region, levels)
+                    torch.cuda.synchronize()
+                    ref = ent.local_entropy_reference(levels_of_img, region, levels)
+                    err = (got - ref).abs().max().item()
+                    border = max((got[:region] - ref[:region]).abs().max().item(),
+                                 (got[:, :region] - ref[:, :region]).abs().max().item(),
+                                 (got[-region:] - ref[-region:]).abs().max().item(),
+                                 (got[:, -region:] - ref[:, -region:]).abs().max().item())
+                    row = {"source": source, "shape": shape, "region": region,
+                           "levels": levels, "max_abs_err": err,
+                           "border_max_abs_err": border, "tol": ENTROPY_ATOL,
+                           "entropy_max": ref.max().item()}
+                    if region == 10 and levels == 64:
+                        row["ms"] = cuda_ms(lambda: kernel(img, region, levels), 50)
+                        row["plain_ms"] = cuda_ms(lambda: ent.local_entropy_reference(
+                            plain_front(img), region, levels), 5)
+                        row["bound_ms"], row["bound_by"], row["bytes"] = entropy_bound_ms(img)
+                    is_main = (source == "rgb_u8" and shape == TRAIN_LR_SHAPE
+                               and region == 10 and levels == 64)
+                    if is_main:
+                        row["launch_floor_ms"] = launch_floor_ms()
+                        main = row
+                    print(json.dumps({"phase": "entropy_kernel", **row}), flush=True)
+                    if not (err <= ENTROPY_ATOL and got.shape == ref.shape):
+                        raise AssertionError(
+                            f"local_entropy disagrees with its plain version: {row}")
+    return main
+
+
+def smoke_rgb(shape, seed):
+    """An 8-bit RGB image with smooth and textured regions, uint8 on the card."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = shape
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    amp = 70.0 * (0.5 + 0.5 * torch.sin(xx / 23.0)) * (0.5 + 0.5 * torch.cos(yy / 13.0))
+    img = 128.0 + amp[..., None] * torch.randn(h, w, 3, generator=g)
+    return img.clamp(0, 255).to(torch.uint8).cuda()
+
+
+def front_phase(ent):
+    """The entropy kernel's fused front: its grey levels of uint8 RGB against
+    luma_u8 of the float32 image that the dataset's conversion gives (v /
+    255 in numpy), on the card, bit for bit; and the entropy from RGB
+    against the entropy of those grey levels, bit for bit, from uint8 and
+    from float32 RGB (whose grey levels the plain front computes on the
+    card before the kernel)."""
+    from rumpy_tpu_torch.ops.entropy import luma_u8
+    rows = []
+    for i, shape in enumerate(ENTROPY_SHAPES):
+        rgb = smoke_rgb(shape, seed=40 + i)
+        as_float = torch.from_numpy(rgb.cpu().numpy().astype(np.float32) / 255.0).cuda()
+        want = luma_u8(as_float).to(torch.uint8)
+        for src in (rgb, as_float):
+            grey = ent.grey_levels(rgb) if src is rgb else ent.grey_levels_reference(src)
+            flips = int((grey != want).sum().item())
+            same = torch.equal(ent.local_entropy_rgb(src, 10, 64), ent.local_entropy(want, 10, 64))
+            row = {"phase": "entropy_front", "shape": shape, "source": str(src.dtype),
+                   "grey_level_flips": flips, "entropy_bit_identical": same}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            if flips or not same:
+                raise AssertionError(f"the fused front disagrees with luma_u8: {row}")
+    return rows
+
+
+def window_bound_ms(shape, k):
+    """The window sums' least time: the map read once and the pooled map
+    written once, or the adds (rows, then columns) at the float32 rate."""
+    h, w = shape
+    ho, wo = h - k + 1, w - k + 1
+    nbytes = 4 * (h * w + ho * wo)
+    ops = (k - 1) * ho * (w + wo)
+    t_ops, t_bytes = ops / PEAK_OPS[torch.float32], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_window_ms(x, k):
+    """A yardstick the port never calls: one float32 ``avg_pool2d`` of the
+    map, stride 1, with ``divisor_override=1`` (the same window sums, in its
+    own order)."""
+    return cuda_ms(lambda: torch.nn.functional.avg_pool2d(
+        x[None, None], k, stride=1, divisor_override=1), 20)
+
+
+def window_phase(ent, win):
+    """The window-sum kernel against its plain version (box_filter_same,
+    trimmed) on the same entropy map, bit for bit, and its pick against the
+    plain pick, highest and lowest, at each entropy shape and a few window
+    sizes. Returns the row at the train path's LR size and crop."""
+    main = None
+    for i, shape in enumerate(ENTROPY_SHAPES):
+        e = ent.local_entropy_rgb(smoke_rgb(shape, seed=60 + i), 10, 64)
+        for k in sorted({min(TRAIN_CROP, *shape), 16, 1}):
+            row = {"shape": shape, "window": k}
+            for lowest in (False, True):
+                pick = torch.zeros(1, dtype=torch.int64, device="cuda")
+                got = win.window_sum(e, k, pick=pick, lowest=lowest)
+                ref = win.window_sum_reference(e, k)
+                key_index = win.pick_index(pick.item())
+                want_index, _ = win.pick_reference(ref, lowest)
+                row["bit_identical"] = bool(torch.equal(got, ref))
+                row["max_abs_err"] = (got - ref).abs().max().item()
+                row["lowest_pick" if lowest else "pick"] = [key_index, want_index]
+                if not row["bit_identical"] or key_index != want_index:
+                    raise AssertionError(f"window_sum disagrees with its plain version: {row}")
+            if shape == TRAIN_LR_SHAPE and k == TRAIN_CROP:
+                row["ms"] = cuda_ms(lambda: win.window_sum(e, k), 50)
+                row["plain_ms"] = cuda_ms(lambda: win.window_sum_reference(e, k), 5)
+                row["bound_ms"], row["bound_by"] = window_bound_ms(shape, k)
+                row["library_ms"] = library_window_ms(e, k)
+                main = row
+            print(json.dumps({"phase": "window_sum_kernel", **row}), flush=True)
     return main
 
 
@@ -589,12 +697,110 @@ def write_pairs(root, rng):
     return lr_dir, hr_dir
 
 
+def selection_phase(lr_dir):
+    """Entropy patch picks of the smoke's LR images on the card against the
+    CPU plain path, at 1 and 3 patches: equal, or a near tie (the plain
+    pooled scores at the two picks within TIE_TOL). After a near tie the
+    masks differ, so later picks are not compared. Then what one item's
+    entropy path puts on the card, from a trace."""
+    from rumpy_tpu_torch.ops.entropy import entropy_patch_positions, pooled_entropy
+    rows, ties = [], 0
+    names = sorted(os.listdir(lr_dir))
+    for name in names:
+        lr = np.load(os.path.join(lr_dir, name))
+        # on the CPU a single pick is the first of the 3-pick loop
+        want3 = entropy_patch_positions(lr, TRAIN_CROP, 3, device="cpu")
+        plain = None
+        for n in (1, 3):
+            got = entropy_patch_positions(lr, TRAIN_CROP, n)
+            want = (want3[0][:n], want3[1][:n])
+            row = {"image": name, "patches": n, "card": got, "cpu": want}
+            for gy, gx, wy, wx in zip(*got, *want):
+                if (gy, gx) == (wy, wx):
+                    continue
+                if plain is None:
+                    plain = pooled_entropy(lr, TRAIN_CROP, device="cpu").numpy()
+                gap = abs(float(plain[gy, gx]) - float(plain[wy, wx]))
+                row["near_tie_gap"] = gap
+                if not gap <= TIE_TOL:
+                    raise AssertionError(f"entropy picks differ from the CPU's: {row}")
+                ties += 1
+                break
+            rows.append(row)
+    lr = np.load(os.path.join(lr_dir, names[0]))
+    per_item = {n: device_ops(lambda: entropy_patch_positions(lr, TRAIN_CROP, n),
+                              f"entropy_path_{n}") for n in (1, 3)}
+    # what a torch.argmax of the pooled map would add instead of the pick
+    # the window-sum kernel takes
+    pooled = pooled_entropy(lr, TRAIN_CROP)
+    argmax = device_ops(lambda: int(torch.argmax(pooled).item()), "torch_argmax")
+    out = {"phase": "entropy_selection", "images": len(names), "near_ties": ties,
+           "tie_tol": TIE_TOL, "picks": rows, "torch_argmax_launches": argmax["by_kind"],
+           "entropy_launches_per_item": per_item[1]["launches"],
+           "entropy_d2h_bytes_per_item": per_item[1]["d2h_bytes"],
+           "entropy_path": {str(n): v for n, v in per_item.items()}}
+    print(json.dumps(out), flush=True)
+    one = per_item[1]
+    if one["launches"] > 4 or one["d2h_bytes"] > 16 or one["d2h_copies"] != 1:
+        raise AssertionError(f"one item's entropy path: {one}, expected at most 4 "
+                             f"launches and one copy of at most 16 bytes to the host")
+    return out
+
+
+def device_ops(fn, name: str):
+    """What one call of ``fn`` puts on the card, from a torch.profiler
+    trace: kernels, copies and memsets (each one launch), and the bytes it
+    copies from the device to the host. The trace goes to build/<name>.json."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()  # warm: libraries built, tables uploaded
+    torch.cuda.synchronize()
+    # a traced span's first device events can go missing while the tracer
+    # starts: one call in a warm-up step, then the call that is counted
+    path = os.path.join(ROOT, "build", f"{name}.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    d2h = [e for e in events if e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]]
+    return {"launches": len(events),
+            "by_kind": {k: sum(e["cat"] == k for e in events)
+                        for k in ("kernel", "gpu_memcpy", "gpu_memset")},
+            "kernels": sorted({kernel_name(e["name"]) for e in events
+                               if e["cat"] == "kernel"}),
+            "d2h_bytes": sum(int(e.get("args", {}).get("bytes", 0)) for e in d2h),
+            "d2h_copies": len(d2h)}
+
+
+def item_parts_ms(ds):
+    """Host ms of each part of each item of ``ds``, from the laps that
+    ``SuperResImages.__getitem__`` takes while its ``part_ms`` is set:
+    decode (both files, the decode cache cleared first), select (the
+    entropy patch corner, which waits for its device work), crop + augment
+    and convert."""
+    from rumpy_tpu_torch.data import datasets
+    parts = {}
+    for idx in range(len(ds)):
+        datasets._decode_cached.cache_clear()
+        ds.part_ms = {}
+        ds[idx]
+        for part, v in ds.part_ms.items():
+            parts.setdefault(part, []).append(v)
+    ds.part_ms = None
+    return parts
+
+
 def l1_on(model, state, batch):
     sr = model.run_eval(state, {"lr": batch["lr"]}).float()
     return (sr - batch["hr"]).abs().mean().item()
 
 
-def train_phase(rcab, ent, card):
+def train_phase(rcab, ent, win, card):
     """The training path through its CLI, then what it wrote serves."""
     from rumpy_tpu_torch.cli import train_sisr
     from rumpy_tpu_torch.config.loader import dump_toml
@@ -606,6 +812,7 @@ def train_phase(rcab, ent, card):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(0))
+    selection = selection_phase(lr_dir)
     internal = dict(RCAN_FULL, dtype="bf16", lr=1e-4, optimizer_type="adam")
     seed = 1
     cfg = {
@@ -639,16 +846,16 @@ def train_phase(rcab, ent, card):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rcab.launches = rcab.backward_launches = ent.launches = 0
+    rcab.launches = rcab.backward_launches = ent.launches = win.launches = 0
     t0 = time.perf_counter()
     stats = train_sisr.main(["-p", cfg_path])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches,
-              "local_entropy": ent.launches}
+              "local_entropy": ent.launches, "window_sum": win.launches}
     peak_train = torch.cuda.max_memory_allocated()
     want = {"rcab_fused": 200 * steps, "rcab_fused_backward": 200 * steps,
-            "local_entropy": TRAIN_BATCH * steps}
+            "local_entropy": TRAIN_BATCH * steps, "window_sum": TRAIN_BATCH * steps}
     if counts != want:
         raise AssertionError(f"kernel launches in the training run {counts}, expected {want} "
                              f"({steps} steps of batch {TRAIN_BATCH}, 200 RCAB)")
@@ -695,6 +902,7 @@ def train_phase(rcab, ent, card):
             t0 = time.perf_counter()
             sel[i]
             ms.append((time.perf_counter() - t0) * 1e3)
+    by_part = item_parts_ms(sel)
     row = {"phase": "train", "model": "rcan x4 10x20x64 bf16", "card": card,
            "steps": steps, "batch": TRAIN_BATCH, "crop": TRAIN_CROP, "launches": counts,
            "epoch_train_loss": losses,
@@ -702,7 +910,9 @@ def train_phase(rcab, ent, card):
            "run_experiment_s": seconds, "fixed_batch_loss_before": loss_before,
            "fixed_batch_loss_after": loss_after, "step_ms": step_ms,
            "hr_megapixels_per_s": hr_mp / (step_ms / 1e3),
-           "dataset_item_ms": item_ms,
+           "dataset_item_ms": item_ms, "dataset_item_ms_by_part": by_part,
+           "entropy_launches_per_item": selection["entropy_launches_per_item"],
+           "entropy_d2h_bytes_per_item": selection["entropy_d2h_bytes_per_item"],
            "peak_memory_bytes_run": peak_train, "peak_memory_bytes_step": peak_step}
     print(json.dumps(row), flush=True)
     trace = traced(step, "rcan_train_step_trace", 1, by_kernel=True)
@@ -765,6 +975,7 @@ def main() -> int:
     from rumpy_tpu_torch.ops.cuda import build
     from rumpy_tpu_torch.ops.cuda import local_entropy as ent
     from rumpy_tpu_torch.ops.cuda import rcab_fused as rcab
+    from rumpy_tpu_torch.ops.cuda import window_sum as win
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -776,15 +987,17 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
 
     t0 = time.perf_counter()
-    build.build_all(["rcab_fused", "rcab_fused_bwd", "local_entropy"])
+    build.build_all(["rcab_fused", "rcab_fused_bwd", "local_entropy", "window_sum"])
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "nvcc_seconds": build.build_seconds}), flush=True)
 
     main_row, train_row, bf16_err = kernel_phase(rcab)
-    ent_row = entropy_phase(ent)
     bwd_row = rcab_bwd_phase(rcab)
     serve_launches = slice_phase(rcab, card)
-    train_launches = train_phase(rcab, ent, card)
+    ent_row = entropy_phase(ent)
+    front_phase(ent)
+    win_row = window_phase(ent, win)
+    train_launches = train_phase(rcab, ent, win, card)
 
     kernels = [{
         "name": "rcab_fused", "route": "cuda",
@@ -829,8 +1042,22 @@ def main() -> int:
         "max_abs_err": ent_row["max_abs_err"],
         "ms": ent_row["ms"], "plain_ms": ent_row["plain_ms"],
         "bound_ms": ent_row["bound_ms"], "bound_by": ent_row["bound_by"],
-        "library_ms": None, "at": [ent_row["shape"], "uint8"],
-        "operations": ent_row["operations"], "operations_ms": ent_row["operations_ms"],
+        "library_ms": None, "at": [ent_row["shape"], "uint8 rgb"],
+        # one empty kernel's device time: the floor a launch puts under ms
+        "launch_floor_ms": ent_row["launch_floor_ms"],
+    }, {
+        "name": "window_sum", "route": "cuda",
+        "source": "rumpy_tpu_torch/csrc/window_sum.cu",
+        # XLA code, no Pallas kernel: the pooled map's box filter and trim
+        "replaces": "rumpy_tpu/ops/entropy.py:88",
+        "launches": train_launches["window_sum"],
+        "max_abs_err": win_row["max_abs_err"],
+        "ms": win_row["ms"], "plain_ms": win_row["plain_ms"],
+        "bound_ms": win_row["bound_ms"], "bound_by": win_row["bound_by"],
+        # one avg_pool2d with divisor_override=1: the same sums
+        "library_ms": win_row["library_ms"],
+        "at": [win_row["shape"], "float32", win_row["window"]],
+        "bit_identical": win_row["bit_identical"],
     }]
     print(json.dumps({"phase": "kernels_at", "shape": main_row["shape"],
                       "dtype": main_row["dtype"],

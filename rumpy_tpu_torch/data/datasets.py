@@ -25,6 +25,7 @@ from __future__ import annotations
 import functools
 import os
 import re
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +77,10 @@ def _later(what: str, slice_name: str):
 
 
 class SuperResImages:
+    # While a dict: host ms of the items read, summed by part ("decode",
+    # "select", "convert", "crop_augment"), from laps that __getitem__ takes.
+    part_ms: Optional[Dict[str, float]] = None
+
     def __init__(self, lr_dir: Optional[str] = None,
                  hr_dir: Optional[str] = None,
                  dataset: Optional[str] = None,
@@ -240,11 +245,14 @@ class SuperResImages:
     def _select_patch(self, img: np.ndarray, crop_size: int, idx: int,
                       tag: Optional[str] = None, crop_index: int = 0,
                       total: int = 1) -> Tuple[int, int]:
-        """Patch corner by patch_type: predefined list / entropy / random."""
+        """Patch corner by patch_type: predefined list / entropy / random.
+        ``img`` is the LR image before conversion (uint8 RGB)."""
         if self.patch_type == "predefined" and self.predefined_patch_locations:
             return tuple(self.predefined_patch_locations[
                 (idx + crop_index) % len(self.predefined_patch_locations)])
-        if self.patch_type == "entropy" and img.shape[-1] == 3:
+        # the converted LR has 3 channels unless it is YCbCr's Y, the JAX
+        # package's condition for an entropy patch
+        if self.patch_type == "entropy" and self.colorspace != "ycbcr":
             from rumpy_tpu_torch.ops.entropy import entropy_patch_positions
             # multi-crop calls this once per crop_index with identical
             # (img, crop_size, total): compute the position list once per
@@ -268,9 +276,18 @@ class SuperResImages:
         left = int(self._rng.integers(0, max(1, img.shape[1] - crop_size + 1)))
         return top, left
 
+    def _lap(self, part: str, since: float) -> float:
+        """Adds the ms since ``since`` to ``part_ms[part]`` while timing;
+        returns the time now."""
+        now = time.perf_counter()
+        if self.part_ms is not None:
+            self.part_ms[part] = self.part_ms.get(part, 0.0) + (now - since) * 1e3
+        return now
+
     # -- main accessor -----------------------------------------------------
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
+        t = time.perf_counter()
         lr_path = self.lr_files[idx]
         tag = os.path.basename(lr_path)
         lr = _decode(lr_path)
@@ -284,32 +301,44 @@ class SuperResImages:
             oh = (hr.shape[0] - th) // 2
             ow = (hr.shape[1] - tw) // 2
             hr = hr[oh:oh + th, ow:ow + tw]
+        t = self._lap("decode", t)
 
-        lr_f = self._colorspace_convert(lr)
-        hr_f = self._colorspace_convert(hr) if hr is not None else None
-
+        # Both images are converted after the crop: the conversion is per
+        # pixel, so a crop of the converted image has the same bits, and the
+        # whole HR image is never converted. That holds while no whole-image
+        # op runs before the crop: random colour distortion (which raises
+        # until the degradation slice) distorts whole images before cropping
+        # in the JAX package's order, and must bring back whole-image
+        # conversion when it is ported.
         if self.crop is not None and self.crop_count > 1:
             # Multi-crop mode (contrastive training): stack crop_count
             # patches of the LR image on a leading axis.
             cs = self.crop
             crops = []
             for ci in range(self.crop_count):
-                top, left = self._select_patch(lr_f, cs, idx, tag=tag,
+                top, left = self._select_patch(lr, cs, idx, tag=tag,
                                                crop_index=ci,
                                                total=self.crop_count)
-                patch = lr_f[top:top + cs, left:left + cs]
-                if ci == 0 and hr_f is not None:
-                    # HR aligned with the first (query) crop; geometric
-                    # augmentation must hit LR and HR with the SAME draws
+                t = self._lap("select", t)
+                patch = self._colorspace_convert(lr[top:top + cs, left:left + cs])
+                hr_patch = None
+                if ci == 0 and hr is not None:
+                    # HR aligned with the first (query) crop
                     hs = cs * self.scale
-                    hr_patch = hr_f[top * self.scale:top * self.scale + hs,
-                                    left * self.scale:left * self.scale + hs]
+                    hr_patch = self._colorspace_convert(
+                        hr[top * self.scale:top * self.scale + hs,
+                           left * self.scale:left * self.scale + hs])
+                t = self._lap("convert", t)
+                if hr_patch is not None:
+                    # geometric augmentation must hit LR and HR with the
+                    # SAME draws
                     if self.augmentations:
                         patch, hr_patch = self._augment(patch, hr_patch)
                     out["hr"] = hr_patch.astype(np.float32)
                 elif self.augmentations:
                     patch, = self._augment(patch)
                 crops.append(patch)
+                t = self._lap("crop_augment", t)
             out["lr"] = np.stack(crops).astype(np.float32)
             out["metadata"] = np.array([], np.float32)
             out["metadata_keys"] = self.metadata_keys
@@ -317,12 +346,17 @@ class SuperResImages:
 
         if self.crop is not None:
             cs = self.crop
-            top, left = self._select_patch(lr_f, cs, idx, tag=tag)
-            lr_f = lr_f[top:top + cs, left:left + cs]
-            if hr_f is not None:
+            top, left = self._select_patch(lr, cs, idx, tag=tag)
+            t = self._lap("select", t)
+            lr = lr[top:top + cs, left:left + cs]
+            if hr is not None:
                 hs = cs * self.scale
-                hr_f = hr_f[top * self.scale:top * self.scale + hs,
-                            left * self.scale:left * self.scale + hs]
+                hr = hr[top * self.scale:top * self.scale + hs,
+                        left * self.scale:left * self.scale + hs]
+            t = self._lap("crop_augment", t)
+        lr_f = self._colorspace_convert(lr)
+        hr_f = self._colorspace_convert(hr) if hr is not None else None
+        t = self._lap("convert", t)
 
         if self.augmentations:
             if hr_f is not None:
@@ -335,6 +369,7 @@ class SuperResImages:
             out["hr"] = hr_f.astype(np.float32)
         out["metadata"] = np.array([], np.float32)
         out["metadata_keys"] = self.metadata_keys
+        self._lap("crop_augment", t)
         return out
 
 

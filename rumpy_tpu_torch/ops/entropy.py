@@ -1,15 +1,20 @@
 """Local-entropy patch selection.
 
 Port of ``rumpy_tpu/ops/entropy.py``: rank-entropy over a rectangular
-window on the uint8 Y channel, average-pooled at the crop size, argmax (or
-iterative top-k with NaN masking of overlapping picks). On the card the
-entropy map comes from the hand-written kernel
-(``ops/cuda/local_entropy.py``); ``local_entropy`` here is the one-hot
+window on the uint8 Y channel, summed at the crop size, argmax (or
+iterative top-k with NaN masking of overlapping picks). On the card an
+image's path is a handful of launches on the calling thread's own stream:
+its upload, the entropy kernel with the grey levels computed in its load
+(``ops/cuda/local_entropy.py``), the window-sum kernel
+(``ops/cuda/window_sum.py``), and one copy back: the pick's 8-byte key for
+a single patch, the pooled map for several. On the CPU the same functions
+run as the kernels' plain versions. ``local_entropy`` here is the one-hot
 formulation, whose border rule truncates the window on both axes.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -18,33 +23,10 @@ import torch.nn.functional as F
 
 from rumpy_tpu_torch.device import resolve_device
 from rumpy_tpu_torch.ops.cuda import local_entropy as entropy_ops
+from rumpy_tpu_torch.ops.cuda import window_sum as window_ops
+from rumpy_tpu_torch.ops.cuda.window_sum import box_filter_same as _box_filter_same
 
-# BT.601 full-range luma weights (utils/color.py's jpg variant), float32.
-_LUMA = tuple(float(np.float32(v)) for v in (0.299, 0.587, 0.114))
-
-
-def _box_filter_same(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Separable box sum over the first two axes with zero padding
-    ('same'), the windows added in ascending order.
-
-    Ceil-left anchor: output[i] sums window [i - size//2, i + (size-1)//2],
-    which makes ``entropy_patch_positions``' trim an exact VALID window, so
-    pooled[j] is the patch whose top-left corner is j."""
-    pad_l = size // 2
-    pad_r = size - 1 - pad_l
-
-    def conv1d(v, axis):
-        pads = [0, 0] * v.dim()
-        k = 2 * (v.dim() - 1 - axis)  # F.pad lists the last axis first
-        pads[k], pads[k + 1] = pad_l, pad_r
-        vp = F.pad(v, pads)
-        n = v.shape[axis]
-        out = vp.narrow(axis, 0, n)
-        for i in range(1, size):
-            out = out + vp.narrow(axis, i, n)
-        return out
-
-    return conv1d(conv1d(x, 0), 1)
+_streams = threading.local()  # each loader thread's own CUDA stream, per device
 
 
 def local_entropy(gray_u8: torch.Tensor, region: int = 10,
@@ -63,57 +45,72 @@ def local_entropy(gray_u8: torch.Tensor, region: int = 10,
     return -plogp.sum(dim=-1)
 
 
-def local_entropy_best(gray_u8: torch.Tensor, region: int = 10,
-                       levels: int = 64) -> torch.Tensor:
-    """The entropy map through the hand-written kernel (its plain version
-    for a tensor on the CPU). Takes uint8-valued input of any dtype:
-    rounds and clips it first."""
-    img = gray_u8.round().clamp(0, 255).to(torch.uint8)
-    return entropy_ops.local_entropy(img, region=region, levels=levels)
-
-
 def luma_u8(img: torch.Tensor) -> torch.Tensor:
-    """uint8-valued luma of an (H, W, 3) float32 RGB image in [0, 1]:
-    ``round(255 * Y)`` clipped, Y the jpg-variant luma of
-    ``utils/color.py`` evaluated as a chain of fused multiply-adds in
-    float32, ``fma(B, wb, fma(G, wg, R * wr))``. Images decoded from 8-bit
-    files put many pixels exactly on a rounding boundary of ``255 * Y``,
-    where the last bit of Y decides the grey level, and the fused chain is
-    how the JAX package's luma comes out on the CPU; each step is computed
-    in float64, where the product is exact, and rounded to float32 once."""
-    r, g, b = (img[..., i].double() for i in range(3))
-    y = (r * _LUMA[0]).float()
-    y = (g * _LUMA[1] + y.double()).float()
-    y = (b * _LUMA[2] + y.double()).float()
-    return (y * 255.0).round().clamp(0, 255)
+    """uint8-valued luma of an (H, W, 3) float32 RGB image in [0, 1], as
+    float32: ``round(255 * Y)`` clipped, Y the jpg-variant luma of
+    ``utils/color.py`` evaluated as the JAX package's luma comes out on the
+    CPU (the entropy kernel's grey levels, ``grey_levels_reference``)."""
+    return entropy_ops.grey_levels_reference(img).to(torch.float32)
+
+
+def _image(image_rgb, dev: torch.device) -> torch.Tensor:
+    """An (H, W, 3) image as uint8 or float32 [0, 1] on ``dev``."""
+    arr = np.ascontiguousarray(image_rgb)
+    if not arr.flags.writeable:  # the decode cache's arrays are read-only
+        arr = arr.copy()
+    img = torch.as_tensor(arr)
+    if img.dtype != torch.uint8:
+        img = img.to(torch.float32)
+    return img.to(dev, non_blocking=True)
+
+
+def _stream(dev: torch.device) -> torch.cuda.Stream:
+    """The calling thread's own stream on ``dev``: a sync on it waits for
+    this thread's work only, not for a train step on the default stream."""
+    streams = getattr(_streams, "by_device", None)
+    if streams is None:
+        streams = _streams.by_device = {}
+    if dev not in streams:
+        streams[dev] = torch.cuda.Stream(device=dev)
+    return streams[dev]
 
 
 def pooled_entropy(image_rgb, crop_size: int, region: int = 10, levels: int = 64,
                    device=None) -> torch.Tensor:
-    """The entropy map of an (H, W, 3) float [0,1] image, average-pooled
-    (as a sum) at the crop size with stride 1: entry (y, x) scores the
-    patch whose top-left corner is (y, x)."""
-    dev = resolve_device(device)
-    img = torch.as_tensor(np.asarray(image_rgb, np.float32), device=dev)
-    ent = local_entropy_best(luma_u8(img), region=region, levels=levels)
-    return _box_filter_same(ent, crop_size)[
-        crop_size // 2: ent.shape[0] - (crop_size - 1) // 2,
-        crop_size // 2: ent.shape[1] - (crop_size - 1) // 2]
+    """The entropy map of an (H, W, 3) image (uint8, or float in [0, 1]),
+    summed over every crop-size window with stride 1: entry (y, x) scores
+    the patch whose top-left corner is (y, x)."""
+    img = _image(image_rgb, resolve_device(device))
+    ent = entropy_ops.local_entropy_rgb(img, region=region, levels=levels)
+    return window_ops.window_sum(ent, crop_size)
 
 
 def entropy_patch_positions(image_rgb, crop_size: int, number_of_patches: int = 1,
                             selection: str = "highest", region: int = 10,
                             levels: int = 64, device=None) -> Tuple[list, list]:
-    """Top-k entropy patch corners for an (H, W, 3) float [0,1] image,
-    masking out overlaps between successive picks. Returns (ys, xs). The
-    map is computed on ``device`` (default: the card); the top-k runs on
-    the host."""
-    pooled = pooled_entropy(image_rgb, crop_size, region, levels, device)
-    arr = pooled.cpu().numpy().astype(np.float64)
+    """Top-k entropy patch corners for an (H, W, 3) image (uint8, or float
+    in [0, 1]), masking out overlaps between successive picks. Returns
+    (ys, xs). The map is computed on ``device`` (default: the card); a
+    single pick is taken there too, several on the host."""
+    dev = resolve_device(device)
+    lowest = selection != "highest"
+    if dev.type == "cuda":
+        with torch.cuda.stream(_stream(dev)):
+            img = _image(image_rgb, dev)
+            if number_of_patches == 1:
+                pick = torch.empty(1, dtype=torch.int64, device=dev)
+                ent = entropy_ops.local_entropy_rgb(img, region, levels, clear=pick)
+                pooled = window_ops.window_sum(ent, crop_size, pick=pick, lowest=lowest)
+                yy, xx = divmod(window_ops.pick_index(pick.item()), pooled.shape[1])
+                return [yy], [xx]
+            ent = entropy_ops.local_entropy_rgb(img, region, levels)
+            arr = window_ops.window_sum(ent, crop_size).cpu().numpy().astype(np.float64)
+    else:
+        arr = pooled_entropy(image_rgb, crop_size, region, levels, dev).numpy()
+        arr = arr.astype(np.float64)
     ys, xs = [], []
     for _ in range(number_of_patches):
-        idx = (np.nanargmax(arr) if selection == "highest"
-               else np.nanargmin(arr))
+        idx = np.nanargmin(arr) if lowest else np.nanargmax(arr)
         yy, xx = np.unravel_index(idx, arr.shape)
         arr[max(0, yy - crop_size):yy + crop_size,
             max(0, xx - crop_size):xx + crop_size] = np.nan

@@ -1,10 +1,13 @@
 """BT.601 YCbCr <-> RGB conversion on channel-last tensors.
 
 Port of ``rumpy_tpu/utils/color.py``: the ``jpg`` (full-range JFIF) and
-``png`` (studio-swing) variants. The 3x3 products are written out as
-float32 multiply-adds rather than a matmul, so they stay full float32 on
-the card whatever the TF32 settings (the JAX version forces
-``Precision.HIGHEST`` for the same reason).
+``png`` (studio-swing) variants. Each output channel is the chain of fused
+multiply-adds ``fma(B, wb, fma(G, wg, R * wr))`` that the JAX version's
+full-precision contraction evaluates on the CPU, then the bias
+(``weighted_sum_chain``), written out rather than a matmul, so it stays
+full float32 on the card whatever the TF32 settings. On 8-bit images many
+pixels sit exactly on a rounding boundary of ``255 * Y``, where the last
+bit of Y decides the grey level; the chain gives JAX's bits there.
 """
 
 from __future__ import annotations
@@ -33,16 +36,25 @@ def _biases(im_type: str, max_val: float) -> np.ndarray:
     return np.array([16.0 * s, 128.0 * s, 128.0 * s])
 
 
+def weighted_sum_chain(img: torch.Tensor, weights) -> torch.Tensor:
+    """``sum_c img[..., c] * weights[c]`` over the 3 channels of a
+    channel-last float32 tensor, evaluated as ``fma(B, wb, fma(G, wg, R *
+    wr))``: each step in float64, where the product of two float32 numbers
+    is exact, and rounded to float32 once. ``weights`` are float32 values."""
+    y = (img[..., 0].double() * weights[0]).to(img.dtype)
+    for c in (1, 2):
+        y = (img[..., c].double() * weights[c] + y.double()).to(img.dtype)
+    return y
+
+
 def rgb_to_ycbcr(img: torch.Tensor, y_only: bool = False, max_val: float = 1.0,
                  im_type: str = "png") -> torch.Tensor:
     """RGB -> YCbCr on channel-last input (..., C=3)."""
     fwd = _JPG_FWD if im_type == "jpg" else _PNG_FWD
     bias = _biases(im_type, max_val)
-    rows = fwd[:1] if y_only else fwd
-    m = torch.as_tensor(rows.T, dtype=img.dtype, device=img.device)  # (3, out)
+    rows = torch.as_tensor(fwd[:1] if y_only else fwd, dtype=img.dtype).double().tolist()
     b = torch.as_tensor(bias[:len(rows)], dtype=img.dtype, device=img.device)
-    out = img[..., 0:1] * m[0] + img[..., 1:2] * m[1] + img[..., 2:3] * m[2]
-    return out + b
+    return torch.stack([weighted_sum_chain(img, row) for row in rows], dim=-1) + b
 
 
 def ycbcr_to_rgb(img: torch.Tensor, max_val: float = 1.0,

@@ -69,6 +69,23 @@ def test_edsr_matches_jax(scale):
     _compare("edsr", scale, dict(num_features=64, num_blocks=3))
 
 
+def test_rcan_bf16_matches_jax_bf16():
+    """bf16 RCAN x4, flax init bridged. The port rounds to bf16 where its
+    RCAB kernel does (h1 and the block's output; h2, the gate and the add in
+    f32), flax after every op, so the two differ by bf16 rounding: on this
+    input max 1.95e-3, mean 2.9e-4 on the CPU. Allowed: about twice that."""
+    kw = dict(n_feats=64, n_resgroups=2, n_resblocks=5, dtype="bf16")
+    jh, js = _jax_handler("rcan", 4, **kw)
+    th = torch_model("rcan")(scale=4, device="cpu", **kw)
+    state = TrainState(step=0, params=state_dict_from_jax(_np_tree(js.params), th.module))
+    x = np.random.default_rng(4).random((2, 24, 20, 3)).astype(np.float32)
+    want = np.asarray(jh.run_eval(js, {"lr": jnp.asarray(x)})).astype(np.float32)
+    got = th.run_eval(state, {"lr": x})
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (2, 96, 80, 3)
+    err = np.abs(got.float().numpy() - want)
+    assert err.max() <= 4e-3 and err.mean() <= 5e-4, (err.max(), err.mean())
+
+
 def test_bridge_takes_sorted_and_remat_trees():
     _, js = _jax_handler("rcan", 2, **RCAN_KW)
     th = torch_model("rcan")(scale=2, device="cpu", **RCAN_KW)
