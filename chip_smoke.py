@@ -15,7 +15,12 @@ seeded random weights):
   load_epoch="last") -> BatchedPredictor.predict over the Set5 shapes;
 * training: ``cli.train_sisr`` -> TrainingHandler.run_experiment() on
   LR/HR ``.npy`` pairs written from a seed, patches chosen by local
-  entropy, two epochs, then a serve from the checkpoint it wrote.
+  entropy, two epochs, then a serve from the checkpoint it wrote;
+* blind training: ``cli.train_sisr`` on HR-only ``.npy`` files with the
+  ``[data.online_degradations]`` table of examples/train_rcan_blind_x4.toml
+  (blur of seven families -> x4 downsample -> noise -> JPEG), every batch
+  degraded on the card inside the train step; then three steps at
+  bench.py's batch 120 with bench.py's chain.
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
@@ -30,7 +35,11 @@ every SM at the main-path shapes, that outputs and losses are finite, that
 a fixed batch's loss went down, and that the kernel path agrees with the
 plain path and with the CPU. The kernel phases print each forward's launch
 plan, and at the train shape and the largest request's bucket each pass's
-device time beside one cuDNN conv of the same shape.
+device time beside one cuDNN conv of the same shape. The degradation ops
+(no hand kernel: PyTorch ops) are held on the card against the CPU with the
+same inputs and draws at bench.py's shapes, with the TF32 flags off and on;
+one chain runs under sync debug mode "error" and gives bench.py's 13
+metadata keys; their device ms and launches per step are printed.
 
 Prints the card, then one JSON line per phase, then a ``{"kernels": ...}``
 line, the card's name and power limit, and as its last line
@@ -41,6 +50,7 @@ exits non-zero. It needs CUDA and the rest of the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -967,6 +977,419 @@ def train_phase(rcab, ent, win, card):
     return counts
 
 
+# The degradation chain (bench.py's, and the shipped blind-training
+# example's) on the card against the same functions on the CPU, each op fed
+# the same inputs and injected draws. Elementwise float32 ops agree to
+# rounding; the blur's 441-tap sums run in another order; the resize and
+# DCT products run in float64 on both sides.
+BENCH_BATCH = 120  # bench.py's
+DEGRADE_BATCHES = (TRAIN_BATCH, BENCH_BATCH)
+HR_SIDE = TRAIN_CROP * TRAIN_SCALE
+DEGRADE_ATOL = {"kernels": 1e-6, "kernel_metadata": 1e-6, "blur": 1e-5,
+                "downsample": 1e-6, "gaussian_noise": 1e-6, "poisson_noise": 1e-6,
+                "colour_distortion": 1e-5}
+# A coefficient over its quantization step (or a reconstructed level)
+# within this of a .5 boundary is a near tie: two codecs may round apart.
+JPEG_TIE = 1e-3
+# With the process-wide TF32 flags on, an op's error against the CPU may
+# grow by no more than this (TF32's 10-bit products would move the blur by
+# about 1e-3).
+TF32_GROWTH = 1e-6
+BENCH_CHAIN = {  # bench.py:133-143
+    "pipeline": [["realesrganblur", "b"], ["downsample", "d"],
+                 ["realesrgannoise", "n"], ["jpegcompress", "j"]],
+    "deg_configs": {"b": {"kernel_range": ["iso", "aniso"], "kernel_size": 21,
+                          "request_kernel_metadata": True},
+                    "d": {"scale": TRAIN_SCALE},
+                    "n": {"gaussian_noise_sigma_range": [1, 30]},
+                    "j": {"quality": 60, "random_compression": True}}}
+# The JAX package's fused_degrade(...).metadata_keys() for that chain.
+BENCH_KEYS = [
+    "0-realesrganblur-beta_g", "0-realesrganblur-beta_p", "0-realesrganblur-kernel_size",
+    "0-realesrganblur-kernel_type", "0-realesrganblur-omega_c", "0-realesrganblur-rotation",
+    "0-realesrganblur-sigma_x", "0-realesrganblur-sigma_y", "1-downsample-scale",
+    "2-realesrgannoise-gaussian_noise_scale", "2-realesrgannoise-gray_noise",
+    "2-realesrgannoise-poisson_noise_scale", "3-jpegcompress-quality"]
+EXAMPLE_CONFIG = os.path.join("examples", "train_rcan_blind_x4.toml")
+DEGRADE_STEPS, DEGRADE_SETS = 4, 4
+
+
+def card_generator(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def tf32(on: bool):
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def to_card(x):
+    if torch.is_tensor(x):
+        return x.cuda()
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: to_card(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+def flat_tensors(out, name):
+    """An op's output (a tensor, or tuples and dicts of them) as
+    {name[/part]: CPU tensor}."""
+    if torch.is_tensor(out):
+        return {name: out.cpu()}
+    items = out.items() if isinstance(out, dict) else enumerate(out)
+    flat = {}
+    for k, v in items:
+        flat.update(flat_tensors(v, f"{name}/{k}"))
+    return flat
+
+
+def degrade_op_cases(b, seed):
+    """Each op of the chain with its CPU inputs, in chain order, every
+    input the CPU output of the op before: (name, function, inputs)."""
+    from rumpy_tpu_torch.ops import blur, blur_kernels as bk, color_aug, noise, resize
+    g = torch.Generator().manual_seed(seed)
+    hr = torch.rand(b, HR_SIDE, HR_SIDE, 3, generator=g)
+    cfg = bk.BlurKernelConfig(kernel_range=bk.ALL_KERNEL_TYPES)
+    draws = bk.draw_kernel_params(g, b, cfg)
+    kernels, _ = bk.kernels_from_draws(cfg, draws)
+    blurred = blur.apply_kernels(hr, kernels)
+    lr_side = HR_SIDE // TRAIN_SCALE
+    lr = resize.resize_float(blurred, (lr_side, lr_side))
+    sigma = 1 + 29 * torch.rand(b, generator=g)
+    gray = (torch.rand(b, generator=g) < 0.4).float()
+    field = torch.randn(lr.shape, generator=g)
+    rounded, gray_img, vals_c, vals_g = noise.poisson_rates(lr)
+    samples = (torch.poisson(rounded * vals_c, generator=g),
+               torch.poisson(gray_img * vals_g, generator=g))
+    noisy = noise.apply_gaussian_noise(lr, sigma, gray, field)[0]
+    return [
+        ("kernels", lambda d: bk.kernels_from_draws(cfg, d), (draws,)),
+        ("blur", blur.apply_kernels, (hr, kernels)),
+        ("downsample", lambda x: resize.resize_float(x, (lr_side, lr_side)), (blurred,)),
+        ("pil_resize", lambda x: resize.pil_resize(x, (lr_side, lr_side)),
+         ((hr * 255).round().to(torch.uint8),)),
+        ("gaussian_noise", noise.apply_gaussian_noise, (lr, sigma, gray, field)),
+        ("poisson_vals", lambda x: noise.poisson_rates(x)[2:], (lr,)),
+        ("poisson_noise", lambda x, s, gr, sc, sg: noise.apply_poisson_noise(
+            x, s, gr, sc, sg, noise.poisson_rates(x)),
+         (lr, 3 * torch.rand(b, generator=g), gray, *samples)),
+        ("jpeg", lambda x, q: jpeg_levels(x, q, "jpeg"),
+         (noisy, torch.randint(20, 81, (b,), generator=g).float())),
+        ("h264", lambda x, q: jpeg_levels(x, q, "h264"),
+         (noisy, torch.randint(20, 41, (b,), generator=g).float())),
+        ("colour_distortion", color_aug.apply_colour_distortion,
+         (hr, *color_aug.colour_distortion_draws(g, b))),
+    ]
+
+
+def jpeg_levels(x, q, codec):
+    from rumpy_tpu_torch.ops import jpeg
+    fn = jpeg.jpeg_compress if codec == "jpeg" else jpeg.h264_intra_compress
+    return torch.round(fn(x, q) * 255.0)
+
+
+def codec_check(name, got, want, inputs):
+    """Levels of the card against the CPU's: the share of pixels that
+    differ, and whether each lies where the CPU's codec has a near tie (a
+    coefficient over its step in the pixel's 8x8 block, or the pixel's own
+    level before rounding)."""
+    from rumpy_tpu_torch.ops import jpeg
+    ratios, levels = jpeg.tie_terms(*inputs, codec=name)
+
+    def near(v):
+        return ((v.abs() % 1.0) - 0.5).abs() < JPEG_TIE
+
+    block_tie = near(ratios).any(dim=1).flatten(-2).any(dim=-1)  # (B, H/8, W/8)
+    diff = (got != want).any(dim=-1)
+    explained = 0
+    for b, y, x in diff.nonzero().tolist():
+        explained += bool(block_tie[b, y // 8, x // 8] or near(levels[b, y, x]).any())
+    n = int(diff.sum())
+    return {"pixels_differ_share": n / diff.numel(), "pixels_differ": n,
+            "differ_at_near_tie": explained, "max_level_diff": float((got - want).abs().max()),
+            "near_tie_coefficients": int(near(ratios).sum()),
+            "near_tie_levels": int(near(levels).sum())}
+
+
+def compare_op(name, got, want, inputs):
+    if name in ("jpeg", "h264"):
+        row = codec_check(name, got[name], want[name], inputs)
+        row["ok"] = row["differ_at_near_tie"] == row["pixels_differ"] and row["max_level_diff"] <= 1
+        return row
+    if name == "pil_resize":
+        d = (got[name].int() - want[name].int()).abs()
+        return {"pixels_differ_share": float((d > 0).float().mean()),
+                "max_level_diff": int(d.max()), "ok": bool(d.max() <= 1
+                                                          and (d > 0).float().mean() <= 1e-3)}
+    if name == "poisson_vals":
+        same = all(torch.equal(got[k], want[k]) for k in want)
+        return {"exact": same, "ok": same}
+    errs, ok = {}, True
+    for k in want:
+        tol = DEGRADE_ATOL["kernel_metadata" if "/1/" in k and name == "kernels" else name]
+        errs[k] = (got[k].double() - want[k].double()).abs().max().item()
+        ok = ok and got[k].shape == want[k].shape and errs[k] <= tol
+    return {"max_abs_err": max(errs.values()), "tol": DEGRADE_ATOL[name],
+            "by_output": errs, "ok": ok}
+
+
+HOLD_S = 0.5
+
+
+def enqueue_ms(fn, hold_s: float = HOLD_S) -> float:
+    """Host ms of one call of ``fn`` while a sleep kernel holds the card for
+    ``hold_s``: what the call costs the host. A call that waits for the card
+    (a host sync) takes at least what is left of the hold."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(hold_s * CLOCK_HZ))
+    t0 = time.perf_counter()
+    fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def held_ms(fn, iters: int = 2):
+    """(device ms, host ms) of a call of ``fn``: the device time by CUDA
+    events with the card held busy for longer than the host takes to
+    enqueue ``iters`` calls, and the host time of one call. Few calls: the
+    card's queue holds about a thousand launches, after which the host
+    waits and the events time its enqueue (the chain is about 350 launches)."""
+    host = enqueue_ms(fn)
+    return cuda_ms(fn, iters, backlog_s=0.05 + 2e-3 * host * iters), host
+
+
+def op_device_ms(pipe, b):
+    """Device and host ms of each op of ``pipe`` at batch ``b`` as the chain
+    runs it, and of the whole chain."""
+    g = card_generator(b)
+    x = torch.rand(b, HR_SIDE, HR_SIDE, 3, device=g.device, generator=g)
+    device, host = {}, {}
+    for (step, opname), op in pipe.pipeline.items():
+        key = f"{step}-{opname}"
+        device[key], host[key] = held_ms(lambda: op.batch_apply(g, x))
+        x = op.batch_apply(g, x)[0]
+    hr = torch.rand(b, HR_SIDE, HR_SIDE, 3, device=g.device, generator=g)
+    device["chain"], host["chain"] = held_ms(lambda: pipe.degrade_batch(g, hr))
+    if host["chain"] >= HOLD_S * 1e3 / 2:
+        raise AssertionError(f"one degrade_batch took {host['chain']} ms of host time "
+                             f"behind a card held for {HOLD_S} s: it waits for the card")
+    return device, host
+
+
+def degrade_ops_phase(card):
+    """Each op of the chain on the card against the CPU at both batches,
+    with the TF32 flags off and then on; one degrade_batch of bench.py's
+    chain under sync debug mode "error"; its metadata keys against
+    BENCH_KEYS; device ms by op, and launches per step from a trace.
+    Returns the per-batch chain numbers."""
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+    out = {}
+    for b in DEGRADE_BATCHES:
+        cases = degrade_op_cases(b, seed=b)
+        for name, fn, inputs in cases:
+            want = flat_tensors(fn(*inputs), name)
+            rows = {}
+            for flags in (False, True):
+                tf32(flags)
+                try:
+                    got = flat_tensors(fn(*[to_card(x) for x in inputs]), name)
+                finally:
+                    tf32(False)
+                rows[flags] = compare_op(name, got, want, inputs)
+            row = {"phase": "degrade_ops", "batch": b, "op": name, **rows[False],
+                   "with_tf32_flags": {k: v for k, v in rows[True].items() if k != "by_output"}}
+            print(json.dumps(row), flush=True)
+            grew = any(rows[True].get(k, 0) > rows[False].get(k, 0) + TF32_GROWTH
+                       for k in ("max_abs_err", "pixels_differ_share", "max_level_diff"))
+            if not (rows[False]["ok"] and rows[True]["ok"]) or grew:
+                raise AssertionError(f"degradation op {name} on the card: {row}")
+        del cases
+
+        g = card_generator(7)
+        hr = torch.rand(b, HR_SIDE, HR_SIDE, 3, device=g.device, generator=g)
+        pipe.degrade_batch(g, hr)  # warm: tables uploaded once
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lr, meta = pipe.degrade_batch(g, hr)
+            mat, keys = pipe.metadata_matrix(meta)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if keys != BENCH_KEYS or mat.shape != (b, len(BENCH_KEYS)):
+            raise AssertionError(f"bench chain metadata keys {keys}, expected {BENCH_KEYS}")
+        if lr.shape != (b, HR_SIDE // TRAIN_SCALE, HR_SIDE // TRAIN_SCALE, 3) \
+                or not torch.isfinite(lr).all():
+            raise AssertionError(f"bench chain output {tuple(lr.shape)}")
+        device_ms, host_ms = op_device_ms(pipe, b)
+        ops = device_ops(lambda: pipe.degrade_batch(g, hr), f"degrade_chain_{b}")
+        busy = traced(lambda: pipe.degrade_batch(g, hr), f"degrade_chain_trace_{b}", 3)
+        row = {"phase": "degrade_chain", "batch": b, "card": card,
+               "no_host_sync": True, "metadata_keys": len(keys),
+               "device_ms_by_op": device_ms, "host_ms_by_op": host_ms,
+               "launches_per_step": ops["launches"], "launches_by_kind": ops["by_kind"],
+               "d2h_copies": ops["d2h_copies"], "busy_us_per_step": busy["busy_us"] / 3,
+               "kernels_per_step": busy["kernels_per_call"]}
+        print(json.dumps(row), flush=True)
+        if ops["d2h_copies"]:
+            raise AssertionError(f"the chain copies to the host: {ops}")
+        out[b] = row
+    return out
+
+
+def degrade_train_phase(rcab, card):
+    """Full-width RCAN x4 bf16 through cli.train_sisr on HR-only .npy files
+    with the example config's [data.online_degradations] table (all seven
+    blur families): batch 16, crop 48, 4 steps, every batch degraded on the
+    card inside the step. Then steady steps with and without the chain,
+    and one warm-up and 3 steps at bench.py's batch 120 with its chain."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+    from rumpy_tpu_torch.training.trainer import TrainingHandler
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_degrade")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(2))
+    table = load_config(os.path.join(ROOT, EXAMPLE_CONFIG)).as_plain()["data"][
+        "online_degradations"]
+    internal = dict(RCAN_FULL, dtype="bf16", lr=1e-4, optimizer_type="adam")
+    seed = 3
+    cfg = {
+        "experiment": "rcan_x4_blind", "experiment_save_loc": os.path.join(root, "experiments"),
+        # the eight HR images listed four times: two batches of 16 an epoch
+        "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "augmentations": True,
+                 "dataloader_threads": 4, "online_degradations": table,
+                 "training_sets": {f"data_{i}": {"hr_dir": hr_dir}
+                                   for i in range(DEGRADE_SETS)}},
+        "model": {"name": "rcan", "internal_params": internal},
+        "training": {"num_epochs": 2, "batch_size": TRAIN_BATCH, "seed": seed},
+    }
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+
+    # a fixed degraded batch: centre crops of the HR images, degraded once
+    pipe = ImagePipeline(table["pipeline"], deg_configs=table["deg_configs"], scale=TRAIN_SCALE)
+    names = sorted(os.listdir(hr_dir))
+    crops = []
+    for name in names * (TRAIN_BATCH // len(names)):
+        hr = np.load(os.path.join(hr_dir, name))
+        top, left = (hr.shape[0] - HR_SIDE) // 2, (hr.shape[1] - HR_SIDE) // 2
+        crops.append(hr[top:top + HR_SIDE, left:left + HR_SIDE])
+    fixed_hr = torch.from_numpy(np.stack(crops).astype(np.float32) / 255.0).cuda()
+    lr, _ = pipe.degrade_batch(card_generator(11), fixed_hr)
+    fixed = {"lr": lr, "hr": fixed_hr}
+    fresh = get_model("rcan")(device="cuda", seed=seed, **internal)
+    loss_before = l1_on(fresh, fresh.init_state(seed), fixed)
+    del fresh
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    peak_run = torch.cuda.max_memory_allocated()
+    want = {k: 200 * DEGRADE_STEPS for k in counts}
+    if counts != want:
+        raise AssertionError(f"kernel launches in the blind training run {counts}, "
+                             f"expected {want} ({DEGRADE_STEPS} steps, 200 RCAB)")
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"blind training losses {losses}")
+    iface = SISRInterface(model_loc=os.path.join(root, "experiments"),
+                          experiment="rcan_x4_blind", mode="eval", load_epoch="last",
+                          device="cuda")
+    if iface.state.step != DEGRADE_STEPS:
+        raise AssertionError(f"checkpoint holds step {iface.state.step}")
+    loss_after = l1_on(iface.model, iface.state, fixed)
+    if not loss_after < loss_before:
+        raise AssertionError(f"fixed degraded batch loss went {loss_before} -> {loss_after}")
+    del iface
+
+    # steady steps on the fixed HR batch through the trainer's own input
+    # pipeline, in turns with the same steps on the degraded batch without it
+    # (the host's speed moves a step more than the chain does)
+    h = TrainingHandler(dict(load_config(cfg_path), no_directories=True), verbose=False)
+    model = h.model
+    input_fn = model.model.input_fn
+    with_chain = lambda: model.train_batch(hr=fixed_hr, fetch=False)
+    without = lambda: model.train_batch(lr=fixed["lr"], hr=fixed_hr, fetch=False)
+
+    def step_ms_of(chain_on: bool) -> float:
+        model.model.set_input_pipeline(input_fn if chain_on else None)
+        return cuda_ms(with_chain if chain_on else without, 3, warmup=1, backlog_s=0)
+
+    torch.cuda.reset_peak_memory_stats()
+    pairs = [(step_ms_of(True), step_ms_of(False)) for _ in range(3)]
+    peak_step = torch.cuda.max_memory_allocated()
+    trace_without = traced(without, "blind_train_step_trace_no_chain", 1)
+    model.model.set_input_pipeline(input_fn)
+    trace = traced(with_chain, "blind_train_step_trace", 1)
+    chain = traced(lambda: input_fn(model.model.rng, {"hr": fixed_hr}), "blind_chain_trace", 1)
+    del h, model
+    step_ms, step_ms_without = (float(np.median([p[i] for p in pairs])) for i in (0, 1))
+    hr_mp = TRAIN_BATCH * HR_SIDE ** 2 / 1e6
+    row = {"phase": "degrade_train", "model": "rcan x4 10x20x64 bf16", "card": card,
+           "config": EXAMPLE_CONFIG, "steps": DEGRADE_STEPS, "batch": TRAIN_BATCH,
+           "crop": TRAIN_CROP, "launches": counts, "epoch_train_loss": losses,
+           "compute_efficiency": [stats[e]["compute_efficiency"] for e in sorted(stats)],
+           "run_experiment_s": seconds, "fixed_batch_loss_before": loss_before,
+           "fixed_batch_loss_after": loss_after, "step_ms": step_ms,
+           "hr_megapixels_per_s": hr_mp / (step_ms / 1e3),
+           "step_ms_without_chain": step_ms_without,
+           "step_ms_pairs_with_without_chain": pairs,
+           "step_busy_us": trace["busy_us"], "step_busy_us_without_chain": trace_without["busy_us"],
+           "chain_busy_us": chain["busy_us"],
+           "chain_share_of_step_device_time": chain["busy_us"] / trace["busy_us"],
+           "step_idle_share": trace["idle_share"], "kernels_per_step": trace["kernels_per_call"],
+           "peak_memory_bytes_run": peak_run, "peak_memory_bytes_step": peak_step}
+    print(json.dumps(row), flush=True)
+
+    # bench.py's workload: batch 120, its chain in the step
+    bench_pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+    handler = get_model("rcan")(device="cuda", lr=1e-4, dtype="bf16", **RCAN_FULL)
+
+    def input_fn(generator, batch):
+        lr, _meta = bench_pipe.degrade_batch(generator, batch["hr"])
+        return {"lr": lr, "hr": batch["hr"]}
+
+    handler.set_input_pipeline(input_fn)
+    state = handler.init_state()
+    g = card_generator(0)
+    hr120 = torch.rand(BENCH_BATCH, HR_SIDE, HR_SIDE, 3, device=g.device, generator=g)
+    losses120 = []
+
+    def step120():
+        _, l = handler.train_batch(state, {"hr": hr120})
+        losses120.append(l["train-loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    ms120 = cuda_ms(step120, 3, warmup=1, backlog_s=0)
+    peak120 = torch.cuda.max_memory_allocated()
+    trace120 = traced(step120, "bench_batch_step_trace", 1)
+    row120 = {"phase": "degrade_train_bench_batch", "model": "rcan x4 10x20x64 bf16",
+              "card": card, "chain": "bench.py:133-143", "batch": BENCH_BATCH,
+              "crop": TRAIN_CROP, "step_ms": ms120,
+              "hr_megapixels_per_s": BENCH_BATCH * HR_SIDE ** 2 / 1e6 / (ms120 / 1e3),
+              "peak_memory_bytes": peak120, "step_busy_us": trace120["busy_us"],
+              "step_idle_share": trace120["idle_share"],
+              "losses": [float(x) for x in losses120]}
+    print(json.dumps(row120), flush=True)
+    if not np.isfinite(row120["losses"]).all():
+        raise AssertionError(f"batch-120 losses {row120['losses']}")
+    del handler, state, hr120
+    shutil.rmtree(os.path.join(root, "data"))
+    return row, row120
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -998,14 +1421,19 @@ def main() -> int:
     front_phase(ent)
     win_row = window_phase(ent, win)
     train_launches = train_phase(rcab, ent, win, card)
+    degrade_ops_phase(card)
+    blind_row, _ = degrade_train_phase(rcab, card)
+    blind_launches = blind_row["launches"]
 
     kernels = [{
         "name": "rcab_fused", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/rcab_fused.cu",
         "replaces": "rumpy_tpu/ops/pallas/rcab_fused.py:73",
-        "launches": serve_launches + train_launches["rcab_fused"],
+        "launches": (serve_launches + train_launches["rcab_fused"]
+                     + blind_launches["rcab_fused"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
+        "launches_blind_training_path": blind_launches["rcab_fused"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1022,7 +1450,10 @@ def main() -> int:
         "name": "rcab_fused_backward", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/rcab_fused_bwd.cu",
         "replaces": "rumpy_tpu/ops/pallas/rcab_fused.py:73",
-        "launches": train_launches["rcab_fused_backward"],
+        "launches": (train_launches["rcab_fused_backward"]
+                     + blind_launches["rcab_fused_backward"]),
+        "launches_training_path": train_launches["rcab_fused_backward"],
+        "launches_blind_training_path": blind_launches["rcab_fused_backward"],
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],

@@ -1,5 +1,6 @@
 """Framework-wide constants (the part of ``rumpy_tpu/config/constants.py``
-this port uses so far)."""
+this port uses so far): dataset splits, metric directions and the
+blur-kernel code table of the degradation metadata."""
 
 # Dataset split conventions: index ranges into a sorted file listing.
 dataset_splits = {
@@ -17,3 +18,28 @@ metric_best_val = {
     "val-loss": "min",
     "train-loss": "min",
 }
+
+
+class TwoWayDict(dict):
+    """Bidirectional code table: name -> code and code -> name."""
+
+    def __init__(self, mapping):
+        super().__init__()
+        for k, v in mapping.items():
+            self[k] = v
+            self[v] = k
+
+    def __len__(self):
+        return super().__len__() // 2
+
+
+# Blur-kernel-family integer codes used in degradation metadata.
+blur_kernel_codes = TwoWayDict({
+    "iso": 0,
+    "aniso": 1,
+    "generalized_iso": 2,
+    "generalized_aniso": 3,
+    "plateau_iso": 4,
+    "plateau_aniso": 5,
+    "sinc": 6,
+})

@@ -9,15 +9,21 @@ the same crops from the same seed. Entropy patch corners come from
 ``ops/entropy.py``, on ``device`` (the card unless the caller says
 otherwise).
 
+With ``online_degradations`` a dataset is HR-only: an item is a uniform
+random crop of ``crop * scale`` HR pixels (undersized images
+reflect-padded up to it), augmented and optionally colour-distorted; the
+train step makes its LR on the device. ``input="interp"`` upsamples the LR
+with ``ops/resize.py::pil_resize`` on the CPU, in the loader's thread.
+Random colour distortion draws one seed from the dataset's rng and applies
+the same draws to LR and HR.
+
 Besides the image extensions the dataset reads ``.npy`` files holding a
 uint8 (H, W, 3) array, so that it runs where PIL is not installed: PIL is
 imported only when an image file is actually opened.
 
 Not ported yet, and raising ``NotImplementedError`` rather than doing
-something else: online degradations (the degradation slice), ``input=
-"interp"`` (needs ``ops/resize.py``), random colour distortion, metadata
-CSVs and facial attributes, blacklist and patch-location CSV files, loss
-masks, and ``VideoSequenceImages``.
+something else: metadata CSVs and facial attributes, blacklist and
+patch-location CSV files, loss masks, and ``VideoSequenceImages``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import torch
 
 from rumpy_tpu_torch.config.constants import dataset_splits
 from rumpy_tpu_torch.device import resolve_device
+from rumpy_tpu_torch.ops.color_aug import apply_colour_distortion, colour_distortion_draws
+from rumpy_tpu_torch.ops.resize import pil_resize
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
@@ -118,12 +126,10 @@ class SuperResImages:
                  custom_mask_name: Optional[str] = None,
                  seed: int = 0,
                  device=None):
-        if online_degradations or degradation_pipeline is not None:
-            raise _later("online_degradations", "the degradation slice")
-        if input == "interp":
-            raise _later("input='interp'", "ops/resize.py in the degradation slice")
-        if use_random_colour_distort:
-            raise _later("use_random_colour_distort", "the degradation slice")
+        if use_random_colour_distort and colorspace != "rgb":
+            raise ValueError("use_random_colour_distort operates on RGB images "
+                             "(the reference distorts the image before any "
+                             "colorspace transform)")
         if metadata_file is not None or attributes_loc is not None:
             raise _later("metadata CSVs and facial attributes", "the metadata slice")
         if predefined_patch_location:
@@ -143,12 +149,15 @@ class SuperResImages:
         self.use_hflip = use_hflip
         self.use_vflip = use_vflip
         self.use_rotation = use_rotation
+        self.use_random_colour_distort = use_random_colour_distort
+        self.colour_distortion_strength = colour_distortion_strength
+        self.online_degradations = online_degradations
         self.requested_metadata = list(metadata) if metadata else None
         self._rng = np.random.default_rng(seed)
         # entropy patch selection runs on this device; resolved at first use
         self.device = device
 
-        base_dir = lr_dir if lr_dir is not None else hr_dir
+        base_dir = hr_dir if (online_degradations or lr_dir is None) else lr_dir
         if base_dir is None:
             raise ValueError("Need lr_dir or hr_dir")
         files = list_images(base_dir, recursive_search)
@@ -242,6 +251,36 @@ class SuperResImages:
             return np.ascontiguousarray(a)
         return [f(i) for i in imgs]
 
+    def _colour_distort(self, *imgs: np.ndarray) -> List[np.ndarray]:
+        """SimCLR colour distortion with one set of draws for every image
+        passed together, so that an LR/HR pair stays photometrically
+        aligned; the draws come from a seed drawn from the dataset's rng."""
+        seed = int(self._rng.integers(2 ** 31))
+        draws = colour_distortion_draws(torch.Generator().manual_seed(seed), 1,
+                                        self.colour_distortion_strength)
+        return [apply_colour_distortion(torch.from_numpy(np.ascontiguousarray(im))[None],
+                                        *draws)[0].numpy() for im in imgs]
+
+    def _hr_patch(self, hr: np.ndarray) -> np.ndarray:
+        """An HR-only item's patch: a uniform random crop of crop * scale
+        (undersized images reflect-padded up to it), converted, augmented,
+        colour-distorted if asked."""
+        if self.crop is not None:
+            cs = self.crop * self.scale
+            if hr.shape[0] < cs or hr.shape[1] < cs:
+                # every patch of a batch has one shape
+                ph, pw = max(0, cs - hr.shape[0]), max(0, cs - hr.shape[1])
+                hr = np.pad(hr, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+            top = int(self._rng.integers(0, max(1, hr.shape[0] - cs + 1)))
+            left = int(self._rng.integers(0, max(1, hr.shape[1] - cs + 1)))
+            hr = hr[top:top + cs, left:left + cs]
+        hr_f = self._colorspace_convert(hr)
+        if self.augmentations:
+            hr_f, = self._augment(hr_f)
+            if self.use_random_colour_distort:
+                hr_f, = self._colour_distort(hr_f)
+        return hr_f.astype(np.float32)
+
     def _select_patch(self, img: np.ndarray, crop_size: int, idx: int,
                       tag: Optional[str] = None, crop_index: int = 0,
                       total: int = 1) -> Tuple[int, int]:
@@ -291,6 +330,16 @@ class SuperResImages:
         lr_path = self.lr_files[idx]
         tag = os.path.basename(lr_path)
         lr = _decode(lr_path)
+        if self.online_degradations:
+            # HR-only: the listed file is the HR image
+            t = self._lap("decode", t)
+            if self.crop is not None and self.crop_count > 1:
+                hr_out = np.stack([self._hr_patch(lr) for _ in range(self.crop_count)])
+            else:
+                hr_out = self._hr_patch(lr)
+            self._lap("crop_augment", t)
+            return {"hr": hr_out, "tag": tag, "metadata": np.array([], np.float32),
+                    "metadata_keys": []}
         hr_path = self._hr_path(lr_path)
         out: Dict[str, Any] = {"tag": tag}
         hr = _decode(hr_path) if hr_path else None
@@ -303,13 +352,22 @@ class SuperResImages:
             hr = hr[oh:oh + th, ow:ow + tw]
         t = self._lap("decode", t)
 
+        # LR pixels per HR pixel in a crop: 1 once the LR is upsampled
+        eff_scale = self.scale
+        if self.input == "interp":
+            lr = pil_resize(lr, (lr.shape[0] * self.scale, lr.shape[1] * self.scale)).numpy()
+            eff_scale = 1
         # Both images are converted after the crop: the conversion is per
         # pixel, so a crop of the converted image has the same bits, and the
-        # whole HR image is never converted. That holds while no whole-image
-        # op runs before the crop: random colour distortion (which raises
-        # until the degradation slice) distorts whole images before cropping
-        # in the JAX package's order, and must bring back whole-image
-        # conversion when it is ported.
+        # whole HR image is never converted. Random colour distortion is the
+        # exception: it distorts whole images before cropping, the JAX
+        # package's order, so then both are converted and distorted first.
+        convert = self._colorspace_convert
+        if self.augmentations and self.use_random_colour_distort:
+            whole = [convert(lr)] + ([convert(hr)] if hr is not None else [])
+            distorted = self._colour_distort(*whole)
+            lr, hr = distorted[0], (distorted[1] if hr is not None else None)
+            convert = np.asarray
         if self.crop is not None and self.crop_count > 1:
             # Multi-crop mode (contrastive training): stack crop_count
             # patches of the LR image on a leading axis.
@@ -320,14 +378,14 @@ class SuperResImages:
                                                crop_index=ci,
                                                total=self.crop_count)
                 t = self._lap("select", t)
-                patch = self._colorspace_convert(lr[top:top + cs, left:left + cs])
+                patch = convert(lr[top:top + cs, left:left + cs])
                 hr_patch = None
                 if ci == 0 and hr is not None:
                     # HR aligned with the first (query) crop
-                    hs = cs * self.scale
-                    hr_patch = self._colorspace_convert(
-                        hr[top * self.scale:top * self.scale + hs,
-                           left * self.scale:left * self.scale + hs])
+                    hs = cs * eff_scale
+                    hr_patch = convert(
+                        hr[top * eff_scale:top * eff_scale + hs,
+                           left * eff_scale:left * eff_scale + hs])
                 t = self._lap("convert", t)
                 if hr_patch is not None:
                     # geometric augmentation must hit LR and HR with the
@@ -350,12 +408,12 @@ class SuperResImages:
             t = self._lap("select", t)
             lr = lr[top:top + cs, left:left + cs]
             if hr is not None:
-                hs = cs * self.scale
-                hr = hr[top * self.scale:top * self.scale + hs,
-                        left * self.scale:left * self.scale + hs]
+                hs = cs * eff_scale
+                hr = hr[top * eff_scale:top * eff_scale + hs,
+                        left * eff_scale:left * eff_scale + hs]
             t = self._lap("crop_augment", t)
-        lr_f = self._colorspace_convert(lr)
-        hr_f = self._colorspace_convert(hr) if hr is not None else None
+        lr_f = convert(lr)
+        hr_f = convert(hr) if hr is not None else None
         t = self._lap("convert", t)
 
         if self.augmentations:

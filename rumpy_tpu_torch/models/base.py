@@ -221,6 +221,17 @@ class BaseHandler:
         self.schedule = build_schedule(lr, scheduler, scheduler_params)
         self._optimizer = None  # built at the first train step or load
         self._state_params = None
+        # Optional batch transform run on the device at the start of every
+        # train step (the online degradation pipeline: hr -> lr, metadata),
+        # drawing from this generator; its state is saved with the
+        # checkpoint, so that a resumed run continues its stream.
+        self.input_fn = None
+        self.rng = torch.Generator(device=self.device).manual_seed(seed)
+
+    def set_input_pipeline(self, fn) -> None:
+        """``fn(generator, batch) -> batch``, run on the device without
+        gradients before the forward pass of every train step."""
+        self.input_fn = fn
 
     # -- subclass surface --------------------------------------------------
 
@@ -276,8 +287,10 @@ class BaseHandler:
     @torch.no_grad()
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Fresh weights from a seeded CPU generator (the same values on
-        every device)."""
-        gen = torch.Generator().manual_seed(self.seed if seed is None else seed)
+        every device), and the input pipeline's generator seeded anew."""
+        seed = self.seed if seed is None else seed
+        gen = torch.Generator().manual_seed(seed)
+        self.rng.manual_seed(seed)
         for m in self.module.modules():
             if hasattr(m, "init_weights"):
                 m.init_weights(gen)
@@ -306,6 +319,9 @@ class BaseHandler:
         batch = {k: (torch.as_tensor(v, device=self.device)
                      if k in ("lr", "hr", "mask", "metadata") else v)
                  for k, v in batch.items()}
+        if self.input_fn is not None:
+            with torch.no_grad():
+                batch = self.input_fn(self.rng, batch)
         opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
             sr, aux, new_extra = self.apply(state.params, batch, train=True,
@@ -371,6 +387,7 @@ class BaseHandler:
             "network": {k: v.detach().cpu() for k, v in state.params.items()},
             "extra": state.extra,
             "step": int(state.step),
+            "rng": self.rng.get_state(),
             "optimizer": (None if self._optimizer is None
                           else self._optimizer.state_dict()),
             "model_name": getattr(self, "registered_name", type(self).__name__),
@@ -387,6 +404,8 @@ class BaseHandler:
         loaded = ckpt.load_checkpoint(ckpt.checkpoint_path(model_save_dir, epoch))
         with torch.no_grad():
             self.module.load_state_dict(loaded["network"])
+        if loaded.get("rng") is not None:
+            self.rng.set_state(loaded["rng"])
         # minimal checkpoints carry no optimizer state, and a caller may
         # skip it to load weights trained under another optimizer config:
         # both start from a fresh optimizer

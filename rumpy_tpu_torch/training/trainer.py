@@ -8,9 +8,13 @@ efficiency line is kept: it says how far the input pipeline holds the card
 back. Losses stay on the device during an epoch and are fetched once at
 its end.
 
+A ``[data.online_degradations]`` table trains from HR-only sets: the
+datasets return HR crops and the pipeline (``degradations/pipeline.py``)
+degrades each batch on the device at the start of the train step.
+
 Not ported yet, and raising ``NotImplementedError``: validation
-(``eval_sets`` need ``utils/metrics.py``, the metrics slice), online
-degradations (the degradation slice), ``profile_steps`` and Aim logging.
+(``eval_sets`` need ``utils/metrics.py``, the metrics slice),
+``profile_steps`` and Aim logging.
 """
 
 from __future__ import annotations
@@ -39,10 +43,6 @@ class TrainingHandler:
         model_cfg = config.get("model") or {}
         train_cfg = config.get("training") or {}
 
-        if data_cfg.get("online_degradations"):
-            raise NotImplementedError(
-                "online_degradations are not ported yet: they come with the "
-                "degradation slice")
         if data_cfg.get("eval_sets"):
             raise NotImplementedError(
                 "validation (data.eval_sets) is not ported yet: it comes "
@@ -100,6 +100,18 @@ class TrainingHandler:
                                               self.model.model_epoch - 1)
 
         handler = self.model.model
+        online_cfg = data_cfg.get("online_degradations")
+        if online_cfg:
+            if not isinstance(online_cfg, dict):
+                raise ValueError(
+                    "[data.online_degradations] must be a table with a "
+                    "'pipeline' list (got a bare boolean); see "
+                    "examples/train_rcan_blind_x4.toml")
+            # a global online pipeline makes the training sets HR-only (the
+            # LR is made on the device inside the step)
+            for ds in (data_cfg.get("training_sets") or {}).values():
+                if ds.get("online_degradations") is None:
+                    ds["online_degradations"] = True
         self.train_data, self.eval_data = sisr_data_setup(
             data_cfg, scale=scale,
             batch_size=self.batch_size,
@@ -113,7 +125,43 @@ class TrainingHandler:
             sampler_attributes=data_cfg.get("sampler_attributes"),
             seed=self.seed,
             device=self.device)
+        self.online_pipeline = None
+        if online_cfg:
+            self._set_online_pipeline(handler, online_cfg, scale,
+                                      data_cfg.get("metadata"))
         self.stats: Dict[int, Dict[str, float]] = {}
+
+    def _set_online_pipeline(self, handler, online_cfg, scale: int, requested) -> None:
+        """Build the degradation pipeline and hand it to the handler as its
+        input pipeline: hr -> lr and the requested metadata columns (all
+        of them when none or 'all' is requested)."""
+        from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+        pipe = ImagePipeline(online_cfg["pipeline"],
+                             deg_configs=online_cfg.get("deg_configs"), scale=scale)
+        self.online_pipeline = pipe
+        columns = {}  # device -> index tensor of the requested columns
+
+        def input_fn(generator, batch):
+            lr, meta = pipe.degrade_batch(generator, batch["hr"])
+            mat, keys = pipe.metadata_matrix(meta)
+            new_batch = dict(batch)
+            new_batch["lr"] = lr
+            if requested and "all" not in requested:
+                idx = [i for r in requested for i, k in enumerate(keys)
+                       if k == r or k.endswith(f"-{r}")]
+                if idx:
+                    if mat.device not in columns:  # uploaded once, not every step
+                        columns[mat.device] = torch.tensor(idx, device=mat.device)
+                    new_batch["metadata"] = mat.index_select(1, columns[mat.device])
+            else:
+                new_batch["metadata"] = mat
+            return new_batch
+
+        try:
+            handler.set_input_pipeline(input_fn)
+        except NotImplementedError:
+            # handlers that degrade their own views refuse the hook
+            pass
 
     # ------------------------------------------------------------------
 

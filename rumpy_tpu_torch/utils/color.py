@@ -53,8 +53,11 @@ def rgb_to_ycbcr(img: torch.Tensor, y_only: bool = False, max_val: float = 1.0,
     fwd = _JPG_FWD if im_type == "jpg" else _PNG_FWD
     bias = _biases(im_type, max_val)
     rows = torch.as_tensor(fwd[:1] if y_only else fwd, dtype=img.dtype).double().tolist()
-    b = torch.as_tensor(bias[:len(rows)], dtype=img.dtype, device=img.device)
-    return torch.stack([weighted_sum_chain(img, row) for row in rows], dim=-1) + b
+    # the biases as values of img's dtype, added as scalars: no upload to
+    # the card, which would wait for the host
+    b = torch.as_tensor(bias[:len(rows)], dtype=img.dtype).tolist()
+    return torch.stack([weighted_sum_chain(img, row) + bias_c
+                        for row, bias_c in zip(rows, b)], dim=-1)
 
 
 def ycbcr_to_rgb(img: torch.Tensor, max_val: float = 1.0,

@@ -187,8 +187,10 @@ def test_data_setup_matches_jax(pairs):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(online_degradations=True), dict(input="interp"),
-    dict(use_random_colour_distort=True), dict(metadata_file="on_site"),
+    dict(online_degradations=True, mask_data="masks"),
+    dict(input="interp", metadata_file="on_site"),
+    dict(use_random_colour_distort=True, blacklist="blacklist.csv"),
+    dict(metadata_file="on_site"),
     dict(attributes_loc="attrs.csv"), dict(blacklist="blacklist.csv"),
     dict(predefined_patch_location="patches.csv"), dict(mask_data="masks"),
     dict(custom_mask_name="uvtex_mask.png")])

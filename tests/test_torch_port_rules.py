@@ -152,3 +152,34 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     ds = SuperResImages(lr_dir=str(tmp_path), crop=8, patch_type="entropy")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ds[0]
+
+
+DEGRADATION_MODULES = ("ops/special.py", "ops/blur_kernels.py", "ops/blur.py",
+                       "ops/resize.py", "ops/noise.py", "ops/jpeg.py", "ops/color_aug.py",
+                       "degradations/base.py", "degradations/blur.py",
+                       "degradations/resize_ops.py", "degradations/noise.py",
+                       "degradations/compression.py", "degradations/pipeline.py")
+
+
+def test_port_covers_the_degradation_modules():
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    missing = [m for m in DEGRADATION_MODULES if m not in names]
+    assert not missing, missing
+
+
+# Calls that wait for the card: a value read back to the host, or an output
+# whose size depends on the data.
+SYNCING_CALLS = ("item", "tolist", "cpu", "numpy", "bincount", "nonzero", "unique",
+                 "multinomial", "masked_select", "synchronize")
+
+
+@pytest.mark.parametrize("module", DEGRADATION_MODULES)
+def test_degradation_device_paths_read_nothing_back(module):
+    """The chain runs inside every train step: none of its modules calls
+    what would stall the card's queue (chip_smoke.py checks one
+    degrade_batch under torch.cuda.set_sync_debug_mode("error") as well)."""
+    tree = ast.parse((ROOT / "rumpy_tpu_torch" / module).read_text())
+    bad = [f"{module}:{n.lineno} .{n.func.attr}()" for n in ast.walk(tree)
+           if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+           and n.func.attr in SYNCING_CALLS]
+    assert not bad, bad

@@ -201,7 +201,8 @@ def test_options_of_later_slices_raise(tmp_path, dataset):
     base = load_config(_write_config(tmp_path / "c.toml", dataset, tmp_path / "out"))
     for table, key, value in (
             ("data", "eval_sets", {"data_1": {"lr_dir": lr_dir, "hr_dir": hr_dir}}),
-            ("data", "online_degradations", {"pipeline": [["downsample", "d"]]}),
+            ("data", "online_degradations", {"pipeline": [["srmdgaussianblur", "b"]],
+                                              "deg_configs": {"b": {}}}),
             ("training", "profile_steps", 2), ("training", "logging", "aim")):
         cfg = load_config(str(tmp_path / "c.toml"))
         cfg[table][key] = value
