@@ -19,8 +19,14 @@ seeded random weights):
 * blind training: ``cli.train_sisr`` on HR-only ``.npy`` files with the
   ``[data.online_degradations]`` table of examples/train_rcan_blind_x4.toml
   (blur of seven families -> x4 downsample -> noise -> JPEG), every batch
-  degraded on the card inside the train step; then three steps at
-  bench.py's batch 120 with bench.py's chain.
+  degraded on the card inside the train step, validating after each epoch
+  on eval pairs (four at the DIV2K x4 sizes, one at each Set5 x4 shape);
+  then three steps at bench.py's batch 120 with bench.py's chain;
+* evaluation: ``cli.eval_sisr`` on the blind experiment (epochs best and
+  last) -> EvalHub.full_image_protocol -> individual_metrics.csv, and one
+  EvalHub run that waits for the card only where it fetches an image's
+  metrics; then the flax-msgpack reader on a packaged checkpoint of the
+  JAX package.
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
@@ -39,7 +45,13 @@ device time beside one cuDNN conv of the same shape. The degradation ops
 (no hand kernel: PyTorch ops) are held on the card against the CPU with the
 same inputs and draws at bench.py's shapes, with the TF32 flags off and on;
 one chain runs under sync debug mode "error" and gives bench.py's 13
-metadata keys; their device ms and launches per step are printed.
+metadata keys; their device ms and launches per step are printed. The
+evaluation phases check validation's and eval_sisr's columns and launch
+counts, the metrics on the card against the CPU on the same fetched
+arrays (PSNR within 1e-5 dB, SSIM within 1e-6, bicubic bit for bit), and
+print eval images/s, one DIV2K forward's and one image's metrics' device
+ms, the eval's peak memory and validation seconds per epoch; the kernel
+phase holds the forward at the eval path's shapes too.
 
 Prints the card, then one JSON line per phase, then a ``{"kernels": ...}``
 line, the card's name and power limit, and as its last line
@@ -49,7 +61,9 @@ exits non-zero. It needs CUDA and the rest of the repository beside it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import csv
 import dataclasses
 import json
 import os
@@ -88,10 +102,15 @@ RCAN_FULL = dict(scale=4, n_feats=64, n_resgroups=10, n_resblocks=20,
 # RCAB's input in a train step: batch 16 of 48x48 LR crops.
 TRAIN_BATCH, TRAIN_CROP = 16, 48
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, RCAN_FULL["n_feats"])
-# Kernel shapes beside the serving path's: the train step's, a ragged image
-# (SISRInterface pads only to size_multiple 1) and other channel counts,
-# one of them (C=24) on the CUDA-core pass in bf16.
-EXTRA_SHAPES = [TRAIN_SHAPE, (1, 86, 57, 64), (1, 64, 64, 32), (1, 40, 33, 128),
+# The evaluation path's RCAB shapes, unpadded (RCAN's size_multiple is 1):
+# one DIV2K x4 LR image, 172,890 pixels; a validation chunk of four of them;
+# the odd Set5 LR shape.
+DIV2K_LR = (339, 510)
+EVAL_SHAPES = [(1, *DIV2K_LR, 64), (4, *DIV2K_LR, 64), (1, 86, 57, 64)]
+# Kernel shapes beside the serving path's: the train step's, the eval
+# path's, and other channel counts, one of them (C=24) on the CUDA-core pass
+# in bf16.
+EXTRA_SHAPES = [TRAIN_SHAPE, *EVAL_SHAPES, (1, 64, 64, 32), (1, 40, 33, 128),
                 (1, 33, 45, 24)]
 
 # RCAB backward kernel against autograd of the plain version on the card
@@ -214,11 +233,12 @@ def kernel_phase(rcab):
     conv beside it. Fails where a bf16 tensor-core plan at a main-path or
     train shape launches fewer conv blocks than the card has SMs. Returns
     the bf16 row of the largest request's bucket (the kernels line's
-    numbers), the bf16 row at the train shape, and the largest bf16 error
-    at any shape."""
+    numbers), the bf16 row at the train shape, the bf16 rows at the eval
+    path's shapes (each with the library's conv beside it) and the largest
+    bf16 error at any shape."""
     main_shapes = main_path_shapes()
     main_shape = max(main_shapes, key=lambda s: s[1] * s[2])
-    rows, main, train = [], None, None
+    rows, main, train, evals = [], None, None, []
     for i, shape in enumerate(main_shapes + EXTRA_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             args = rcab_inputs(shape, dtype, seed=i)
@@ -250,6 +270,9 @@ def kernel_phase(rcab):
                             by_kernel=True)["per_call_device_us_by_kernel"]
                         if dtype == torch.bfloat16:
                             row["library_conv_ms"] = library_conv_ms(shape)
+                    if shape in EVAL_SHAPES and dtype == torch.bfloat16:
+                        row["eval_path"] = True
+                        row["library_conv_ms"] = library_conv_ms(shape)
                 print(json.dumps({"phase": "kernel", **row}), flush=True)
                 if not err <= tol:
                     raise AssertionError(f"rcab_fused disagrees with rcab_reference: {row}")
@@ -265,7 +288,9 @@ def kernel_phase(rcab):
                         main = row
                     if shape == TRAIN_SHAPE:
                         train = row
-    return main, train, max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+                    if shape in EVAL_SHAPES:
+                        evals.append(row)
+    return main, train, evals, max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
 
 
 @contextlib.contextmanager
@@ -302,15 +327,23 @@ def traced(fn, name: str, repeats: int, by_kernel: bool = False):
     too), and the share of the traced span the card sat idle. The Chrome
     trace goes to build/<name>.json."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
     path = os.path.join(ROOT, "build", f"{name}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    # A session now and then records no device event at all, right after
+    # another session on this machine (kernel-phase traces of 5 x 40 us):
+    # the calls are traced again, up to three times in all.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if events:
+            break
+        print(f"traced {name}: no device event in session {attempt + 1}", file=sys.stderr,
+              flush=True)
     if not events:
         raise AssertionError("the profiler traced no kernel on the card")
     by_family, by_name = {}, {}
@@ -1012,6 +1045,13 @@ BENCH_KEYS = [
     "2-realesrgannoise-poisson_noise_scale", "3-jpegcompress-quality"]
 EXAMPLE_CONFIG = os.path.join("examples", "train_rcan_blind_x4.toml")
 DEGRADE_STEPS, DEGRADE_SETS = 4, 4
+BLIND_EXP = "rcan_x4_blind"
+# Eval pairs: four at the DIV2K x4 sizes and one at each Set5 x4 LR shape.
+# Validation buckets them by shape, chunks of up to 8: one forward for the
+# four DIV2K images and one for each Set5 image.
+EVAL_DIV2K = 4
+EVAL_LR_SHAPES = [DIV2K_LR] * EVAL_DIV2K + SET5_X4_LR
+VALIDATION_FORWARDS = sum(-(-n // 8) for n in collections.Counter(EVAL_LR_SHAPES).values())
 
 
 def card_generator(seed: int) -> torch.Generator:
@@ -1239,6 +1279,73 @@ def degrade_ops_phase(card):
     return out
 
 
+def write_eval_pairs(root, rng):
+    """Eval pairs as uint8 .npy files at EVAL_LR_SHAPES: textured HR
+    images, LR their 4x decimation."""
+    lr_dir, hr_dir = os.path.join(root, "lr"), os.path.join(root, "hr")
+    os.makedirs(lr_dir)
+    os.makedirs(hr_dir)
+    for k, (lh, lw) in enumerate(EVAL_LR_SHAPES):
+        yy, xx = np.mgrid[:lh * TRAIN_SCALE, :lw * TRAIN_SCALE].astype(np.float32)
+        amp = 70.0 * (0.5 + 0.5 * np.sin(xx / (60.0 + 10 * k))) \
+            * (0.5 + 0.5 * np.cos(yy / (50.0 + 5 * k)))
+        hr = 128.0 + amp[..., None] * rng.standard_normal((*yy.shape, 3), dtype=np.float32)
+        hr = np.clip(hr, 0, 255).astype(np.uint8)
+        np.save(os.path.join(hr_dir, f"e{k}.npy"), hr)
+        np.save(os.path.join(lr_dir, f"e{k}.npy"),
+                np.ascontiguousarray(hr[::TRAIN_SCALE, ::TRAIN_SCALE]))
+    return lr_dir, hr_dir
+
+
+@contextlib.contextmanager
+def watched(owner, name: str):
+    """While the block runs, each call of ``owner.name`` appends its host
+    seconds to the list it yields."""
+    fn = getattr(owner, name)
+    seconds = []
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(owner, name, wrapper)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, name, fn)
+
+
+def fetch_only_at_batches(fn):
+    """Runs ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``, where
+    any wait for the card raises, except inside ``utils/metrics.fetch``,
+    the evaluation's one copy of a batch's metrics to the host. Returns
+    (fn's result, fetches, host seconds)."""
+    from rumpy_tpu_torch.utils import metrics
+    real, fetches = metrics.fetch, []
+
+    def fetch(values):
+        fetches.append(len(values))
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(values)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize()
+    metrics.fetch = fetch
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        metrics.fetch = real
+    return out, len(fetches), time.perf_counter() - t0
+
+
 def degrade_train_phase(rcab, card):
     """Full-width RCAN x4 bf16 through cli.train_sisr on HR-only .npy files
     with the example config's [data.online_degradations] table (all seven
@@ -1256,17 +1363,21 @@ def degrade_train_phase(rcab, card):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(2))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(4))
     table = load_config(os.path.join(ROOT, EXAMPLE_CONFIG)).as_plain()["data"][
         "online_degradations"]
     internal = dict(RCAN_FULL, dtype="bf16", lr=1e-4, optimizer_type="adam")
     seed = 3
     cfg = {
-        "experiment": "rcan_x4_blind", "experiment_save_loc": os.path.join(root, "experiments"),
-        # the eight HR images listed four times: two batches of 16 an epoch
+        "experiment": BLIND_EXP, "experiment_save_loc": os.path.join(root, "experiments"),
+        # the eight HR images listed four times: two batches of 16 an epoch;
+        # validation on the eval pairs after each epoch
         "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "augmentations": True,
                  "dataloader_threads": 4, "online_degradations": table,
                  "training_sets": {f"data_{i}": {"hr_dir": hr_dir}
-                                   for i in range(DEGRADE_SETS)}},
+                                   for i in range(DEGRADE_SETS)},
+                 "eval_sets": {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr}}},
         "model": {"name": "rcan", "internal_params": internal},
         "training": {"num_epochs": 2, "batch_size": TRAIN_BATCH, "seed": seed},
     }
@@ -1292,21 +1403,35 @@ def degrade_train_phase(rcab, card):
     torch.cuda.reset_peak_memory_stats()
     rcab.launches = rcab.backward_launches = 0
     t0 = time.perf_counter()
-    stats = train_sisr.main(["-p", cfg_path])
+    with watched(SISRInterface, "net_run") as forwards, \
+            watched(TrainingHandler, "eval") as validations:
+        stats = train_sisr.main(["-p", cfg_path])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
     peak_run = torch.cuda.max_memory_allocated()
-    want = {k: 200 * DEGRADE_STEPS for k in counts}
-    if counts != want:
+    want = {"rcab_fused": 200 * (DEGRADE_STEPS + len(forwards)),
+            "rcab_fused_backward": 200 * DEGRADE_STEPS}
+    if counts != want or len(forwards) != 2 * VALIDATION_FORWARDS:
         raise AssertionError(f"kernel launches in the blind training run {counts}, "
-                             f"expected {want} ({DEGRADE_STEPS} steps, 200 RCAB)")
+                             f"expected {want} ({DEGRADE_STEPS} steps and "
+                             f"{len(forwards)} validation forwards, expected "
+                             f"{2 * VALIDATION_FORWARDS}; 200 RCAB a forward)")
+    counts["rcab_fused_validation"] = 200 * len(forwards)
     losses = [stats[e]["train-loss"] for e in sorted(stats)]
     if len(losses) != 2 or not np.isfinite(losses).all():
         raise AssertionError(f"blind training losses {losses}")
-    iface = SISRInterface(model_loc=os.path.join(root, "experiments"),
-                          experiment="rcan_x4_blind", mode="eval", load_epoch="last",
-                          device="cuda")
+    exp_root = os.path.join(root, "experiments")
+    with open(os.path.join(exp_root, BLIND_EXP, "result_outputs", "summary.csv"),
+              newline="") as f:
+        summary = list(csv.DictReader(f))
+    val = {k: [float(r[k]) for r in summary] for k in ("val-PSNR", "val-SSIM")
+           if summary and k in summary[0]}
+    if sorted(val) != ["val-PSNR", "val-SSIM"] or not all(
+            len(v) == 2 and np.isfinite(v).all() for v in val.values()):
+        raise AssertionError(f"summary.csv validation columns {summary[0]}: {val}")
+    iface = SISRInterface(model_loc=exp_root, experiment=BLIND_EXP, mode="eval",
+                          load_epoch="last", device="cuda")
     if iface.state.step != DEGRADE_STEPS:
         raise AssertionError(f"checkpoint holds step {iface.state.step}")
     loss_after = l1_on(iface.model, iface.state, fixed)
@@ -1318,6 +1443,13 @@ def degrade_train_phase(rcab, card):
     # pipeline, in turns with the same steps on the degraded batch without it
     # (the host's speed moves a step more than the chain does)
     h = TrainingHandler(dict(load_config(cfg_path), no_directories=True), verbose=False)
+    # the trainer's validation waits for the card only where it fetches a
+    # chunk's metrics
+    h.eval(0)
+    _, val_fetches, _ = fetch_only_at_batches(lambda: h.eval(0))
+    if val_fetches != VALIDATION_FORWARDS:
+        raise AssertionError(f"validation fetched {val_fetches} times, expected one "
+                             f"fetch per chunk ({VALIDATION_FORWARDS})")
     model = h.model
     input_fn = model.model.input_fn
     with_chain = lambda: model.train_batch(hr=fixed_hr, fetch=False)
@@ -1350,7 +1482,9 @@ def degrade_train_phase(rcab, card):
            "chain_busy_us": chain["busy_us"],
            "chain_share_of_step_device_time": chain["busy_us"] / trace["busy_us"],
            "step_idle_share": trace["idle_share"], "kernels_per_step": trace["kernels_per_call"],
-           "peak_memory_bytes_run": peak_run, "peak_memory_bytes_step": peak_step}
+           "peak_memory_bytes_run": peak_run, "peak_memory_bytes_step": peak_step,
+           "validation_forwards": len(forwards), "validation_s_per_epoch": validations,
+           "validation_fetches_under_sync_debug": val_fetches, **val}
     print(json.dumps(row), flush=True)
 
     # bench.py's workload: batch 120, its chain in the step
@@ -1387,7 +1521,200 @@ def degrade_train_phase(rcab, card):
         raise AssertionError(f"batch-120 losses {row120['losses']}")
     del handler, state, hr120
     shutil.rmtree(os.path.join(root, "data"))
-    return row, row120
+    return row, row120, (exp_root, eval_lr, eval_hr)
+
+
+# Metrics on the card against the CPU on the same fetched arrays: the same
+# elementwise float32 arithmetic (no convolution, so no TF32), the final
+# means summed in another order.
+METRIC_PSNR_TOL, METRIC_SSIM_TOL = 1e-5, 1e-6
+EVAL_COLUMNS = [("bicubic", "PSNR"), ("bicubic", "SSIM"), ("bicubic", "runtime"),
+                (BLIND_EXP, "PSNR"), (BLIND_EXP, "SSIM"), (BLIND_EXP, "runtime")]
+
+
+def read_metrics_csv(path):
+    """individual_metrics.csv as (columns, {image: [values]})."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if rows[0][0] != "model" or rows[1][0] != "metric" or rows[2][0] != "image":
+        raise AssertionError(f"{path}: header rows {rows[:3]}")
+    return (list(zip(rows[0][1:], rows[1][1:])),
+            {r[0]: [float(v) for v in r[1:]] for r in rows[3:]})
+
+
+def eval_phase(rcab, card, exp_root, lr_dir, hr_dir):
+    """The blind experiment through cli.eval_sisr (epoch best, then last;
+    PSNR, SSIM, --time_models) on the eval pairs: the CSV's rows and columns,
+    finite values, 200 RCAB launches a forward. Then, for each eval image,
+    the metrics on the card against the CPU on the same fetched SR and HR
+    arrays, and bicubic against the CPU and the CSV; one DIV2K forward and
+    one image's metrics by CUDA events; one EvalHub run that waits for the
+    card only at its per-image fetch: images/s and peak memory."""
+    from rumpy_tpu_torch.cli import eval_sisr
+    from rumpy_tpu_torch.data.datasets import SuperResImages
+    from rumpy_tpu_torch.device import true_div
+    from rumpy_tpu_torch.evaluation.eval_hub import EvalHub
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.ops.resize import pil_resize
+    from rumpy_tpu_torch.utils import metrics
+    from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
+
+    out_root = os.path.join(os.path.dirname(exp_root), "eval")
+    images = len(EVAL_LR_SHAPES)
+    want_forwards = images + len(set(EVAL_LR_SHAPES))  # a warm-up per shape
+    flags = ["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir", lr_dir,
+             "--hr_dir", hr_dir, "-m", "PSNR", "-m", "SSIM", "--time_models"]
+    cli, launches = {}, 0
+    for epoch in ("best", "last"):
+        out = os.path.join(out_root, epoch)
+        rcab.launches = 0
+        with watched(SISRInterface, "net_run") as forwards:
+            t0 = time.perf_counter()
+            eval_sisr.main(flags + ["-me", BLIND_EXP, epoch, "--out_loc", out])
+            seconds = time.perf_counter() - t0
+        columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+        cli[epoch] = {"seconds": seconds, "forwards": len(forwards),
+                      "rcab_launches": rcab.launches, "rows": len(values),
+                      "mean": dict(zip([f"{m}>{k}" for m, k in columns],
+                                       np.mean(list(values.values()), axis=0).tolist()))}
+        launches += rcab.launches
+        if columns != EVAL_COLUMNS or len(values) != images or not np.isfinite(
+                list(values.values())).all():
+            raise AssertionError(f"eval_sisr {epoch}: columns {columns}, {len(values)} "
+                                 f"rows, expected {EVAL_COLUMNS} and {images} finite rows")
+        if len(forwards) != want_forwards or rcab.launches != 200 * len(forwards):
+            raise AssertionError(f"eval_sisr {epoch}: {len(forwards)} forwards (expected "
+                                 f"{want_forwards}), {rcab.launches} RCAB launches")
+
+    # the card's metrics against the CPU's on the same fetched arrays
+    iface = SISRInterface(model_loc=exp_root, experiment=BLIND_EXP, mode="eval",
+                          load_epoch="last", device="cuda")
+    ds = SuperResImages(lr_dir=lr_dir, hr_dir=hr_dir, scale=TRAIN_SCALE)
+    hub = metrics.Metrics(["PSNR", "SSIM"])
+
+    def y(img):
+        return rgb_to_ycbcr(img.clamp(0.0, 1.0), y_only=True, im_type="jpg")[None]
+
+    _, csv_last = read_metrics_csv(os.path.join(out_root, "last", "individual_metrics.csv"))
+    err = {"model": [0.0, 0.0], "bicubic": [0.0, 0.0]}
+    bicubic_vs_csv, bicubic_identical = 0.0, True
+    for i in range(len(ds)):
+        item = ds[i]
+        lr, hr = torch.from_numpy(item["lr"]), torch.from_numpy(item["hr"])
+        sr = iface.net_run(lr[None].cuda())[0][0]
+        lr_u8 = (lr.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        size = (lr.shape[0] * TRAIN_SCALE, lr.shape[1] * TRAIN_SCALE)
+        u8_card, u8_cpu = pil_resize(lr_u8.cuda(), size), pil_resize(lr_u8, size)
+        bic_card = true_div(u8_card.float(), 255.0)
+        bic_cpu = true_div(u8_cpu.float(), 255.0)
+        bicubic_identical &= torch.equal(u8_card.cpu(), u8_cpu) and torch.equal(
+            bic_card.cpu(), bic_cpu)
+        for name, card_img in (("model", sr), ("bicubic", bic_card)):
+            on_card = metrics.fetch(hub.compute(y(card_img), y(hr.cuda())))
+            on_cpu = metrics.fetch(hub.compute(y(card_img.cpu()), y(hr)))
+            for j, k in enumerate(("PSNR", "SSIM")):
+                err[name][j] = max(err[name][j], abs(on_card[k][0] - on_cpu[k][0]))
+            if name == "bicubic":
+                bicubic_vs_csv = max(bicubic_vs_csv,
+                                     abs(csv_last[item["tag"]][0] - on_cpu["PSNR"][0]))
+    check = {"phase": "eval_metrics_card_vs_cpu", "card": card, "images": len(ds),
+             "model_psnr_max_abs_db": err["model"][0], "model_ssim_max_abs": err["model"][1],
+             "bicubic_psnr_max_abs_db": err["bicubic"][0],
+             "bicubic_ssim_max_abs": err["bicubic"][1],
+             "bicubic_resize_bit_identical": bicubic_identical,
+             "bicubic_csv_vs_cpu_max_abs_db": bicubic_vs_csv,
+             "tol_psnr_db": METRIC_PSNR_TOL, "tol_ssim": METRIC_SSIM_TOL}
+    print(json.dumps(check), flush=True)
+    if not (max(err["model"][0], err["bicubic"][0], bicubic_vs_csv) <= METRIC_PSNR_TOL
+            and max(err["model"][1], err["bicubic"][1]) <= METRIC_SSIM_TOL
+            and bicubic_identical):
+        raise AssertionError(f"metrics on the card disagree with the CPU: {check}")
+
+    # one DIV2K-sized forward, and one image's PSNR + SSIM, by CUDA events
+    x = torch.from_numpy(ds[0]["lr"])[None].cuda()
+    forward_ms, forward_host_ms = held_ms(
+        lambda: iface.model.run_eval(iface.state, {"lr": x}), iters=1)
+    sr_y, hr_y = y(iface.net_run(x)[0][0]), y(torch.from_numpy(ds[0]["hr"]).cuda())
+    metric_ms, metric_host_ms = held_ms(lambda: hub.compute(sr_y, hr_y), iters=2)
+    del iface
+
+    # a whole evaluation that waits for the card only where it fetches an
+    # image's metrics
+    hub_eval = EvalHub(models=[{"experiment": BLIND_EXP, "epoch": "last"}],
+                       model_loc=exp_root, data_cfg={"lr_dir": lr_dir, "hr_dir": hr_dir},
+                       out_loc=os.path.join(out_root, "no_sync"), scale=TRAIN_SCALE,
+                       device="cuda")
+    rcab.launches = 0
+    hub_eval.full_image_protocol()  # warm: resize matrices uploaded
+    torch.cuda.reset_peak_memory_stats()
+    table, fetches, seconds = fetch_only_at_batches(hub_eval.full_image_protocol)
+    peak = torch.cuda.max_memory_allocated()
+    launches += rcab.launches
+    if fetches != images or len(table.images) != images:
+        raise AssertionError(f"EvalHub fetched {fetches} times for {images} images")
+    row = {"phase": "eval", "model": "rcan x4 10x20x64 bf16", "card": card,
+           "images": images, "lr_shapes": sorted(set(EVAL_LR_SHAPES)),
+           "eval_sisr": cli, "eval_images_per_s": images / seconds,
+           "eval_seconds": seconds, "fetches_under_sync_debug": fetches,
+           "peak_memory_bytes_eval": peak,
+           "forward_div2k_device_ms": forward_ms, "forward_div2k_host_ms": forward_host_ms,
+           "metrics_div2k_device_ms": metric_ms, "metrics_div2k_host_ms": metric_host_ms,
+           "rcab_launches": launches}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(os.path.dirname(lr_dir))
+    return row
+
+
+READER_FILE = os.path.join("rumpy_tpu", "pretrained", "supmoco_heldout_d256", "saved_models",
+                           "train_model_20")
+# Its array leaves, and the sha256 of their "path shape dtype" lines in file
+# order, as flax.serialization.msgpack_restore reads them.
+READER_LEAVES = 85
+READER_DIGEST = "c9e4728d1690a04dd6edd9e7b1556cf093d819f1b58980f3ed954a730f6c1ac3"
+
+
+def reader_phase(card):
+    """The port's pure-Python flax-msgpack reader on a packaged encoder
+    checkpoint of the JAX package (a data file), with msgpack unimportable:
+    leaf count, paths, shapes and dtypes against flax's reading, the MoCo
+    queue's shape and dtype, and the read time."""
+    import hashlib
+    import importlib.util
+    from rumpy_tpu_torch.utils import flax_msgpack
+    installed = importlib.util.find_spec("msgpack") is not None
+    saved = sys.modules.get("msgpack")
+    sys.modules["msgpack"] = None
+    try:
+        t0 = time.perf_counter()
+        with open(os.path.join(ROOT, READER_FILE), "rb") as f:
+            blob = flax_msgpack.msgpack_restore(f.read())
+        seconds = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del sys.modules["msgpack"]
+        else:
+            sys.modules["msgpack"] = saved
+
+    def leaves(tree, prefix=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield prefix, tree
+
+    lines = [f"{'/'.join(p)} {tuple(np.shape(v))} {v.dtype}" for p, v in leaves(blob["arrays"])]
+    digest = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+    queue = blob["arrays"]["extra"]["queue"]
+    meta = json.loads(bytes(blob["meta_json"]))
+    row = {"phase": "reader", "card": card, "file": READER_FILE,
+           "msgpack_installed": installed, "leaves": len(lines), "digest_ok":
+           digest == READER_DIGEST, "queue": [list(queue.shape), str(queue.dtype)],
+           "model_name": meta.get("model_name"), "read_ms": seconds * 1e3}
+    print(json.dumps(row), flush=True)
+    if (len(lines) != READER_LEAVES or digest != READER_DIGEST
+            or queue.shape != (8192, 256) or queue.dtype != np.float32):
+        raise AssertionError(f"the flax-msgpack reader: {row}")
+    return row
 
 
 def main() -> int:
@@ -1414,7 +1741,7 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "nvcc_seconds": build.build_seconds}), flush=True)
 
-    main_row, train_row, bf16_err = kernel_phase(rcab)
+    main_row, train_row, eval_rows, bf16_err = kernel_phase(rcab)
     bwd_row = rcab_bwd_phase(rcab)
     serve_launches = slice_phase(rcab, card)
     ent_row = entropy_phase(ent)
@@ -1422,18 +1749,22 @@ def main() -> int:
     win_row = window_phase(ent, win)
     train_launches = train_phase(rcab, ent, win, card)
     degrade_ops_phase(card)
-    blind_row, _ = degrade_train_phase(rcab, card)
+    blind_row, _, eval_dirs = degrade_train_phase(rcab, card)
     blind_launches = blind_row["launches"]
+    eval_row = eval_phase(rcab, card, *eval_dirs)
+    reader_phase(card)
 
     kernels = [{
         "name": "rcab_fused", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/rcab_fused.cu",
         "replaces": "rumpy_tpu/ops/pallas/rcab_fused.py:73",
         "launches": (serve_launches + train_launches["rcab_fused"]
-                     + blind_launches["rcab_fused"]),
+                     + blind_launches["rcab_fused"] + eval_row["rcab_launches"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
+        "launches_validation": blind_launches["rcab_fused_validation"],
+        "launches_eval_path": eval_row["rcab_launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1446,6 +1777,9 @@ def main() -> int:
         "train_shape": {k: train_row[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "library_conv_ms", "plan",
             "pass_device_us", "max_abs_err")},
+        "eval_shapes": [{k: r[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_conv_ms", "plan",
+            "max_abs_err")} for r in eval_rows],
     }, {
         "name": "rcab_fused_backward", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/rcab_fused_bwd.cu",

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from rumpy_tpu_torch.config.loader import (NoneDict, config_diff, dump_toml,
                                            load_config)
+from rumpy_tpu_torch.device import to_device
 from rumpy_tpu_torch.registry import get_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr, ycbcr_to_rgb
@@ -82,8 +83,11 @@ class SISRInterface:
         if load_epoch is not None:
             summary = (os.path.join(self.logs_dir, "summary.csv")
                        if self.logs_dir else None)
+            # evaluation needs no optimizer state (and a JAX-written
+            # checkpoint's optax state does not map onto torch.optim yet)
             self.state, self.model_epoch = self.model.load_model(
-                self.model_save_dir, load_epoch, summary_csv=summary)
+                self.model_save_dir, load_epoch, summary_csv=summary,
+                skip_optimizer_load=mode != "train")
             self.model_epoch += 1  # resume from the NEXT epoch
             # phase-switched handlers must know the loaded epoch
             if hasattr(self.model, "set_epoch"):
@@ -183,18 +187,17 @@ class SISRInterface:
         if hasattr(self.model, "set_epoch"):
             self.model.set_epoch(epoch)
 
-    def net_run_and_process(self, lr=None, hr=None, metadata=None,
-                            timing: bool = False,
-                            pad_multiple: Optional[int] = None, **kwargs):
-        """Eval forward with colorspace post-processing. ``lr`` is
-        channel-last RGB float [0,1], (H,W,C) or (N,H,W,C). Returns
-        (rgb, ycbcr, None, seconds-or-None) as float32 numpy arrays, both
-        clipped and cropped to ``scale`` x the input size.
+    def net_run(self, lr, metadata=None, pad_multiple: Optional[int] = None):
+        """Eval forward with colorspace post-processing, on the device and
+        without waiting for it. ``lr`` is channel-last RGB float [0,1],
+        (H,W,C) or (N,H,W,C), a numpy array or a tensor. Returns (rgb,
+        ycbcr) float32 tensors on the handler's device, cropped to
+        ``scale`` x the input size; rgb clipped to [0, 1].
 
         Images are padded only to the handler's ``size_multiple``
         (reflect) unless ``pad_multiple`` asks for shape buckets, which are
         padded with zeros, as the JAX package does."""
-        lr = torch.as_tensor(np.asarray(lr, np.float32), device=self.device)
+        lr = to_device(lr, self.device, torch.float32)
         if lr.dim() == 3:
             lr = lr[None]
         orig_h, orig_w = lr.shape[1:3]
@@ -213,9 +216,7 @@ class SISRInterface:
                 lr = lr.permute(0, 2, 3, 1).contiguous()
         batch: Dict[str, Any] = {}
         if metadata is not None and np.size(metadata):
-            batch["metadata"] = torch.as_tensor(np.asarray(metadata),
-                                                device=self.device)
-        t0 = time.perf_counter()
+            batch["metadata"] = to_device(metadata, self.device)
         if self.model.colorspace == "rgb":
             batch["lr"] = lr
             out_rgb = self.model.run_eval(self.state, batch).float()
@@ -227,15 +228,24 @@ class SISRInterface:
             out_y = self.model.run_eval(self.state, batch).float()
             out_ycc = torch.cat([out_y, ycc[..., 1:]], dim=-1)
             out_rgb = ycbcr_to_rgb(out_ycc, im_type="jpg").clamp(0.0, 1.0)
+        s = out_rgb.shape[1] // lr.shape[1]
+        return out_rgb[:, :orig_h * s, :orig_w * s], out_ycc[:, :orig_h * s, :orig_w * s]
+
+    def net_run_and_process(self, lr=None, hr=None, metadata=None,
+                            timing: bool = False,
+                            pad_multiple: Optional[int] = None, **kwargs):
+        """:meth:`net_run`, its outputs fetched: (rgb, ycbcr, None,
+        seconds-or-None) as float32 numpy arrays. ``timing`` times the
+        forward to the end of its work on the device (the upload of ``lr``
+        comes first and is not timed)."""
+        lr = to_device(lr, self.device, torch.float32)
+        t0 = time.perf_counter()
+        out_rgb, out_ycc = self.net_run(lr, metadata, pad_multiple)
         if out_rgb.is_cuda:
             torch.cuda.synchronize(out_rgb.device)
         elapsed = time.perf_counter() - t0
-        s = out_rgb.shape[1] // lr.shape[1]
-        out_rgb = out_rgb[:, :orig_h * s, :orig_w * s].cpu().numpy()
-        out_ycc = out_ycc[:, :orig_h * s, :orig_w * s].cpu().numpy()
-        if timing:
-            return out_rgb, out_ycc, None, elapsed
-        return out_rgb, out_ycc, None, None
+        out_rgb, out_ycc = out_rgb.cpu().numpy(), out_ycc.cpu().numpy()
+        return out_rgb, out_ycc, None, (elapsed if timing else None)
 
     # ------------------------------------------------------------------
     # Persistence

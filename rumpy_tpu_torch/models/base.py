@@ -18,6 +18,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -401,7 +402,10 @@ class BaseHandler:
                    summary_csv: Optional[str] = None,
                    skip_optimizer_load: bool = False) -> Tuple[TrainState, int]:
         epoch = ckpt.select_epoch(model_save_dir, epoch, summary_csv)
-        loaded = ckpt.load_checkpoint(ckpt.checkpoint_path(model_save_dir, epoch))
+        path = ckpt.checkpoint_path(model_save_dir, epoch)
+        loaded = ckpt.load_checkpoint(path)
+        if ckpt.checkpoint_format(path) == "flax":
+            return self._load_jax_checkpoint(loaded, path, skip_optimizer_load), epoch
         with torch.no_grad():
             self.module.load_state_dict(loaded["network"])
         if loaded.get("rng") is not None:
@@ -413,3 +417,24 @@ class BaseHandler:
         if not skip_optimizer_load and loaded.get("optimizer") is not None:
             self.optimizer().load_state_dict(loaded["optimizer"])
         return self._own_state(int(loaded["step"]), loaded.get("extra")), epoch
+
+    def _load_jax_checkpoint(self, loaded, path: str,
+                             skip_optimizer_load: bool) -> TrainState:
+        """A checkpoint the JAX package wrote: its flax params through the
+        weight bridge (``utils/weights.py``, which raises on any unused or
+        missing leaf) and its step. Its ``rng`` is a JAX key, which a torch
+        generator cannot continue, so the handler's generator keeps its
+        seed. Optax optimizer state is not mapped yet: it is skipped when
+        the caller asks (evaluation, or a fine-tune from fresh optimizer
+        state, as for the JAX package's minimal saves) and raises
+        otherwise."""
+        from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+        if loaded.get("optimizer") is not None and not skip_optimizer_load:
+            raise NotImplementedError(
+                f"{path} holds the JAX package's optax optimizer state, which the "
+                "port cannot map yet (ROADMAP queue 1 item 8, trainer leftovers); "
+                "pass skip_optimizer_load=True to start from fresh optimizer state")
+        with torch.no_grad():
+            self.module.load_state_dict(state_dict_from_jax(loaded["network"], self.module))
+        self._optimizer = None
+        return self._own_state(int(np.asarray(loaded["step"])), loaded.get("extra"))

@@ -17,6 +17,8 @@ from itertools import permutations
 
 import torch
 
+from rumpy_tpu_torch.device import true_div
+
 _GRAY_W = (0.2989, 0.587, 0.114)
 
 
@@ -59,7 +61,7 @@ def _rgb_to_hsv(img):
     h = torch.where(
         mx == r, torch.remainder((g - b) / safe, 6.0),
         torch.where(mx == g, (b - r) / safe + 2.0, (r - g) / safe + 4.0))
-    h = torch.where(d > 0, h / 6.0, torch.zeros_like(h))
+    h = torch.where(d > 0, true_div(h, 6.0), torch.zeros_like(h))
     s = torch.where(mx > 0, d / torch.where(mx > 0, mx, torch.ones_like(mx)),
                     torch.zeros_like(mx))
     return h, s, mx

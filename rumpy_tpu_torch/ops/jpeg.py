@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rumpy_tpu_torch.device import true_div
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr, ycbcr_to_rgb
 
 # ITU-T T.81 Annex K quantization tables.
@@ -76,13 +77,13 @@ def _tables(device: torch.device):
 def quality_to_scale(quality: torch.Tensor) -> torch.Tensor:
     """libjpeg jpeg_quality_scaling."""
     quality = quality.to(torch.float32)
-    return torch.where(quality < 50, 5000.0 / quality, 200.0 - 2.0 * quality)
+    return torch.where(quality < 50, true_div(5000.0, quality), 200.0 - 2.0 * quality)
 
 
 def scaled_qtable(base: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
     """Per-example (B, 8, 8) scaled quantization table."""
     scale = quality_to_scale(quality)[:, None, None]
-    return torch.floor((base[None] * scale + 50.0) / 100.0).clamp(1.0, 255.0)
+    return torch.floor(true_div(base[None] * scale + 50.0, 100.0)).clamp(1.0, 255.0)
 
 
 def _block_dct(ycc: torch.Tensor) -> torch.Tensor:
@@ -119,7 +120,7 @@ def _codec(img: torch.Tensor, qtabs: torch.Tensor, round_levels: bool = True) ->
     ycc, h, w = _centred_ycc(img)
     rgb = ycbcr_to_rgb(_quantize(ycc, qtabs) + 128.0, max_val=255.0, im_type="jpg")
     if round_levels:
-        rgb = torch.round(rgb).clamp(0.0, 255.0) / 255.0
+        rgb = true_div(torch.round(rgb).clamp(0.0, 255.0), 255.0)
     return rgb[:, :h, :w, :]
 
 
@@ -141,7 +142,7 @@ def jpeg_compress(img: torch.Tensor, quality: torch.Tensor) -> torch.Tensor:
 
 def h264_qstep(qpi: torch.Tensor) -> torch.Tensor:
     """H.264 quantization step: doubles every 6 QP."""
-    return 0.625 * torch.exp2(qpi.to(torch.float32) / 6.0)
+    return 0.625 * torch.exp2(true_div(qpi.to(torch.float32), 6.0))
 
 
 def h264_intra_compress(img: torch.Tensor, qpi: torch.Tensor) -> torch.Tensor:

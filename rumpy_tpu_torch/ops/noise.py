@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from rumpy_tpu_torch.device import true_div
+
 
 def _rand(generator, shape):
     return torch.rand(shape, generator=generator, device=generator.device)
@@ -37,7 +39,7 @@ def apply_gaussian_noise(img: torch.Tensor, sigma: torch.Tensor, gray: torch.Ten
     unit field ``noise`` (B, H, W, C), its first channel alone where
     ``gray`` (B,) is 1. Returns (out, metadata, the scaled field)."""
     g = gray.to(img.dtype)[:, None, None, None]
-    scale = (sigma / 255.0)[:, None, None, None]
+    scale = true_div(sigma, 255.0)[:, None, None, None]
     scaled = scale * (g * noise[..., :1] + (1.0 - g) * noise)
     out = img + scaled
     if clip:
@@ -78,8 +80,8 @@ def _poisson_vals(img: torch.Tensor) -> torch.Tensor:
 def poisson_rates(img: torch.Tensor):
     """The Poisson path's inputs: the image rounded to 0..255 levels and
     its rounded luma, each over 255, and their vals (B, 1, 1, 1)."""
-    rounded = torch.round(img * 255.0).clamp(0, 255) / 255.0
-    gray_img = torch.round(_luma(img) * 255.0).clamp(0, 255) / 255.0
+    rounded = true_div(torch.round(img * 255.0).clamp(0, 255), 255.0)
+    gray_img = true_div(torch.round(_luma(img) * 255.0).clamp(0, 255), 255.0)
     vals_c = _poisson_vals(rounded)[:, None, None, None]
     vals_g = _poisson_vals(gray_img)[:, None, None, None]
     return rounded, gray_img, vals_c, vals_g

@@ -12,9 +12,14 @@ A ``[data.online_degradations]`` table trains from HR-only sets: the
 datasets return HR crops and the pipeline (``degradations/pipeline.py``)
 degrades each batch on the device at the start of the train step.
 
-Not ported yet, and raising ``NotImplementedError``: validation
-(``eval_sets`` need ``utils/metrics.py``, the metrics slice),
-``profile_steps`` and Aim logging.
+Validation (``[data.eval_sets]``) runs every ``eval_frequency`` epochs, as
+the JAX package's does: eval images bucketed by shape, one forward per
+chunk of ``eval_batch_size``, Y-channel PSNR/SSIM on the device
+(``utils/metrics.py``) and one copy of a chunk's metrics to the host; the
+means go into summary.csv as ``val-<metric>``.
+
+Not ported yet, and raising ``NotImplementedError``: ``profile_steps`` and
+Aim logging.
 """
 
 from __future__ import annotations
@@ -29,9 +34,14 @@ import torch
 
 from rumpy_tpu_torch.config.constants import metric_best_val
 from rumpy_tpu_torch.data.loader import sisr_data_setup
+from rumpy_tpu_torch.device import to_device
 from rumpy_tpu_torch.interface import SISRInterface
+from rumpy_tpu_torch.utils import metrics as metrics_mod
 from rumpy_tpu_torch.utils import stats as stats_mod
 from rumpy_tpu_torch.utils.checkpoint import available_epochs, checkpoint_path
+from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
+from rumpy_tpu_torch.utils.metrics import Metrics
+from rumpy_tpu_torch.utils.visualization import safe_image_save
 
 
 class TrainingHandler:
@@ -43,11 +53,6 @@ class TrainingHandler:
         model_cfg = config.get("model") or {}
         train_cfg = config.get("training") or {}
 
-        if data_cfg.get("eval_sets"):
-            raise NotImplementedError(
-                "validation (data.eval_sets) is not ported yet: it comes "
-                "with utils/metrics.py in the metrics slice; drop eval_sets "
-                "to train without validation")
         if train_cfg.get("profile_steps"):
             raise NotImplementedError("training.profile_steps is not ported yet")
         if train_cfg.get("logging") == "aim":
@@ -67,6 +72,14 @@ class TrainingHandler:
                                or self.best_metric)
         self.model_cleanup_frequency = train_cfg.get("model_cleanup_frequency")
         self.eval_frequency = int(train_cfg.get("eval_frequency") or 1)
+        self.metrics_list = list(train_cfg.get("metrics") or ["PSNR", "SSIM"])
+        # None: save the first validation sample where PIL is installed
+        self.save_samples = train_cfg.get("save_samples")
+        self.max_im_val = float(train_cfg.get("max_im_val") or 1.0)
+        if self.max_im_val != 1.0 and verbose:
+            print(f"WARNING: training.max_im_val={self.max_im_val} but the data "
+                  "layer emits [0, 1] images; validation PSNR/SSIM will use it "
+                  "as the peak value verbatim. Use 1.0 unless you know why.")
 
         scale = int(data_cfg.get("scale") or 4)
         # sample configs put batch_size under [data]; [training] wins
@@ -129,6 +142,13 @@ class TrainingHandler:
         if online_cfg:
             self._set_online_pipeline(handler, online_cfg, scale,
                                       data_cfg.get("metadata"))
+        # face-boundary metrics read face_boundaries_0.csv from the first
+        # eval set's HR dir
+        eval_sets = data_cfg.get("eval_sets") or {}
+        first_eval = next(iter(eval_sets.values())) if eval_sets else {}
+        self.metric_hub = Metrics(
+            self.metrics_list, lpips_weights=train_cfg.get("lpips_weights"),
+            hr_data_loc=first_eval.get("hr_dir") or first_eval.get("hr"))
         self.stats: Dict[int, Dict[str, float]] = {}
 
     def _set_online_pipeline(self, handler, online_cfg, scale: int, requested) -> None:
@@ -210,12 +230,72 @@ class TrainingHandler:
                   f"compute efficiency {out['compute_efficiency']:.1f}%")
         return out
 
+    def _eval_groups(self) -> Dict[tuple, list]:
+        """The eval set's images bucketed by (LR shape, metadata shape):
+        [(lr, hr, metadata, stem)] per bucket."""
+        groups: Dict[tuple, list] = defaultdict(list)
+        for batch in self.eval_data:
+            if "hr" not in batch:
+                raise ValueError(
+                    "eval set yields no HR images — validation metrics need "
+                    "ground truth (add hr_dir to the eval_sets table, or drop "
+                    "eval_sets to skip validation)")
+            lrs, hrs, metas = batch["lr"], batch["hr"], batch.get("metadata")
+            for i in range(len(lrs)):
+                meta = None
+                if metas is not None and np.size(metas[i]):
+                    meta = np.asarray(metas[i])
+                lr = np.asarray(lrs[i])
+                tag = batch["tag"][i] if "tag" in batch else f"im{i}"
+                mshape = None if meta is None else meta.shape
+                groups[(lr.shape, mshape)].append(
+                    (lr, np.asarray(hrs[i]), meta, os.path.splitext(str(tag))[0]))
+        return groups
+
     def eval(self, epoch: int) -> Dict[str, float]:
+        """Validation: ``val-<metric>`` means over the eval sets."""
         if self.eval_data is None:
             return {}
-        raise NotImplementedError(
-            "validation is not ported yet: it comes with utils/metrics.py "
-            "in the metrics slice")
+        agg: Dict[str, List[float]] = defaultdict(list)
+        # a cap on a forward's batch within a shape bucket: a large
+        # same-shape set must not become one forward
+        chunk = int((self.cfg.get("training") or {}).get("eval_batch_size") or 8)
+        sample = self.save_samples is not False and self.model.logs_dir \
+            and not self.model.no_directories
+        for items in self._eval_groups().values():
+            for lo in range(0, len(items), chunk):
+                part = items[lo:lo + chunk]
+                meta = (np.stack([it[2] for it in part])
+                        if part[0][2] is not None else None)
+                rgb, ycc = self.model.net_run(np.stack([it[0] for it in part]),
+                                              metadata=meta)
+                hr = to_device(np.stack([it[1] for it in part]), self.device,
+                               torch.float32)
+                hr_y = (rgb_to_ycbcr(hr, y_only=True, im_type="jpg")
+                        if hr.shape[-1] == 3 else hr)
+                sr_y = ycc[..., :1].clamp(0.0, 1.0)
+                values = metrics_mod.fetch(self.metric_hub.compute(
+                    sr_y, hr_y, max_value=self.max_im_val,
+                    probe_names=[it[3] for it in part]))
+                for k, v in values.items():
+                    agg[f"val-{k}"].extend(v)
+                if sample:
+                    sample = False  # the first SR image of each validation
+                    self._save_sample(rgb[0], epoch)
+        return {k: float(np.mean(v)) for k, v in agg.items()}
+
+    def _save_sample(self, img, epoch: int) -> None:
+        """The epoch's first SR image as a PNG in result_outputs/samples.
+        Without PIL the sample is skipped, unless the config asked for it."""
+        try:
+            safe_image_save(img, os.path.join(self.model.logs_dir, "samples"),
+                            f"epoch_{epoch}_sample.png")
+        except ImportError:
+            if self.save_samples:
+                raise
+            self.save_samples = False
+            if self.verbose:
+                print("PIL is not installed: validation samples are not saved")
 
     # ------------------------------------------------------------------
 

@@ -6,12 +6,16 @@ weights, optional optimizer state, step and the metadata keys
 ``model_name``, ``model_epoch`` and ``handler_metadata``; ``best | last |
 <int>`` selection driven by ``result_outputs/summary.csv``. Files are
 written with ``torch.save`` and read with ``torch.load(weights_only=True)``.
-Reading the JAX package's flax-msgpack checkpoints is not supported yet.
+:func:`load_checkpoint` reads the JAX package's flax-msgpack files too,
+under the same names, through the pure-Python reader ``utils/flax_msgpack``:
+it tells the formats apart by their first bytes (a torch file is a zip,
+``PK\\x03\\x04``; a flax file starts with a msgpack map header).
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import os
 import re
 from typing import Any, Dict, Optional
@@ -19,8 +23,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from rumpy_tpu_torch.config.constants import metric_best_val
+from rumpy_tpu_torch.utils import flax_msgpack
 
 CKPT_PREFIX = "train_model_"
+# Packaged pretrained networks, <dir>/<name>/saved_models: the JAX package's
+# directory, read as data (nothing of that package is imported).
+PRETRAINED_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "rumpy_tpu", "pretrained")
 
 # Keys holding JSON-able metadata rather than tensors.
 _META_KEYS = ("model_name", "model_epoch", "handler_metadata")
@@ -37,8 +47,30 @@ def save_checkpoint(path: str, payload: Dict[str, Any],
     os.replace(tmp, path)
 
 
+def checkpoint_format(path: str) -> str:
+    """``"torch"`` or ``"flax"``, from the file's first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return "torch"
+    if flax_msgpack.is_msgpack_map(head):
+        return "flax"
+    raise ValueError(f"{path}: neither a torch checkpoint nor a flax-msgpack one "
+                     f"(starts with {head!r})")
+
+
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
-    return torch.load(path, map_location=map_location, weights_only=True)
+    """A checkpoint's payload. A flax file gives the JAX package's payload:
+    its array tree (``network``, ``step``, ``rng``, ``extra``, and
+    ``optimizer`` unless it was saved minimal) with numpy leaves, and the
+    keys of its ``meta_json``."""
+    if checkpoint_format(path) == "torch":
+        return torch.load(path, map_location=map_location, weights_only=True)
+    with open(path, "rb") as f:
+        blob = flax_msgpack.msgpack_restore(f.read())
+    out = dict(blob["arrays"])
+    out.update(json.loads(bytes(blob["meta_json"]).decode()))
+    return out
 
 
 def checkpoint_path(model_save_dir: str, epoch: int) -> str:
@@ -54,6 +86,20 @@ def available_epochs(model_save_dir: str):
         if m:
             eps.append(int(m.group(1)))
     return sorted(eps)
+
+
+def resolve_packaged(path_or_name: str) -> str:
+    """A checkpoint directory, or the ``saved_models`` directory of a
+    packaged pretrained network of that name. Raises when neither holds
+    checkpoints."""
+    if available_epochs(path_or_name):
+        return path_or_name
+    packaged = os.path.join(PRETRAINED_DIR, path_or_name, "saved_models")
+    if available_epochs(packaged):
+        return packaged
+    raise RuntimeError(
+        f"The warm start model '{path_or_name}' is not available (no "
+        f"checkpoints there, and no packaged network at {packaged}).")
 
 
 def _read_summary(summary_csv: str) -> Dict[str, list]:

@@ -109,7 +109,9 @@ def state_dict_from_jax(params, module: nn.Module) -> Dict[str, torch.Tensor]:
         for name, leaf in wanted.items():
             if leaf not in node:
                 raise KeyError(f"flax tree is missing {'/'.join(real + (leaf,))}")
-            arr = np.asarray(node[leaf], dtype=np.float32)
+            arr = node[leaf]
+            arr = (arr.float().numpy() if torch.is_tensor(arr)
+                   else np.asarray(arr, dtype=np.float32))
             if name == "weight":
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
             target = tuple(getattr(conv, name).shape)

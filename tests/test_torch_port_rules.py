@@ -183,3 +183,51 @@ def test_degradation_device_paths_read_nothing_back(module):
            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
            and n.func.attr in SYNCING_CALLS]
     assert not bad, bad
+
+
+EVALUATION_MODULES = ("utils/metrics.py", "utils/flax_msgpack.py", "utils/visualization.py",
+                      "evaluation/eval_hub.py", "cli/eval_sisr.py")
+
+
+def test_port_covers_the_evaluation_modules():
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    missing = [m for m in EVALUATION_MODULES if m not in names]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("module,allowed", [("utils/metrics.py", "fetch"),
+                                            ("evaluation/eval_hub.py", "_sync")])
+def test_evaluation_waits_for_the_card_in_one_place(module, allowed):
+    """The metrics read back only in ``fetch`` (one copy a batch); EvalHub
+    waits for the card only in ``_sync``, which ``time_models`` uses."""
+    tree = ast.parse((ROOT / "rumpy_tpu_torch" / module).read_text())
+    inside = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+              and f.name == allowed for n in ast.walk(f)}
+    bad = [f"{module}:{n.lineno} .{n.func.attr}()" for n in ast.walk(tree)
+           if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+           and n.func.attr in SYNCING_CALLS and id(n) not in inside]
+    assert not bad, bad
+
+
+def test_flax_reader_imports_no_msgpack():
+    path = ROOT / "rumpy_tpu_torch" / "utils" / "flax_msgpack.py"
+    mods = {root for root, _ in _imported_roots(path)}
+    assert "msgpack" not in mods and "flax" not in mods
+
+
+def test_true_div_keeps_ieee_division():
+    """On the card ``tensor / 255.0`` multiplies by the reciprocal of 255,
+    one ulp off for 126 of the 256 levels; the device paths divide through
+    ``device.true_div``, which gives numpy's quotients."""
+    import numpy as np
+    from rumpy_tpu_torch.device import true_div
+    levels = torch.arange(256, dtype=torch.float32)
+    want = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    reciprocal = (levels * float(np.float32(1.0) / np.float32(255.0))).numpy()
+    assert (reciprocal != want).sum() == 126
+    got = true_div(levels, 255.0)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    q = torch.arange(1, 101, dtype=torch.float32)
+    np.testing.assert_array_equal(true_div(5000.0, q).numpy(),
+                                  np.float32(5000.0) / q.numpy())

@@ -197,10 +197,9 @@ def test_early_stopping_cleanup_and_epoch_cutoff(tmp_path, dataset):
 
 
 def test_options_of_later_slices_raise(tmp_path, dataset):
-    lr_dir, hr_dir = dataset
     base = load_config(_write_config(tmp_path / "c.toml", dataset, tmp_path / "out"))
     for table, key, value in (
-            ("data", "eval_sets", {"data_1": {"lr_dir": lr_dir, "hr_dir": hr_dir}}),
+            ("training", "metrics", ["PSNR", "LPIPS"]),
             ("data", "online_degradations", {"pipeline": [["srmdgaussianblur", "b"]],
                                               "deg_configs": {"b": {}}}),
             ("training", "profile_steps", 2), ("training", "logging", "aim")):
