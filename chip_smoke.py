@@ -26,7 +26,15 @@ seeded random weights):
   last) -> EvalHub.full_image_protocol -> individual_metrics.csv, and one
   EvalHub run that waits for the card only where it fetches an image's
   metrics; then the flax-msgpack reader on a packaged checkpoint of the
-  JAX package.
+  JAX package;
+* the BoBW flagship (``contrastiveblindqrcan``: a frozen DASR encoder,
+  loaded from the packaged ``supmoco_fullchain_d256``, feeds QRCAN, whose
+  200 blocks run on the RCAB kernels with per-image gate inputs): the
+  kernels with per-image bd, bu and scale against their plain versions at
+  its shapes (``qrcab_kernel``); ``cli.train_sisr`` on a copy of
+  examples/train_bobw_rcan_supmoco.toml, validating each epoch, then three
+  steps at bench.py's BoBW point, batch 96 (``bobw_train``); and
+  ``cli.eval_sisr`` on the saved run (``bobw_eval``).
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
@@ -51,7 +59,13 @@ counts, the metrics on the card against the CPU on the same fetched
 arrays (PSNR within 1e-5 dB, SSIM within 1e-6, bicubic bit for bit), and
 print eval images/s, one DIV2K forward's and one image's metrics' device
 ms, the eval's peak memory and validation seconds per epoch; the kernel
-phase holds the forward at the eval path's shapes too.
+phase holds the forward at the eval path's shapes too. The BoBW phases
+check that the frozen encoder's weights stay bit for bit the packaged
+ones while its BatchNorm running statistics move, that a step launches
+200 forward and 200 backward kernels and no conv2d call of a QRCAB's
+shape beyond the pipeline's other convs, and print step ms, HR-MP/s,
+peak memory, kernels and the card's busy ms a step at batch 96, eval
+images/s and one DIV2K-sized forward's device ms.
 
 Prints the card, then one JSON line per phase, then a ``{"kernels": ...}``
 line, the card's name and power limit, and as its last line
@@ -254,7 +268,7 @@ def kernel_phase(rcab):
                        "res_scale": res_scale, "max_abs_err": err, "tol": tol}
                 if res_scale == 1.0:
                     row["plan"] = plan = rcab.plan(shape, dtype)
-                    runs = [rcab._forward(*args, res_scale)[:2] for _ in range(2)]
+                    runs = [rcab._forward(*args, None, res_scale)[:2] for _ in range(2)]
                     row["bit_identical_runs"] = all(
                         torch.equal(a, b) for a, b in zip(*runs))
                     del runs
@@ -346,10 +360,11 @@ def traced(fn, name: str, repeats: int, by_kernel: bool = False):
               flush=True)
     if not events:
         raise AssertionError("the profiler traced no kernel on the card")
-    by_family, by_name = {}, {}
+    by_family, by_name, counts = {}, {}, {}
     for e in events:
         fam = next((k for k in FAMILIES if k in e["name"]), "other")
         by_family[fam] = by_family.get(fam, 0.0) + e["dur"] / repeats
+        counts[fam] = counts.get(fam, 0) + 1 / repeats
         name = kernel_name(e["name"])
         by_name[name] = by_name.get(name, 0.0) + e["dur"] / repeats
     # busy: the union of the kernels' intervals. A programmatic dependent
@@ -362,7 +377,7 @@ def traced(fn, name: str, repeats: int, by_kernel: bool = False):
             busy += stop - start
         end = max(end, stop)
     span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
-    return {"per_call_device_us": by_family,
+    return {"per_call_device_us": by_family, "per_call_kernels_by_family": counts,
             **({"per_call_device_us_by_kernel": by_name} if by_kernel else {}),
             "kernels_per_call": len(events) / repeats, "busy_us": busy,
             "span_us": span, "idle_share": 1 - busy / span}
@@ -1717,6 +1732,387 @@ def reader_phase(card):
     return row
 
 
+# -- BoBW: QRCAN's blocks on the fused kernel with per-image gate inputs -------
+
+# A QRCAB's shapes on the BoBW path: bench.py's BoBW batch (96 of 48x48
+# LR crops), the example config's batch 16, one DIV2K x4 eval image; the
+# train shape in f32 too. Tolerances as for the shared form (F32_ATOL,
+# BF16_REL_ULP forward; BWD_F32_REL, BWD_BF16_REL backward).
+BOBW_BENCH_BATCH = 96  # bench.py:196
+QRCAB_SHAPES = [((BOBW_BENCH_BATCH, TRAIN_CROP, TRAIN_CROP, 64), torch.bfloat16),
+                (TRAIN_SHAPE, torch.bfloat16), ((1, *DIV2K_LR, 64), torch.bfloat16),
+                (TRAIN_SHAPE, torch.float32)]
+QRCAB_GRAD_NAMES = GRAD_NAMES + ["dscale"]
+
+
+def qrcab_inputs(shape, dtype, seed):
+    """rcab_inputs with a QRCAB's per-image gate inputs: bd (N, R) as
+    max_concat makes it, bu (N, C) as mini_concat does, and a q-layer's
+    sigmoid gate (N, C) in (0, 1) as the scale."""
+    n, _, _, c = shape
+    args = rcab_inputs(shape, dtype, seed)
+    r = args[5].shape[1]
+    g = torch.Generator().manual_seed(seed + 1)
+    args[6] = (args[6].cpu() + 0.3 * torch.randn(n, r, generator=g)).cuda()
+    args[8] = (args[8].cpu() + 0.3 * torch.randn(n, c, generator=g)).cuda()
+    scale = torch.sigmoid(torch.randn(n, c, generator=g)).cuda()
+    return args, scale
+
+
+def qrcab_kernel_phase(rcab):
+    """The forward and backward kernels with per-image bd, bu and scale at
+    QRCAB_SHAPES against their plain versions, two runs bit for bit, and the
+    ms of a call beside the shared form's at the same shape and the bound.
+    Returns the rows."""
+    rows = []
+    for i, (shape, dtype) in enumerate(QRCAB_SHAPES):
+        args, scale = qrcab_inputs(shape, dtype, seed=400 + i)
+        ref = rcab.rcab_reference(*args, res_scale=scale)
+        got = rcab.rcab_fused(*args, res_scale=scale)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = (F32_ATOL if dtype == torch.float32
+               else BF16_REL_ULP * ref.float().abs().max().item())
+        runs = [rcab._forward(*args, scale, 1.0)[:2] for _ in range(2)]
+        fwd_identical = all(torch.equal(a, b) for a, b in zip(*runs))
+        del runs, ref, got
+
+        rel_tol = BWD_F32_REL if dtype == torch.float32 else BWD_BF16_REL
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        s_leaf = scale.clone().requires_grad_(True)
+        dout = torch.randn(*shape, generator=torch.Generator().manual_seed(500 + i)).cuda().to(dtype)
+        before = rcab.backward_launches
+        out = rcab.rcab_fused(*leaves, res_scale=s_leaf)
+        tensors = leaves + [s_leaf]
+        grads = torch.autograd.grad(out, tensors, dout, retain_graph=True)
+        again = torch.autograd.grad(out, tensors, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        if rcab.backward_launches != before + 2:
+            raise AssertionError("the backward kernel was not launched")
+        bwd_identical = all(torch.equal(a, b) for a, b in zip(grads, again))
+        want = rcab.rcab_backward_reference(dout, *args, res_scale=scale)
+        errs, worst = {}, 0.0
+        for name, a, b in zip(QRCAB_GRAD_NAMES, grads, want):
+            ref_max = b.float().abs().max().item()
+            e = (a.float() - b.float()).abs().max().item()
+            errs[name] = {"max_abs_err": e, "ref_abs_max": ref_max}
+            worst = max(worst, e / max(ref_max, 1e-30))
+            if a.shape != b.shape or not e <= rel_tol * ref_max:
+                raise AssertionError(f"qrcab backward: {name} disagrees at {shape} {dtype}: "
+                                     f"{errs[name]}, rel tol {rel_tol}")
+        del again, want
+
+        shared = rcab_inputs(shape, dtype, seed=400 + i)
+        ref_out = rcab.rcab_reference(*leaves, res_scale=s_leaf)
+        shared_leaves = [a.clone().requires_grad_(True) for a in shared]
+        shared_out = rcab.rcab_fused(*shared_leaves)
+        bound, bound_by = rcab_bound_ms(shape, dtype)
+        bwd_bound, bwd_bound_by = rcab_bwd_bound_ms(shape, dtype)
+        iters = 5 if shape[0] * shape[1] * shape[2] > 100_000 else 20
+        row = {
+            "phase": "qrcab_kernel", "shape": shape, "dtype": str(dtype).split(".")[-1],
+            "per_image": ["bd", "bu", "scale"], "max_abs_err": err, "tol": tol,
+            "bwd_worst_rel_err": worst, "bwd_rel_tol": rel_tol, "grads": errs,
+            "bit_identical_runs": fwd_identical and bwd_identical,
+            "ms": cuda_ms(lambda: rcab.rcab_fused(*args, res_scale=scale), iters),
+            "shared_form_ms": cuda_ms(lambda: rcab.rcab_fused(*shared), iters),
+            "plain_ms": cuda_ms(lambda: rcab.rcab_reference(*args, res_scale=scale), iters),
+            "bound_ms": bound, "bound_by": bound_by,
+            "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+                out, tensors, dout, retain_graph=True), iters),
+            "shared_form_backward_ms": cuda_ms(lambda: torch.autograd.grad(
+                shared_out, shared_leaves, dout, retain_graph=True), iters),
+            "backward_plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                ref_out, tensors, dout, retain_graph=True), iters),
+            "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_bound_by,
+            "library_conv_ms": library_conv_ms(shape) if dtype == torch.bfloat16 else None}
+        print(json.dumps(row), flush=True)
+        if not err <= tol:
+            raise AssertionError(f"qrcab forward disagrees with rcab_reference: {row}")
+        if not row["bit_identical_runs"]:
+            raise AssertionError(f"qrcab kernels: two runs differ at {shape} {dtype}")
+        rows.append(row)
+        del leaves, s_leaf, out, grads, ref_out, shared_out, shared_leaves, args, shared
+        torch.cuda.empty_cache()
+    return rows
+
+
+BOBW_CONFIG = os.path.join("examples", "train_bobw_rcan_supmoco.toml")
+BOBW_EXP = "rcan_supmoco_bobw"  # the example's experiment name
+BOBW_FULL = dict(scale=4, n_feats=64, n_resgroups=10, n_resblocks=20)  # bench.py:198-200
+PACKAGED_ENCODER = "supmoco_fullchain_d256"
+
+
+def conv_calls(fn):
+    """Runs ``fn`` counting F.conv2d calls by (out, in, kh, kw) weight
+    shape. A QRCAB on the kernel makes none; the generator's other 3x3
+    64->64 convs are the ten group tails and the body tail."""
+    import torch.nn.functional as F
+    real, counts = F.conv2d, collections.Counter()
+
+    def counted(x, weight, *a, **kw):
+        counts[tuple(weight.shape)] += 1
+        return real(x, weight, *a, **kw)
+
+    F.conv2d = counted
+    try:
+        fn()
+    finally:
+        F.conv2d = real
+    return counts
+
+
+def bobw_train_phase(rcab, card):
+    """The BoBW flagship through cli.train_sisr: a copy of the example
+    config (full width, bf16, frozen packaged encoder, the seven-family
+    chain), paths rewritten to HR-only .npy files and eval pairs, 2 epochs
+    of 2 steps, validating each epoch. Then bench.py's BoBW operating
+    point: batch 96, LR crop 48, block_encoder_loading, bench.py's chain,
+    1 warm-up and 3 timed steps."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+    from rumpy_tpu_torch.training.trainer import TrainingHandler
+    from rumpy_tpu_torch.utils import checkpoint as ckpt
+    from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_bobw")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(5))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(6))
+    cfg = load_config(os.path.join(ROOT, BOBW_CONFIG)).as_plain()
+    exp_root = os.path.join(root, "experiments")
+    cfg["experiment_save_loc"] = exp_root
+    cfg["data"]["training_sets"] = {f"data_{i}": {"hr_dir": hr_dir} for i in range(DEGRADE_SETS)}
+    cfg["data"]["eval_sets"] = {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr,
+                                           "metadata_file": "on_site"}}
+    cfg["training"].update(num_epochs=2)
+    seed, batch = cfg["training"]["seed"], cfg["training"]["batch_size"]
+    internal = cfg["model"]["internal_params"]
+    if {k: internal[k] for k in BOBW_FULL} != BOBW_FULL or batch != TRAIN_BATCH:
+        raise AssertionError(f"{BOBW_CONFIG} is not full-width BoBW at batch 16: {internal}")
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    table = cfg["data"]["online_degradations"]
+
+    # a fixed degraded batch: centre crops of the HR images, degraded once
+    pipe = ImagePipeline(table["pipeline"], deg_configs=table["deg_configs"], scale=TRAIN_SCALE)
+    names = sorted(os.listdir(hr_dir))
+    crops = []
+    for name in names * (batch // len(names)):
+        hr = np.load(os.path.join(hr_dir, name))
+        top, left = (hr.shape[0] - HR_SIDE) // 2, (hr.shape[1] - HR_SIDE) // 2
+        crops.append(hr[top:top + HR_SIDE, left:left + HR_SIDE])
+    fixed_hr = torch.from_numpy(np.stack(crops).astype(np.float32) / 255.0).cuda()
+    lr, _ = pipe.degrade_batch(card_generator(12), fixed_hr)
+    fixed = {"lr": lr, "hr": fixed_hr}
+    fresh = get_model(cfg["model"]["name"])(device="cuda", seed=seed, **internal)
+    loss_before = l1_on(fresh, fresh.init_state(seed), fixed)
+    del fresh
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards, \
+            watched(TrainingHandler, "eval") as validations:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    peak_run = torch.cuda.max_memory_allocated()
+    want = {"rcab_fused": 200 * (DEGRADE_STEPS + len(forwards)),
+            "rcab_fused_backward": 200 * DEGRADE_STEPS}
+    if counts != want or len(forwards) != 2 * VALIDATION_FORWARDS:
+        raise AssertionError(f"kernel launches in the BoBW run {counts}, expected {want} "
+                             f"({DEGRADE_STEPS} steps, {len(forwards)} validation forwards, "
+                             f"expected {2 * VALIDATION_FORWARDS}; 200 QRCAB a forward)")
+    counts["rcab_fused_validation"] = 200 * len(forwards)
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"BoBW training losses {losses}")
+    with open(os.path.join(exp_root, BOBW_EXP, "result_outputs", "summary.csv"),
+              newline="") as f:
+        summary = list(csv.DictReader(f))
+    val = {k: [float(r[k]) for r in summary] for k in ("val-PSNR", "val-SSIM")
+           if summary and k in summary[0]}
+    if sorted(val) != ["val-PSNR", "val-SSIM"] or not all(
+            len(v) == 2 and np.isfinite(v).all() for v in val.values()):
+        raise AssertionError(f"summary.csv validation columns of the BoBW run: {val}")
+    iface = SISRInterface(model_loc=exp_root, experiment=BOBW_EXP, mode="eval",
+                          load_epoch="last", device="cuda")
+    if iface.state.step != DEGRADE_STEPS:
+        raise AssertionError(f"BoBW checkpoint holds step {iface.state.step}")
+    loss_after = l1_on(iface.model, iface.state, fixed)
+    if not loss_after < loss_before:
+        raise AssertionError(f"BoBW fixed batch loss went {loss_before} -> {loss_after}")
+
+    # the frozen encoder: weights bit for bit the packaged ones, BatchNorm
+    # running statistics moved by the train steps
+    enc_dir = ckpt.resolve_packaged(PACKAGED_ENCODER)
+    raw = ckpt.load_checkpoint(ckpt.checkpoint_path(enc_dir, ckpt.select_epoch(enc_dir, "last")))
+    packaged = state_dict_from_jax(raw["network"], iface.model.module.encoder,
+                                   batch_stats=raw["extra"]["q_bstats"])
+    trained = {k[len("encoder."):]: v.cpu() for k, v in iface.state.params.items()
+               if k.startswith("encoder.")}
+    stat_keys = [k for k in packaged if k.endswith(("running_mean", "running_var"))]
+    weights_identical = all(torch.equal(trained[k], v) for k, v in packaged.items()
+                            if k not in stat_keys)
+    stats_moved = sum(not torch.equal(trained[k], packaged[k]) for k in stat_keys)
+    if not weights_identical or stats_moved != len(stat_keys):
+        raise AssertionError(f"frozen encoder: weights identical {weights_identical}, "
+                             f"{stats_moved} of {len(stat_keys)} running statistics moved")
+    del iface
+
+    # bench.py's BoBW operating point
+    bench_pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+    handler = get_model("contrastiveblindqrcan")(
+        device="cuda", block_encoder_loading=True, lr=1e-4, dtype="bf16", **BOBW_FULL)
+
+    def input_fn(generator, b):
+        lr, _meta = bench_pipe.degrade_batch(generator, b["hr"])
+        return {"lr": lr, "hr": b["hr"]}
+
+    handler.set_input_pipeline(input_fn)
+    state = handler.init_state()
+    g = card_generator(1)
+    hr96 = torch.rand(BOBW_BENCH_BATCH, HR_SIDE, HR_SIDE, 3, device=g.device, generator=g)
+    losses96 = []
+
+    def step96():
+        _, l = handler.train_batch(state, {"hr": hr96})
+        losses96.append(l["train-loss"])
+
+    torch.cuda.reset_peak_memory_stats()
+    ms96 = cuda_ms(step96, 3, warmup=1, backlog_s=0)
+    peak96 = torch.cuda.max_memory_allocated()
+    rcab.launches = rcab.backward_launches = 0
+    convs = conv_calls(step96)
+    torch.cuda.synchronize()
+    step_launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    convs_64 = convs[(64, 64, 3, 3)]
+    from rumpy_tpu_torch.models.common import Conv
+    # every Conv of that shape in the pipeline but the 200 QRCABs' two each
+    other_64 = sum(1 for m in handler.module.modules()
+                   if isinstance(m, Conv) and tuple(m.weight.shape) == (64, 64, 3, 3)) - 400
+    trace96 = traced(step96, "bobw_bench_step_trace", 1)
+    row = {"phase": "bobw_train", "model": "contrastiveblindqrcan x4 10x20x64 bf16, frozen "
+           f"{PACKAGED_ENCODER}", "card": card, "config": BOBW_CONFIG,
+           "steps": DEGRADE_STEPS, "batch": batch, "crop": TRAIN_CROP, "launches": counts,
+           "epoch_train_loss": losses, "run_experiment_s": seconds,
+           "compute_efficiency": [stats[e]["compute_efficiency"] for e in sorted(stats)],
+           "fixed_batch_loss_before": loss_before, "fixed_batch_loss_after": loss_after,
+           "encoder_weights_bit_identical": weights_identical,
+           "encoder_running_stats_moved": stats_moved, "peak_memory_bytes_run": peak_run,
+           "validation_forwards": len(forwards), "validation_s_per_epoch": validations, **val,
+           "bench": {"chain": "bench.py:133-143", "batch": BOBW_BENCH_BATCH,
+                     "crop": TRAIN_CROP, "step_ms": ms96,
+                     "hr_megapixels_per_s": BOBW_BENCH_BATCH * HR_SIDE ** 2 / 1e6 / (ms96 / 1e3),
+                     "peak_memory_bytes": peak96, "launches_a_step": step_launches,
+                     "conv2d_calls_64x64x3x3_a_step": convs_64,
+                     "conv2d_calls_a_step": sum(convs.values()),
+                     "kernels_a_step": trace96["kernels_per_call"],
+                     "device_busy_ms_a_step": trace96["busy_us"] / 1e3,
+                     "step_idle_share": trace96["idle_share"],
+                     "device_us_by_family": trace96["per_call_device_us"],
+                     "kernels_by_family": trace96["per_call_kernels_by_family"],
+                     "losses": [float(x) for x in losses96]}}
+    print(json.dumps(row), flush=True)
+    # a QRCAB runs no cuDNN conv: the only 3x3 64->64 conv2d calls of a
+    # step are the other Convs of that shape (ten group tails, the body tail
+    # and the encoder's second conv), one call each
+    if (step_launches != {"rcab_fused": 200, "rcab_fused_backward": 200}
+            or convs_64 != other_64 or other_64 != 12):
+        raise AssertionError(f"a BoBW step: {step_launches}, {convs_64} conv2d calls of "
+                             f"3x3 64->64 weights (expected 200, 200 and {other_64} = 12)")
+    # and the profiler sees each pass of the kernels 200 times
+    traced_passes = {k: trace96["per_call_kernels_by_family"].get(k) for k in (
+        "rcab_conv1_mma", "rcab_conv2_mma", "rcab_apply", "rcab_bwd_dh1_mma", "rcab_bwd_dx_mma",
+        "rcab_bwd_wgrad_mma")}
+    if set(traced_passes.values()) != {200}:
+        raise AssertionError(f"a traced BoBW step's kernel passes: {traced_passes}")
+    if not np.isfinite(row["bench"]["losses"]).all():
+        raise AssertionError(f"batch-96 BoBW losses {row['bench']['losses']}")
+    del handler, state, hr96
+    shutil.rmtree(os.path.join(root, "data"))
+    return row, (exp_root, eval_lr, eval_hr)
+
+
+def bobw_eval_phase(rcab, card, exp_root, lr_dir, hr_dir):
+    """The BoBW run through cli.eval_sisr (epoch best, --time_models):
+    the CSV's columns and rows, 200 QRCAB launches a forward; then one
+    EvalHub run's images/s and one DIV2K-sized forward's device ms."""
+    from rumpy_tpu_torch.cli import eval_sisr
+    from rumpy_tpu_torch.data.datasets import SuperResImages
+    from rumpy_tpu_torch.evaluation.eval_hub import EvalHub
+    from rumpy_tpu_torch.interface import SISRInterface
+
+    out = os.path.join(os.path.dirname(exp_root), "eval")
+    images = len(EVAL_LR_SHAPES)
+    want_forwards = images + len(set(EVAL_LR_SHAPES))  # a warm-up per shape
+    rcab.launches = 0
+    with watched(SISRInterface, "net_run") as forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        lr_dir, "--hr_dir", hr_dir, "-m", "PSNR", "-m", "SSIM",
+                        "--time_models", "-me", BOBW_EXP, "best", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    launches = rcab.launches
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    want_columns = [(m, k) for m, k in EVAL_COLUMNS if m == "bicubic"] + [
+        (BOBW_EXP, k) for m, k in EVAL_COLUMNS if m == BLIND_EXP]
+    if columns != want_columns or len(values) != images or not np.isfinite(
+            list(values.values())).all():
+        raise AssertionError(f"eval_sisr of the BoBW run: columns {columns}, {len(values)} rows")
+    if len(forwards) != want_forwards or launches != 200 * len(forwards):
+        raise AssertionError(f"eval_sisr of the BoBW run: {len(forwards)} forwards (expected "
+                             f"{want_forwards}), {launches} QRCAB launches")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+
+    hub = EvalHub(models=[{"experiment": BOBW_EXP, "epoch": "best"}], model_loc=exp_root,
+                  data_cfg={"lr_dir": lr_dir, "hr_dir": hr_dir},
+                  out_loc=os.path.join(out, "hub"), scale=TRAIN_SCALE, device="cuda")
+    hub.full_image_protocol()  # warm
+    rcab.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hub.full_image_protocol()
+    torch.cuda.synchronize()
+    hub_seconds = time.perf_counter() - t0
+    launches += rcab.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    iface = SISRInterface(model_loc=exp_root, experiment=BOBW_EXP, mode="eval",
+                          load_epoch="best", device="cuda")
+    ds = SuperResImages(lr_dir=lr_dir, hr_dir=hr_dir, scale=TRAIN_SCALE)
+    x = torch.from_numpy(ds[0]["lr"])[None].cuda()
+    forward = lambda: iface.model.run_eval(iface.state, {"lr": x})
+    forward_ms = cuda_ms(forward, 1, warmup=1, backlog_s=1.0)
+    # a forward is about 2,200 launches, more than the card's queue holds:
+    # behind a held card the host would wait for the hold, so the host's
+    # own time is the wall time of calls back to back
+    forward_wall_ms = cuda_ms(forward, 3, warmup=1, backlog_s=0)
+    trace = traced(forward, "bobw_eval_forward_trace", 1)
+    row = {"phase": "bobw_eval", "model": "contrastiveblindqrcan x4 10x20x64 bf16",
+           "card": card, "images": images, "eval_sisr_s": cli_seconds,
+           "eval_sisr_forwards": len(forwards), "mean": mean,
+           "eval_images_per_s": images / hub_seconds, "eval_seconds": hub_seconds,
+           "peak_memory_bytes_eval": peak, "forward_div2k_device_ms": forward_ms,
+           "forward_div2k_wall_ms": forward_wall_ms,
+           "forward_div2k_busy_ms": trace["busy_us"] / 1e3,
+           "forward_div2k_device_us_by_family": trace["per_call_device_us"],
+           "forward_div2k_kernels": trace["kernels_per_call"], "rcab_launches": launches}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(os.path.dirname(exp_root))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1753,18 +2149,32 @@ def main() -> int:
     blind_launches = blind_row["launches"]
     eval_row = eval_phase(rcab, card, *eval_dirs)
     reader_phase(card)
+    qrcab_rows = qrcab_kernel_phase(rcab)
+    bobw_row, bobw_dirs = bobw_train_phase(rcab, card)
+    bobw_eval_row = bobw_eval_phase(rcab, card, *bobw_dirs)
+    bobw_launches = bobw_row["launches"]
+    per_image = [{k: r[k] for k in (
+        "shape", "dtype", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",
+        "backward_ms", "shared_form_backward_ms", "backward_plain_ms", "backward_bound_ms",
+        "bwd_worst_rel_err")} for r in qrcab_rows]
 
     kernels = [{
         "name": "rcab_fused", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/rcab_fused.cu",
         "replaces": "rumpy_tpu/ops/pallas/rcab_fused.py:73",
         "launches": (serve_launches + train_launches["rcab_fused"]
-                     + blind_launches["rcab_fused"] + eval_row["rcab_launches"]),
+                     + blind_launches["rcab_fused"] + eval_row["rcab_launches"]
+                     + bobw_launches["rcab_fused"] + bobw_eval_row["rcab_launches"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
         "launches_validation": blind_launches["rcab_fused_validation"],
         "launches_eval_path": eval_row["rcab_launches"],
+        "launches_bobw_training_path": bobw_launches["rcab_fused"],
+        "launches_bobw_validation": bobw_launches["rcab_fused_validation"],
+        "launches_bobw_eval_path": bobw_eval_row["rcab_launches"],
+        # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
+        "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1785,9 +2195,12 @@ def main() -> int:
         "source": "rumpy_tpu_torch/csrc/rcab_fused_bwd.cu",
         "replaces": "rumpy_tpu/ops/pallas/rcab_fused.py:73",
         "launches": (train_launches["rcab_fused_backward"]
-                     + blind_launches["rcab_fused_backward"]),
+                     + blind_launches["rcab_fused_backward"]
+                     + bobw_launches["rcab_fused_backward"]),
         "launches_training_path": train_launches["rcab_fused_backward"],
         "launches_blind_training_path": blind_launches["rcab_fused_backward"],
+        "launches_bobw_training_path": bobw_launches["rcab_fused_backward"],
+        "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],
         "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],

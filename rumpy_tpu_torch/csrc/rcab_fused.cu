@@ -9,6 +9,10 @@
 //   out = round_T(h2 * u * res_scale + x)
 //
 // with every accumulation in f32, T = float or bf16 (the activation type).
+// A QRCAB (rumpy_tpu/models/attention_manipulators.py) is the same block
+// with per-image gate inputs: its metadata enters as bd[n] (R) or bu[n] (C),
+// and its q-layer gate as a channel scale s[n, c] in place of res_scale,
+// out = round_T((h2 * u) * s[n, c] + x).
 //
 // Bound on an H100 SXM: the block does 2 * 2*N*H*W*C*C*9 operations and
 // must move x in and out, so it is bound by operations: 5.44 GFLOP at the
@@ -478,7 +482,12 @@ __device__ __forceinline__ void load8_cg(const float* p, float (&v)[8]) {
 // added in order; the squeeze by one warp an output (lanes over channels,
 // then a butterfly). The same code and order in every block, so every block
 // gets the same bits, and block 0 writes the gate for the backward. Then
-// out = h2 * u * res_scale + x.
+// out = h2 * u * res_scale + x. With per-example gate inputs (PE: a QRCAB's
+// metadata folded into the block) the squeeze reads bd[n * bd_stride + j]
+// and bu[n * bu_stride + c] (stride 0: one vector for the batch) and the
+// branch is multiplied by scale[n, c] (res_scale where scale is null)
+// instead of res_scale, in the same order: out = (h2 * u) * scale[n, c] + x;
+// `gate` still holds the pure u.
 constexpr int kApplyItems = 4;
 
 // A thread's kApplyItems groups of 8 from `groups` starting at block group
@@ -495,13 +504,13 @@ __device__ __forceinline__ void load_items(const S* p, long long gb, long long g
   }
 }
 
-template <typename T>
+template <typename T, bool PE>
 __global__ void __launch_bounds__(kThreads, 2)
 rcab_apply_kernel(const T* __restrict__ x, const float* h2, const float* partial,
-                  const float* __restrict__ wd, const float* __restrict__ bd,
-                  const float* __restrict__ wu, const float* __restrict__ bu,
-                  float* __restrict__ gate, float res_scale, T* __restrict__ out, int n_tiles,
-                  int HW, int C, int R) {
+                  const float* __restrict__ wd, const float* __restrict__ bd, int bd_stride,
+                  const float* __restrict__ wu, const float* __restrict__ bu, int bu_stride,
+                  float* __restrict__ gate, float res_scale, const float* __restrict__ scale,
+                  T* __restrict__ out, int n_tiles, int HW, int C, int R) {
   extern __shared__ __align__(16) float gsm[];
   const int C4 = C / 4;
   const int Q = C4 < kThreads ? kThreads / C4 : 1;
@@ -511,11 +520,16 @@ rcab_apply_kernel(const T* __restrict__ x, const float* h2, const float* partial
   float* wd_s = gap + C;                          // C * R
   float* wu_s = wd_s + C * R;                     // R * C
   float* d = wu_s + R * C;                        // R
+  float* s_s = d + R;                             // C (PE only)
   const int n = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int i = threadIdx.x; i < C * R; i += kThreads) {
     wd_s[i] = wd[i];
     wu_s[i] = wu[i];
+  }
+  if constexpr (PE) {
+    for (int c = threadIdx.x; c < C; c += kThreads)
+      s_s[c] = scale ? scale[(size_t)n * C + c] : res_scale;
   }
   const size_t base = (size_t)n * HW * C;
   const long long groups = (long long)HW * C / 8;
@@ -559,13 +573,13 @@ rcab_apply_kernel(const T* __restrict__ x, const float* h2, const float* partial
     for (int c = lane; c < C; c += 32) s = fmaf(gap[c], wd_s[c * R + j], s);
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-    if (lane == 0) d[j] = fmaxf(s + bd[j], 0.f);
+    if (lane == 0) d[j] = fmaxf(s + bd[(size_t)n * bd_stride + j], 0.f);
   }
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += kThreads) {
     float s = 0.f;
     for (int j = 0; j < R; ++j) s = fmaf(d[j], wu_s[j * C + c], s);
-    const float u = 1.f / (1.f + expf(-(s + bu[c])));
+    const float u = 1.f / (1.f + expf(-(s + bu[(size_t)n * bu_stride + c])));
     u_s[c] = u;
     if (blockIdx.x == 0) gate[(size_t)n * C + c] = u;
   }
@@ -577,7 +591,10 @@ rcab_apply_kernel(const T* __restrict__ x, const float* h2, const float* partial
       if (g >= groups) continue;
       const int c0 = (int)((g * 8) % C);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) hv[k][e] = hv[k][e] * u_s[c0 + e] * res_scale + xv[k][e];
+      for (int e = 0; e < 8; ++e) {
+        if constexpr (PE) hv[k][e] = hv[k][e] * u_s[c0 + e] * s_s[c0 + e] + xv[k][e];
+        else hv[k][e] = hv[k][e] * u_s[c0 + e] * res_scale + xv[k][e];
+      }
       store8(out + base + (size_t)g * 8, hv[k]);
     }
     gb += per_pass;
@@ -770,20 +787,35 @@ cudaError_t conv(int dtype, const Plan& p, const void* x, const void* w1, const 
   return conv_fma<bf16>(p, x, w1, b1, w2, b2, h2, partial, N, H, W, C, s);
 }
 
-template <typename T>
+template <typename T, bool PE>
 cudaError_t apply(const Plan& p, const void* x, const float* h2, const float* partial,
-                  const float* wd, const float* bd, const float* wu, const float* bu,
-                  float* gate, float res_scale, void* out, int N, int H, int W, int C, int R,
+                  const float* wd, const float* bd, int bd_stride, const float* wu,
+                  const float* bu, int bu_stride, float* gate, float res_scale,
+                  const float* scale, void* out, int N, int H, int W, int C, int R,
                   cudaStream_t s) {
   const int C4 = C / 4;
   const int Q = C4 < kThreads ? kThreads / C4 : 1;
-  const int smem = (4 * Q * C4 + 2 * C + 2 * C * R + R) * (int)sizeof(float);
+  const int smem = (4 * Q * C4 + 2 * C + 2 * C * R + R + (PE ? C : 0)) * (int)sizeof(float);
   static int done[kMaxDevices] = {};
-  cudaError_t err = allow_smem(rcab_apply_kernel<T>, smem, done);
+  cudaError_t err = allow_smem(rcab_apply_kernel<T, PE>, smem, done);
   if (err != cudaSuccess) return err;
-  return launch_after(rcab_apply_kernel<T>, dim3(p.apply_blocks, N), kThreads, smem, s,
-                      static_cast<const T*>(x), h2, partial, wd, bd, wu, bu, gate, res_scale,
-                      static_cast<T*>(out), p.tiles, H * W, C, R);
+  return launch_after(rcab_apply_kernel<T, PE>, dim3(p.apply_blocks, N), kThreads, smem, s,
+                      static_cast<const T*>(x), h2, partial, wd, bd, bd_stride, wu, bu,
+                      bu_stride, gate, res_scale, scale, static_cast<T*>(out), p.tiles, H * W,
+                      C, R);
+}
+
+template <typename T>
+cudaError_t apply_any(const Plan& p, const void* x, const float* h2, const float* partial,
+                      const float* wd, const float* bd, int bd_stride, const float* wu,
+                      const float* bu, int bu_stride, float* gate, float res_scale,
+                      const float* scale, void* out, int N, int H, int W, int C, int R,
+                      cudaStream_t s) {
+  if (scale || bd_stride || bu_stride)
+    return apply<T, true>(p, x, h2, partial, wd, bd, bd_stride, wu, bu, bu_stride, gate,
+                          res_scale, scale, out, N, H, W, C, R, s);
+  return apply<T, false>(p, x, h2, partial, wd, bd, 0, wu, bu, 0, gate, res_scale, nullptr,
+                         out, N, H, W, C, R, s);
 }
 
 }  // namespace
@@ -838,19 +870,24 @@ int rcab_fused_plan(int dtype, int N, int H, int W, int C, long long* plan) {
 // dtype as above. x, out: (N,H,W,C) contiguous in that type, on 16-byte
 // boundaries, not overlapping (the tensor-core plan keeps h1 in `out` until
 // the last pass overwrites it); w1, w2: (9,C,C) tap-major in that type; b1,
-// b2, wd (C,R), bd (R), wu (R,C), bu (C) in float32; workspace:
+// b2, wd (C,R), wu (R,C) in float32; bd (R) with bd_stride 0 or (N,R) with
+// bd_stride R, bu (C) with bu_stride 0 or (N,C) with bu_stride C, float32;
+// scale: null (the branch times res_scale) or (N,C) float32; workspace:
 // `workspace_floats` float32, at least what rcab_fused_workspace gives. The
 // tensor-core plan (bf16, C in {16, 32, 64, 128}) needs w1 and w2 on
 // 16-byte boundaries too. Returns a cudaError_t (0 on success).
 int rcab_fused_forward(int dtype, const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, const void* wd, const void* bd,
-                       const void* wu, const void* bu, float res_scale, void* out,
-                       void* workspace, long long workspace_floats_given, int N, int H,
-                       int W, int C, int R, void* stream) {
+                       const void* wu, const void* bu, float res_scale, const void* scale,
+                       int bd_stride, int bu_stride, void* out, void* workspace,
+                       long long workspace_floats_given, int N, int H, int W, int C, int R,
+                       void* stream) {
   Plan p;
   cudaError_t err = make_plan(dtype, N, H, W, C, &p);
   if (err != cudaSuccess) return (int)err;
   if (workspace_floats_given < workspace_floats(p, N, H, W, C)) return cudaErrorInvalidValue;
+  if ((bd_stride != 0 && bd_stride != R) || (bu_stride != 0 && bu_stride != C))
+    return cudaErrorInvalidValue;
   uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
   if (p.mma) align |= reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2);
   if (align % 16) return cudaErrorMisalignedAddress;
@@ -862,11 +899,11 @@ int rcab_fused_forward(int dtype, const void* x, const void* w1, const void* b1,
   err = conv(dtype, p, x, w1, f(b1), w2, f(b2), out, h2f, pf, N, H, W, C, s);
   if (err != cudaSuccess) return (int)err;
   if (dtype == 0)
-    err = apply<float>(p, x, h2f, pf, f(wd), f(bd), f(wu), f(bu), gf, res_scale, out, N, H, W,
-                       C, R, s);
+    err = apply_any<float>(p, x, h2f, pf, f(wd), f(bd), bd_stride, f(wu), f(bu), bu_stride, gf,
+                           res_scale, f(scale), out, N, H, W, C, R, s);
   else
-    err = apply<bf16>(p, x, h2f, pf, f(wd), f(bd), f(wu), f(bu), gf, res_scale, out, N, H, W,
-                      C, R, s);
+    err = apply_any<bf16>(p, x, h2f, pf, f(wd), f(bd), bd_stride, f(wu), f(bu), bu_stride, gf,
+                          res_scale, f(scale), out, N, H, W, C, R, s);
   return (int)err;
 }
 

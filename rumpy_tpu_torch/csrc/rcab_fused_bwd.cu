@@ -23,6 +23,14 @@
 //
 // h2 and u come from the forward's workspace; h1 is recomputed from x.
 //
+// Per-example gate inputs (a QRCAB: bd[n], bu[n] and a channel scale
+// s[n, c] in place of res_scale; rcab_fused.cu): the gate kernel reads
+// bd[n * bd_stride + j], takes du = s[n,c] * sum_hw dout * h2, writes
+// dscale[n,c] = u * sum_hw dout * h2 and an effective gate u * s[n,c] that
+// the passes after it read with res_scale 1 (dh2 = dout * (u * s) + dgap /
+// HW); dbd and dbu stay per image (the ReLU's and the sigmoid's input
+// gradients, dz and ds) where bd and bu were.
+//
 // Bound on an H100 SXM: five convolutions' worth of products (conv1 again,
 // two data gradients, two weight gradients: 13.6 GFLOP at 16x48x48x64;
 // four, 10.9 GFLOP, for a backward that kept h1 instead) against x, dout,
@@ -206,12 +214,15 @@ __device__ __forceinline__ float strided_sum(const float* __restrict__ p, int q,
 // split over Q threads (q, q+Q, ...) and the Q sums added in order. Leaves
 // dgap / HW, ds (gradient at the sigmoid's input), gap, dz (gradient at the
 // ReLU's input) and d (the ReLU's output) per image for the passes that
-// follow.
+// follow. With a per-example scale it also writes dscale and the effective
+// gate u * scale (see the top of the file).
 __global__ void __launch_bounds__(kThreads)
 rcab_bwd_gate_kernel(const float* __restrict__ part_du, const float* __restrict__ fwd_partial,
                      const float* __restrict__ gate, const float* __restrict__ wd,
-                     const float* __restrict__ bd, const float* __restrict__ wu,
-                     float res_scale, float* __restrict__ dgap_hw, float* __restrict__ ds_out,
+                     const float* __restrict__ bd, int bd_stride, const float* __restrict__ wu,
+                     float res_scale, const float* __restrict__ scale,
+                     float* __restrict__ dscale, float* __restrict__ gate_eff,
+                     float* __restrict__ dgap_hw, float* __restrict__ ds_out,
                      float* __restrict__ gap_out, float* __restrict__ dz_out,
                      float* __restrict__ d_out, int J, int n_tiles, int HW, int C, int R) {
   extern __shared__ float gsm[];
@@ -242,8 +253,15 @@ rcab_bwd_gate_kernel(const float* __restrict__ part_du, const float* __restrict_
       du += du_sums[q * C + c];
     }
     gap[c] = s / (float)HW;
-    du *= res_scale;
     const float u = gate[(size_t)n * C + c];
+    if (scale) {
+      const float sc = scale[(size_t)n * C + c];
+      dscale[(size_t)n * C + c] = du * u;
+      gate_eff[(size_t)n * C + c] = u * sc;
+      du *= sc;
+    } else {
+      du *= res_scale;
+    }
     ds[c] = du * u * (1.f - u);
   }
   __syncthreads();
@@ -253,7 +271,7 @@ rcab_bwd_gate_kernel(const float* __restrict__ part_du, const float* __restrict_
       z = fmaf(gap[c], wd_s[c * R + j], z);
       dd = fmaf(ds[c], wu_s[j * C + c], dd);
     }
-    z += bd[j];
+    z += bd[(size_t)n * bd_stride + j];
     d[j] = fmaxf(z, 0.f);
     dz[j] = z > 0.f ? dd : 0.f;
   }
@@ -980,7 +998,9 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
 
 // The last pass of either plan. The splits' partial sums added in order:
 // part_w (2, S, 9CC) -> dw1, dw2; part_b (2, S, C) -> db1, db2; and the
-// images' terms added in order -> dwd (C,R), dwu (R,C), dbu (C), dbd (R).
+// images' terms added in order -> dwd (C,R), dwu (R,C), dbu (C), dbd (R);
+// dbu (N,C) and dbd (N,R) are the images' own terms where bu and bd were
+// per image (bu_pe, bd_pe).
 __global__ void __launch_bounds__(kThreads)
 rcab_bwd_finish_kernel(const float* __restrict__ part_w, const float* __restrict__ part_b,
                        int S, float* __restrict__ dw1, float* __restrict__ dw2,
@@ -988,9 +1008,11 @@ rcab_bwd_finish_kernel(const float* __restrict__ part_w, const float* __restrict
                        const float* __restrict__ ds, const float* __restrict__ gap,
                        const float* __restrict__ dz, const float* __restrict__ d,
                        float* __restrict__ dwd, float* __restrict__ dbd,
-                       float* __restrict__ dwu, float* __restrict__ dbu, int N, int C, int R) {
+                       float* __restrict__ dwu, float* __restrict__ dbu, int N, int C, int R,
+                       int bu_pe, int bd_pe) {
   const int cc = 9 * C * C;
-  const int total = 2 * cc + 2 * C + 2 * C * R + C + R;
+  const int CU = bu_pe ? N * C : C;
+  const int total = 2 * cc + 2 * C + 2 * C * R + CU + (bd_pe ? N * R : R);
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < total; i += gridDim.x * kThreads) {
     float s = 0.f;
     if (i < 2 * cc) {
@@ -1018,13 +1040,15 @@ rcab_bwd_finish_kernel(const float* __restrict__ part_w, const float* __restrict
       const int j = k / C, c = k - j * C;
       for (int n = 0; n < N; ++n) s = fmaf(d[(size_t)n * R + j], ds[(size_t)n * C + c], s);
       dwu[k] = s;
-    } else if (k < 2 * C * R + C) {
+    } else if (k < 2 * C * R + CU) {
       const int c = k - 2 * C * R;
-      for (int n = 0; n < N; ++n) s += ds[(size_t)n * C + c];
+      if (bu_pe) s = ds[c];
+      else for (int n = 0; n < N; ++n) s += ds[(size_t)n * C + c];
       dbu[c] = s;
     } else {
-      const int j = k - 2 * C * R - C;
-      for (int n = 0; n < N; ++n) s += dz[(size_t)n * R + j];
+      const int j = k - 2 * C * R - CU;
+      if (bd_pe) s = dz[j];
+      else for (int n = 0; n < N; ++n) s += dz[(size_t)n * R + j];
       dbd[j] = s;
     }
   }
@@ -1106,8 +1130,8 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
 
 // Float32 scratch of one backward, in this order: the flipped weights of
 // the CUDA-core plan (2 x 9CC elements of T, in float-sized slots; nothing
-// on the tensor-core plan), the dout * h2 chunk sums (N, J, C), dgap/HW, ds
-// and gap (N, C each), the weight-gradient splits (2, splits, 9CC) and bias
+// on the tensor-core plan), the dout * h2 chunk sums (N, J, C), dgap/HW, ds,
+// gap and the effective gate (N, C each), the weight-gradient splits (2, splits, 9CC) and bias
 // splits (2, splits, C), then dz and d (N, R each). C % 8 == 0 keeps every
 // part but the last two 32-byte aligned.
 struct Layout {
@@ -1120,7 +1144,7 @@ Layout make_layout(const Plan& p, int N, int C, int R) {
   l.wt = 0;
   l.part_du = l.wt + (p.mma ? 0 : 2 * cc);
   l.per_image = l.part_du + (long long)N * p.J * C;
-  l.part_w = l.per_image + 3LL * N * C;
+  l.part_w = l.per_image + 4LL * N * C;
   l.part_b = l.part_w + 2LL * p.splits * cc;
   l.dz = l.part_b + 2LL * p.splits * C;
   l.total = l.dz + 2LL * N * R;
@@ -1190,16 +1214,21 @@ cudaError_t run_fma(const Plan& p, const T* x, const T* w1, const float* b1, con
 
 template <typename T>
 cudaError_t run(const Plan& p, const Layout& l, const T* x, const T* w1, const float* b1,
-                const T* w2, const float* wd, const float* bd, const float* wu,
-                float res_scale, const T* dout, const float* h2, const float* fwd_partial,
-                const float* gate, int n_tiles, T* dx, float* dw1, float* db1, float* dw2,
-                float* db2, float* dwd, float* dbd, float* dwu, float* dbu, T* h1, T* dh1,
-                float* ws, int N, int H, int W, int C, int R, cudaStream_t s) {
+                const T* w2, const float* wd, const float* bd, int bd_stride, const float* wu,
+                float res_scale, const float* scale, int bu_pe, const T* dout, const float* h2,
+                const float* fwd_partial, const float* gate_u, int n_tiles, T* dx, float* dw1,
+                float* db1, float* dw2, float* db2, float* dwd, float* dbd, float* dwu,
+                float* dbu, float* dscale, T* h1, T* dh1, float* ws, int N, int H, int W, int C,
+                int R, cudaStream_t s) {
   const int cc = 9 * C * C;
   float* part_du = ws + l.part_du;
   float* dgap_hw = ws + l.per_image;
   float* ds = dgap_hw + (size_t)N * C;
   float* gap = ds + (size_t)N * C;
+  float* gate_eff = gap + (size_t)N * C;
+  // the passes after the gate kernel read u * scale with scale 1, or u with res_scale
+  const float* gate = scale ? gate_eff : gate_u;
+  const float pass_scale = scale ? 1.f : res_scale;
   float* part_w = ws + l.part_w;
   float* part_b = ws + l.part_b;
   float* dz = ws + l.dz;
@@ -1212,31 +1241,33 @@ cudaError_t run(const Plan& p, const Layout& l, const T* x, const T* w1, const f
   if (err != cudaSuccess) return err;
   const int Q = C < kThreads ? kThreads / C : 1;
   rcab_bwd_gate_kernel<<<N, kThreads, (2 * C + 2 * R + 2 * Q * C + 2 * C * R) * sizeof(float), s>>>(
-      part_du, fwd_partial, gate, wd, bd, wu, res_scale, dgap_hw, ds, gap, dz, d, p.J, n_tiles,
-      H * W, C, R);
+      part_du, fwd_partial, gate_u, wd, bd, bd_stride, wu, res_scale, scale, dscale, gate_eff,
+      dgap_hw, ds, gap, dz, d, p.J, n_tiles, H * W, C, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   if constexpr (std::is_same<T, bf16>::value) {
     if (p.mma) {
       switch (C) {
-        case 16: err = run_mma<2>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 32: err = run_mma<4>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 64: err = run_mma<8>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 128: err = run_mma<16>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 16: err = run_mma<2>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 32: err = run_mma<4>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 64: err = run_mma<8>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 128: err = run_mma<16>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
         default: err = cudaErrorInvalidValue;
       }
     }
   }
   if (!p.mma) {
     T* w1t = reinterpret_cast<T*>(ws + l.wt);
-    err = run_fma<T>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, dx, h1, dh1, w1t, w1t + cc,
+    err = run_fma<T>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, w1t, w1t + cc,
                      part_w, part_b, N, H, W, C, s);
   }
   if (err != cudaSuccess) return err;
 
-  const int outputs = 2 * cc + 2 * C + 2 * C * R + C + R;
+  const int bd_pe = bd_stride != 0;
+  const int outputs = 2 * cc + 2 * C + 2 * C * R + (bu_pe ? N * C : C) + (bd_pe ? N * R : R);
   rcab_bwd_finish_kernel<<<(outputs + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part_w, part_b, p.splits, dw1, dw2, db1, db2, ds, gap, dz, d, dwd, dbd, dwu, dbu, N, C, R);
+      part_w, part_b, p.splits, dw1, dw2, db1, db2, ds, gap, dz, d, dwd, dbd, dwu, dbu, N, C, R,
+      bu_pe, bd_pe);
   return cudaGetLastError();
 }
 
@@ -1257,26 +1288,32 @@ int rcab_fused_backward_workspace(int dtype, int N, int H, int W, int C, int R,
 
 // dtype as above; T is that type. x, dout, dx, h1, dh1: (N,H,W,C)
 // contiguous T (h1 and dh1 are scratch); w1, w2: (9,C,C) tap-major T;
-// b1, wd (C,R), bd (R), wu (R,C): float32. h2 (N,H,W,C), fwd_partial
+// b1, wd (C,R), wu (R,C): float32; bd (R) with bd_stride 0 or (N,R) with
+// bd_stride R; scale null (res_scale for every image) or (N,C) float32;
+// bu_pe 1 where the forward's bu was (N,C). h2 (N,H,W,C), fwd_partial
 // (N, n_tiles, C) and gate (N,C): float32, as rcab_fused_forward left them
 // in its workspace (rcab_fused_layout says where). Outputs dw1, dw2
-// (9,C,C), db1, db2 (C), dwd (C,R), dbd (R), dwu (R,C), dbu (C): float32.
+// (9,C,C), db1, db2 (C), dwd (C,R), dwu (R,C): float32; dbd (R, or N*R
+// with bd_stride R) and dbu (C, or N*C with bu_pe); dscale (N,C) where
+// scale is given, else unused.
 // workspace: at least what rcab_fused_backward_workspace gives, 16-byte
 // aligned; the tensor-core plan (bf16, C in {16, 32, 64, 128}) needs x, dout,
 // dx, h1, dh1, w1 and w2 on 16-byte boundaries too. Returns a cudaError_t
 // (0 on success).
 int rcab_fused_backward(int dtype, const void* x, const void* w1, const void* b1,
-                        const void* w2, const void* wd, const void* bd, const void* wu,
-                        float res_scale, const void* dout, const void* h2,
-                        const void* fwd_partial, const void* gate, int n_tiles, void* dx,
-                        void* dw1, void* db1, void* dw2, void* db2, void* dwd, void* dbd,
-                        void* dwu, void* dbu, void* h1, void* dh1, void* workspace,
+                        const void* w2, const void* wd, const void* bd, int bd_stride,
+                        const void* wu, float res_scale, const void* scale, int bu_pe,
+                        const void* dout, const void* h2, const void* fwd_partial,
+                        const void* gate, int n_tiles, void* dx, void* dw1, void* db1,
+                        void* dw2, void* db2, void* dwd, void* dbd, void* dwu, void* dbu,
+                        void* dscale, void* h1, void* dh1, void* workspace,
                         long long workspace_floats_given, int N, int H, int W, int C, int R,
                         void* stream) {
   Plan p;
   const cudaError_t err = make_plan(dtype, N, H, W, C, &p);
   if (err != cudaSuccess) return (int)err;
-  if (R <= 0 || n_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (R <= 0 || n_tiles <= 0 || (bd_stride != 0 && bd_stride != R) || (scale && !dscale))
+    return (int)cudaErrorInvalidValue;
   const Layout l = make_layout(p, N, C, R);
   if (workspace_floats_given < l.total) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(workspace) % 16) return (int)cudaErrorMisalignedAddress;
@@ -1290,19 +1327,19 @@ int rcab_fused_backward(int dtype, const void* x, const void* w1, const void* b1
   if (dtype == 0) {
     using T = float;
     return (int)run<T>(p, l, static_cast<const T*>(x), static_cast<const T*>(w1), f(b1),
-                       static_cast<const T*>(w2), f(wd), f(bd), f(wu), res_scale,
-                       static_cast<const T*>(dout), f(h2), f(fwd_partial), f(gate), n_tiles,
-                       static_cast<T*>(dx), o(dw1), o(db1), o(dw2), o(db2), o(dwd), o(dbd),
-                       o(dwu), o(dbu), static_cast<T*>(h1), static_cast<T*>(dh1),
-                       o(workspace), N, H, W, C, R, s);
+                       static_cast<const T*>(w2), f(wd), f(bd), bd_stride, f(wu), res_scale,
+                       f(scale), bu_pe, static_cast<const T*>(dout), f(h2), f(fwd_partial),
+                       f(gate), n_tiles, static_cast<T*>(dx), o(dw1), o(db1), o(dw2), o(db2),
+                       o(dwd), o(dbd), o(dwu), o(dbu), o(dscale), static_cast<T*>(h1),
+                       static_cast<T*>(dh1), o(workspace), N, H, W, C, R, s);
   }
   using T = __nv_bfloat16;
   return (int)run<T>(p, l, static_cast<const T*>(x), static_cast<const T*>(w1), f(b1),
-                     static_cast<const T*>(w2), f(wd), f(bd), f(wu), res_scale,
-                     static_cast<const T*>(dout), f(h2), f(fwd_partial), f(gate), n_tiles,
-                     static_cast<T*>(dx), o(dw1), o(db1), o(dw2), o(db2), o(dwd), o(dbd),
-                     o(dwu), o(dbu), static_cast<T*>(h1), static_cast<T*>(dh1), o(workspace),
-                     N, H, W, C, R, s);
+                     static_cast<const T*>(w2), f(wd), f(bd), bd_stride, f(wu), res_scale,
+                     f(scale), bu_pe, static_cast<const T*>(dout), f(h2), f(fwd_partial),
+                     f(gate), n_tiles, static_cast<T*>(dx), o(dw1), o(db1), o(dw2), o(db2),
+                     o(dwd), o(dbd), o(dwu), o(dbu), o(dscale), static_cast<T*>(h1),
+                     static_cast<T*>(dh1), o(workspace), N, H, W, C, R, s);
 }
 
 }  // extern "C"

@@ -130,6 +130,11 @@ class SuperResImages:
             raise ValueError("use_random_colour_distort operates on RGB images "
                              "(the reference distorts the image before any "
                              "colorspace transform)")
+        if metadata_file == "on_site":
+            # <lr_dir>/degradation_metadata.csv where there is one, as in
+            # the JAX package; without one the set carries no metadata
+            candidate = os.path.join(lr_dir, "degradation_metadata.csv") if lr_dir else None
+            metadata_file = candidate if candidate and os.path.isfile(candidate) else None
         if metadata_file is not None or attributes_loc is not None:
             raise _later("metadata CSVs and facial attributes", "the metadata slice")
         if predefined_patch_location:
@@ -295,13 +300,15 @@ class SuperResImages:
             from rumpy_tpu_torch.ops.entropy import entropy_patch_positions
             # multi-crop calls this once per crop_index with identical
             # (img, crop_size, total): compute the position list once per
-            # item and reuse it across the crops. Key and value live in ONE
-            # attribute (atomic tuple read): a concurrent prefetch thread
-            # can at worst force a recompute, never hand this image another
-            # image's coordinates.
+            # item and reuse it across the item's later crops only (an item
+            # of the same index in another epoch computes it again, so each
+            # item's first crop is one entropy launch). Key and value live
+            # in ONE attribute (atomic tuple read): a concurrent prefetch
+            # thread can at worst force a recompute, never hand this image
+            # another image's coordinates.
             cache_key = (idx, crop_size, max(total, 1))
             cached = getattr(self, "_entropy_cache", None)
-            if cached is not None and cached[0] == cache_key:
+            if crop_index > 0 and cached is not None and cached[0] == cache_key:
                 ys, xs = cached[1]
             else:
                 if not isinstance(self.device, torch.device):

@@ -303,10 +303,14 @@ class BaseHandler:
 
     # -- train -------------------------------------------------------------
 
+    def trainable_parameters(self):
+        """The parameters the optimizer updates: all of the module's."""
+        return self.module.parameters()
+
     def optimizer(self) -> torch.optim.Optimizer:
         if self._optimizer is None:
             self._optimizer = build_optimizer(
-                self.module.parameters(), self.lr, self.optimizer_type,
+                self.trainable_parameters(), self.lr, self.optimizer_type,
                 scheduler_params=self.scheduler_params,
                 optimizer_params=self.optimizer_params)
         return self._optimizer
@@ -422,19 +426,25 @@ class BaseHandler:
                              skip_optimizer_load: bool) -> TrainState:
         """A checkpoint the JAX package wrote: its flax params through the
         weight bridge (``utils/weights.py``, which raises on any unused or
-        missing leaf) and its step. Its ``rng`` is a JAX key, which a torch
+        missing leaf; ``_jax_state_dict``, where a handler also maps trees
+        of its ``extra``, such as BatchNorm statistics) and its step; the
+        rest of its ``extra`` is not kept. Its ``rng`` is a JAX key, which a torch
         generator cannot continue, so the handler's generator keeps its
         seed. Optax optimizer state is not mapped yet: it is skipped when
         the caller asks (evaluation, or a fine-tune from fresh optimizer
         state, as for the JAX package's minimal saves) and raises
         otherwise."""
-        from rumpy_tpu_torch.utils.weights import state_dict_from_jax
         if loaded.get("optimizer") is not None and not skip_optimizer_load:
             raise NotImplementedError(
                 f"{path} holds the JAX package's optax optimizer state, which the "
                 "port cannot map yet (ROADMAP queue 1 item 8, trainer leftovers); "
                 "pass skip_optimizer_load=True to start from fresh optimizer state")
         with torch.no_grad():
-            self.module.load_state_dict(state_dict_from_jax(loaded["network"], self.module))
+            self.module.load_state_dict(self._jax_state_dict(loaded))
         self._optimizer = None
-        return self._own_state(int(np.asarray(loaded["step"])), loaded.get("extra"))
+        return self._own_state(int(np.asarray(loaded["step"])))
+
+    def _jax_state_dict(self, loaded) -> Dict[str, torch.Tensor]:
+        """The module's state_dict from a JAX-written checkpoint's trees."""
+        from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+        return state_dict_from_jax(loaded["network"], self.module)

@@ -35,15 +35,20 @@ def pixel_unshuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """k x k conv with SAME padding: the zoo's default_conv.
+    """k x k conv with SAME padding: the zoo's default_conv. With
+    ``stride`` 2 it pads k // 2 on every side, as the JAX package's explicit
+    ``padding=((1, 1), (1, 1))`` does for a 3x3 kernel (flax's 'SAME'
+    would pad (0, 1) there).
 
     Initialised as torch's own default kernel init, U(+-1/sqrt(fan_in)),
     with a zero bias, as the JAX package's ``TConv`` does."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 stride: int = 1):
         super().__init__()
         self.dtype = dtype
+        self.stride = stride
         self.padding = kernel_size // 2
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                kernel_size, kernel_size))
@@ -61,7 +66,87 @@ class Conv(nn.Module):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
-                        padding=self.padding)
+                        stride=self.stride, padding=self.padding)
+
+    def as_linear(self, v):
+        """A 1x1 conv applied to (N, in) vectors: (N, features), as the JAX
+        package's 1x1 ``TConv`` on (N, 1, 1, in) maps."""
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(v.to(self.dtype), self.weight.flatten(1).to(self.dtype), b)
+
+
+class Linear(nn.Module):
+    """Dense layer: the JAX package's ``TDense`` (weight (out, in) here,
+    its kernel (in, out)), torch's U(+-1/sqrt(fan_in)) kernel init and a
+    zero bias; products in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        self.weight.copy_(torch.empty(self.weight.shape).uniform_(
+            -bound, bound, generator=generator))
+        self.bias.zero_()
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over (N, C, H, W) with flax's ``nn.BatchNorm`` semantics,
+    not ``torch.nn.BatchNorm2d``'s: statistics in float32 whatever the
+    activation type, the variance biased and computed as E[x^2] - E[x]^2
+    (clipped at 0), running statistics updated in training as
+    ``momentum * running + (1 - momentum) * batch`` (flax's momentum 0.9;
+    ``BatchNorm2d`` would store the unbiased variance), and the output
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, rounded
+    to ``dtype``. Parameters ``scale``/``bias`` and buffers
+    ``running_mean``/``running_var`` map onto flax's ``params`` and
+    ``batch_stats`` leaves."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.momentum = momentum
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x, train: bool = False):
+        """``train``: normalise by the batch's statistics and update the
+        running ones (flax's ``use_running_average=False``), whatever the
+        module's ``training`` flag."""
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean
+                                        + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var
+                                       + (1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(self.dtype)
 
 
 class MeanShift(nn.Module):

@@ -9,7 +9,14 @@ rcab_fused``. One residual channel-attention block on NHWC activations::
     u   = sigmoid(relu(mean_hw(h2) @ wd + bd) @ wu + bu)
     out = round_dtype(h2 * u * res_scale + x)
 
-with every accumulation in float32. The kernel (``csrc/rcab_fused.cu``) is
+with every accumulation in float32. A QRCAB (the meta-attention block of
+``rumpy_tpu/models/attention_manipulators.py``) is the same block with
+per-image gate inputs: ``bd`` (N, R) and ``bu`` (N, C) in place of the
+shared vectors, and a channel scale ``s`` (N, C) float32 passed as
+``res_scale``, ``out = round_dtype((h2 * u) * s[n, c] + x)``; the kernels
+read them per image in the passes that already read ``bd``, ``bu`` and
+``res_scale``, and the backward returns gradients of the same shapes.
+The kernel (``csrc/rcab_fused.cu``) is
 bound by operations on an H100: 5.44 GFLOP at the train shape
 16x48x48x64 (5.5 us at the bf16 peak) against 9.4 MB of bf16 in and out.
 In bfloat16 with C in {16, 32, 64, 128} it runs three passes: conv1 on the
@@ -56,8 +63,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def rcab_reference(x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale=1.0):
     """The block in plain PyTorch ops, the same arithmetic as the kernel:
     products of values in x's dtype, summed in float32, h1 rounded to x's
-    dtype before the second conv. Same arguments as :func:`rcab_fused`."""
+    dtype before the second conv. Same arguments as :func:`rcab_fused`,
+    per-image ``bd``, ``bu`` and ``res_scale`` included."""
     dt = x.dtype
+    if torch.is_tensor(res_scale):
+        res_scale = res_scale.float()[:, :, None, None]
     c = x.shape[-1]
 
     def conv(a, w, b):
@@ -74,7 +84,7 @@ def rcab_reference(x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale=1.0):
     return y.to(dt).permute(0, 2, 3, 1).contiguous()
 
 
-def _check(x, w1, b1, w2, b2, wd, bd, wu, bu):
+def _check(x, w1, b1, w2, b2, wd, bd, wu, bu, scale=None):
     if x.dim() != 4:
         raise ValueError(f"rcab_fused: x must be (N,H,W,C), got {tuple(x.shape)}")
     n, h, w, c = x.shape
@@ -86,25 +96,30 @@ def _check(x, w1, b1, w2, b2, wd, bd, wu, bu):
         raise ValueError("rcab_fused: x must be a contiguous NHWC tensor "
                          "(a channels_last NCHW tensor permuted to NHWC is)")
     r = wd.shape[-1]
-    want = {"w1": (w1, (9, c, c)), "w2": (w2, (9, c, c)), "b1": (b1, (c,)),
-            "b2": (b2, (c,)), "wd": (wd, (c, r)), "bd": (bd, (r,)),
-            "wu": (wu, (r, c)), "bu": (bu, (c,))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
+    want = {"w1": (w1, [(9, c, c)]), "w2": (w2, [(9, c, c)]), "b1": (b1, [(c,)]),
+            "b2": (b2, [(c,)]), "wd": (wd, [(c, r)]), "bd": (bd, [(r,), (n, r)]),
+            "wu": (wu, [(r, c)]), "bu": (bu, [(c,), (n, c)])}
+    if scale is not None:
+        want["res_scale"] = (scale, [(n, c)])
+    for name, (t, shapes) in want.items():
+        if tuple(t.shape) not in shapes:
             raise ValueError(f"rcab_fused: {name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+                             f"expected one of {shapes}")
         if t.device != x.device:
             raise ValueError(f"rcab_fused: {name} is on {t.device}, x on {x.device}")
 
 
 def rcab_backward_reference(dout, x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale=1.0):
     """The gradients of :func:`rcab_reference` at ``dout`` for all nine
-    inputs, by PyTorch's autograd: the plain version of the backward
-    kernel. Each gradient has its input's dtype."""
+    inputs, and for ``res_scale`` where it is a per-image tensor, by
+    PyTorch's autograd: the plain version of the backward kernel. Each
+    gradient has its input's dtype and shape."""
     with torch.enable_grad():
-        args = [t.detach().requires_grad_(True)
-                for t in (x, w1, b1, w2, b2, wd, bd, wu, bu)]
-        out = rcab_reference(*args, res_scale=res_scale)
+        tensors = (x, w1, b1, w2, b2, wd, bd, wu, bu)
+        if torch.is_tensor(res_scale):
+            tensors += (res_scale,)
+        args = [t.detach().requires_grad_(True) for t in tensors]
+        out = rcab_reference(*args[:9], res_scale=args[9] if len(args) > 9 else res_scale)
         return torch.autograd.grad(out, args, dout)
 
 
@@ -118,48 +133,63 @@ def rcab_fused(x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale=1.0):
         k.reshape(9, C, C)); used in x's dtype. Without a gradient they
         must be contiguous and in x's dtype already (a packed, cached
         weight); with one, live parameters of another dtype are cast.
-      b1, b2: (C,) biases. wd: (C, C//r), bd: (C//r,), wu: (C//r, C),
-        bu: (C,) channel-attention weights; used in float32.
-      res_scale: multiplies the attended branch before the residual add.
+      b1, b2: (C,) biases. wd: (C, C//r), wu: (C//r, C) channel-attention
+        weights; bd: (C//r,) or per image (N, C//r), bu: (C,) or per image
+        (N, C); used in float32.
+      res_scale: a number, or a per-image channel scale (N, C), that
+        multiplies the attended branch before the residual add.
     Returns (N, H, W, C) in x's dtype.
     """
-    _check(x, w1, b1, w2, b2, wd, bd, wu, bu)
+    scale = res_scale if torch.is_tensor(res_scale) else None
+    _check(x, w1, b1, w2, b2, wd, bd, wu, bu, scale)
     args = (x, w1, b1, w2, b2, wd, bd, wu, bu)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _RCABFunction.apply(*args, float(res_scale))
+    tensors = args if scale is None else args + (scale,)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _RCABFunction.apply(*args, scale, 1.0 if scale is not None else float(res_scale))
     if x.device.type == "cpu":
         return rcab_reference(*args, res_scale)
     for name, t in (("w1", w1), ("w2", w2)):
         if t.dtype != x.dtype or not t.is_contiguous():
             raise TypeError(f"rcab_fused: {name} must be contiguous {x.dtype}")
-    return _forward(*args, res_scale)[0]
+    return _forward(*args, scale, 1.0 if scale is not None else res_scale)[0]
 
 
-def _kernel_args(x, w1, b1, w2, b2, wd, bd, wu, bu):
+def _kernel_args(x, w1, b1, w2, b2, wd, bd, wu, bu, scale=None):
     """The arguments as the kernels take them: conv weights contiguous in
-    x's dtype, the rest contiguous float32."""
+    x's dtype, the rest (and the per-image scale, if any) contiguous
+    float32."""
     if x.device.type != "cuda":
         raise RuntimeError(f"rcab_fused: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"rcab_fused: dtype {x.dtype} is not float32 or bfloat16")
     convs = [t.detach().to(x.dtype).contiguous() for t in (w1, w2)]
     f32 = [t.detach().float().contiguous() for t in (b1, b2, wd, bd, wu, bu)]
-    return convs[0], f32[0], convs[1], *f32[1:]
+    if scale is not None:
+        scale = scale.detach().float().contiguous()
+    return (convs[0], f32[0], convs[1], *f32[1:], scale)
 
 
-def _forward(x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale):
-    """Launch the forward kernel; returns (out, workspace, kernel args)."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale):
+    """Launch the forward kernel; returns (out, workspace, kernel args).
+    ``scale`` is None or the per-image (N, C) scale, which then replaces
+    ``res_scale``."""
     global launches
-    kargs = _kernel_args(x, w1, b1, w2, b2, wd, bd, wu, bu)
+    kargs = _kernel_args(x, w1, b1, w2, b2, wd, bd, wu, bu, scale)
     n, h, w, c = x.shape
+    r = wd.shape[-1]
     dt = _DTYPES[x.dtype]
     lib = _library()
     floats = _workspace_floats(dt, n, h, w, c, torch.cuda.current_device())
     workspace = torch.empty(floats, dtype=torch.float32, device=x.device)
     out = torch.empty_like(x)
     err = lib.rcab_fused_forward(
-        dt, x.data_ptr(), *(t.data_ptr() for t in kargs), float(res_scale),
-        out.data_ptr(), workspace.data_ptr(), floats, n, h, w, c, wd.shape[-1],
+        dt, x.data_ptr(), *(t.data_ptr() for t in kargs[:8]), float(res_scale),
+        _ptr(kargs[8]), r if bd.dim() == 2 else 0, c if bu.dim() == 2 else 0,
+        out.data_ptr(), workspace.data_ptr(), floats, n, h, w, c, r,
         torch._C._cuda_getCurrentRawStream(x.device.index))
     _raise_on(err, "launch")
     launches += 1
@@ -168,9 +198,11 @@ def _forward(x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale):
 
 def _backward(dout, x, workspace, kargs, res_scale):
     """Launch the backward kernel; returns the nine gradients, dx in x's
-    dtype and the parameters' in float32."""
+    dtype and the parameters' in float32, each of its input's shape (bd
+    and bu per image where they were), and the per-image scale's gradient
+    (N, C) float32, or None without one."""
     global backward_launches
-    w1, b1, w2, _, wd, bd, wu, _ = kargs
+    w1, b1, w2, _, wd, bd, wu, bu, scale = kargs
     n, h, w, c = x.shape
     r = wd.shape[-1]
     dt = _DTYPES[x.dtype]
@@ -181,33 +213,36 @@ def _backward(dout, x, workspace, kargs, res_scale):
     scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     h1, dh1, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
     grads = [torch.empty_like(t, dtype=torch.float32)
-             for t in (w1, b1, w2, b1, wd, bd, wu, b1)]  # dw1 db1 dw2 db2 dwd dbd dwu dbu
+             for t in (w1, b1, w2, b1, wd, bd, wu, bu)]  # dw1 db1 dw2 db2 dwd dbd dwu dbu
+    dscale = None if scale is None else torch.empty_like(scale)
     dout = dout.to(x.dtype).contiguous()
     base = workspace.data_ptr()
     err = lib.rcab_fused_backward(
         dt, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        wd.data_ptr(), bd.data_ptr(), wu.data_ptr(), float(res_scale),
+        wd.data_ptr(), bd.data_ptr(), r if bd.dim() == 2 else 0, wu.data_ptr(),
+        float(res_scale), _ptr(scale), int(bu.dim() == 2),
         dout.data_ptr(), base, base + 4 * partial_at, base + 4 * gate_at, n_tiles,
-        dx.data_ptr(), *(g.data_ptr() for g in grads), h1.data_ptr(),
+        dx.data_ptr(), *(g.data_ptr() for g in grads), _ptr(dscale), h1.data_ptr(),
         dh1.data_ptr(), scratch.data_ptr(), floats, n, h, w, c, r,
         torch._C._cuda_getCurrentRawStream(x.device.index))
     _raise_on(err, "backward launch")
     backward_launches += 1
-    return (dx, *grads)
+    return (dx, *grads, dscale)
 
 
 class _RCABFunction(torch.autograd.Function):
     """``rcab_fused`` with a gradient: both directions are the hand-written
-    kernels on the card, and the plain versions on the CPU."""
+    kernels on the card, and the plain versions on the CPU. ``scale`` is
+    None or the per-image (N, C) scale that replaces ``res_scale``."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, wd, bd, wu, bu, res_scale):
+    def forward(ctx, x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale):
         ctx.res_scale = res_scale
         params = (w1, b1, w2, b2, wd, bd, wu, bu)
         if x.device.type == "cpu":
-            ctx.save_for_backward(x, *params)
-            return rcab_reference(x, *params, res_scale)
-        out, workspace, kargs = _forward(x, *params, res_scale)
+            ctx.save_for_backward(x, *params, scale)
+            return rcab_reference(x, *params, res_scale if scale is None else scale)
+        out, workspace, kargs = _forward(x, *params, scale, res_scale)
         ctx.save_for_backward(x, workspace, *kargs)
         return out
 
@@ -215,7 +250,11 @@ class _RCABFunction(torch.autograd.Function):
     def backward(ctx, dout):
         x, *saved = ctx.saved_tensors
         if x.device.type == "cpu":
-            grads = rcab_backward_reference(dout, x, *saved, res_scale=ctx.res_scale)
+            *params, scale = saved
+            grads = rcab_backward_reference(
+                dout, x, *params, res_scale=ctx.res_scale if scale is None else scale)
+            if scale is None:
+                grads = (*grads, None)
         else:
             grads = _backward(dout, x, saved[0], saved[1:], ctx.res_scale)
         return (*grads, None)
@@ -279,7 +318,7 @@ def _backward_workspace_floats(dtype: int, n: int, h: int, w: int, c: int, r: in
 
 def _bind_forward(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rcab_fused_forward.argtypes = ([i] + [vp] * 9 + [ctypes.c_float]
+    lib.rcab_fused_forward.argtypes = ([i] + [vp] * 9 + [ctypes.c_float, vp, i, i]
                                        + [vp, vp, ll] + [i] * 5 + [vp])
     lib.rcab_fused_forward.restype = i
     lib.rcab_fused_workspace.argtypes = [i] * 5 + [ctypes.POINTER(ll)]
@@ -295,7 +334,7 @@ def _bind_forward(lib):
 def _bind_backward(lib):
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rcab_fused_backward.argtypes = (
-        [i] + [vp] * 7 + [ctypes.c_float] + [vp] * 4 + [i] + [vp] * 12
+        [i] + [vp] * 6 + [i, vp, ctypes.c_float, vp, i] + [vp] * 4 + [i] + [vp] * 13
         + [ll] + [i] * 5 + [vp])
     lib.rcab_fused_backward.restype = i
     lib.rcab_fused_backward_workspace.argtypes = [i] * 6 + [ctypes.POINTER(ll)]

@@ -16,6 +16,8 @@ _TOOL_REGISTRY: Dict[str, Any] = {}
 # Modules that contain @register_model / @register_tool declarations.
 _MODEL_MODULES = [
     "rumpy_tpu_torch.models.advanced",
+    "rumpy_tpu_torch.models.attention_manipulators",
+    "rumpy_tpu_torch.models.blind_sr",
 ]
 _TOOL_MODULES = [
     "rumpy_tpu_torch.degradations.blur",

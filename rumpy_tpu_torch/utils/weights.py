@@ -7,42 +7,55 @@ comes back key-sorted, so ``RCAB_10`` sorts before ``RCAB_2`` and an order
 zip would misassign. Each port module knows which flax auto-name each of
 its children had. ``nn.remat`` renames ``ResidualGroup_<i>`` to
 ``CheckpointResidualGroup_<i>``; both are accepted. Conv kernels go
-HWIO -> OIHW (the CA 1x1 kernels ``(1,1,C,C//r)`` too). Any unused or
-missing leaf, and any shape mismatch, raises. ``jax_tree_from_state_dict``
-is the inverse, with flax's plain (not remat) names.
+HWIO -> OIHW (the 1x1 kernels ``(1,1,in,out)`` too); Dense kernels
+(in, out) -> ``Linear`` weights (out, in); a BatchNorm's ``scale`` and
+``bias`` are params, its ``mean`` and ``var`` come from the
+``batch_stats`` tree at the same path and become the running-stat buffers.
+Covered: RCAN, EDSR, QRCAN (``QResidualGroup_<i>``, ``QRCAB_<j>``,
+``QCALayer_0``, ``ParaCALayer_0``), the DASR encoder (``TConv_0..5``,
+``BatchNorm_0..5``, ``TDense_<k>``) and the BoBW pipeline's
+``generator``/``encoder``/``reducer`` subtrees. Any unused or missing
+leaf, and any shape mismatch, raises. ``jax_tree_from_state_dict`` is the
+inverse, with flax's plain (not remat) names.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from rumpy_tpu_torch.models.advanced import EDSR, RCAN, ResidualGroup
-from rumpy_tpu_torch.models.common import (RCAB, CALayer, Conv, ResBlock,
-                                           Upsampler)
+from rumpy_tpu_torch.models.attention_manipulators import (QRCAB, QRCAN, ParaCALayer,
+                                                           QCALayer, QResidualGroup)
+from rumpy_tpu_torch.models.blind_sr import BlindSRPipeline, EncodingReducer
+from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Linear,
+                                           ResBlock, Upsampler)
+from rumpy_tpu_torch.models.contrastive import DASREncoder
 
 Path = Tuple[str, ...]
+LEAF_TYPES = (Conv, Linear, BatchNorm)
 
 
-def _convs(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path, Conv]]:
-    """(port prefix, flax path of the {kernel, bias} dict, Conv) for every
-    conv under ``module``."""
+def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path, nn.Module]]:
+    """(port prefix, flax path of the module's leaves, module) for every
+    Conv, Linear and BatchNorm under ``module``."""
     def sub(child, name, *path):
-        yield from _convs(child, f"{port}{name}.", flax + path)
+        yield from _entries(child, f"{port}{name}.", flax + path)
 
     def conv(child, name, index):  # a flax Conv wraps one TConv
         yield from sub(child, name, f"Conv_{index}", "TConv_0")
 
-    if isinstance(module, Conv):
+    if isinstance(module, LEAF_TYPES):
         yield port.rstrip("."), flax, module
-    elif isinstance(module, RCAN):
+    elif isinstance(module, (RCAN, QRCAN)):
+        group = "ResidualGroup" if isinstance(module, RCAN) else "QResidualGroup"
         yield from conv(module.head, "head", 0)
         for i, g in enumerate(module.groups):
-            yield from sub(g, f"groups.{i}", f"ResidualGroup_{i}")
+            yield from sub(g, f"groups.{i}", f"{group}_{i}")
         yield from conv(module.body_tail, "body_tail", 1)
         yield from sub(module.upsampler, "upsampler", "Upsampler_0")
         yield from conv(module.tail, "tail", 2)
@@ -53,25 +66,90 @@ def _convs(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path
         yield from conv(module.body_tail, "body_tail", 1)
         yield from sub(module.upsampler, "upsampler", "Upsampler_0")
         yield from conv(module.tail, "tail", 2)
-    elif isinstance(module, ResidualGroup):
+    elif isinstance(module, (ResidualGroup, QResidualGroup)):
+        block = "RCAB" if isinstance(module, ResidualGroup) else "QRCAB"
         for i, b in enumerate(module.blocks):
-            yield from sub(b, f"blocks.{i}", f"RCAB_{i}")
+            yield from sub(b, f"blocks.{i}", f"{block}_{i}")
         yield from conv(module.tail, "tail", 0)
+    elif isinstance(module, QRCAB):
+        yield from conv(module.conv1, "conv1", 0)
+        yield from conv(module.conv2, "conv2", 1)
+        yield from sub(module.ca, "ca", "QCALayer_0")
+        if module.q is not None:
+            yield from sub(module.q, "q", "ParaCALayer_0")
     elif isinstance(module, RCAB):
         yield from conv(module.conv1, "conv1", 0)
         yield from conv(module.conv2, "conv2", 1)
         yield from sub(module.ca, "ca", "CALayer_0")
-    elif isinstance(module, CALayer):
+    elif isinstance(module, (CALayer, QCALayer)):
         yield from sub(module.down, "down", "TConv_0")
         yield from sub(module.up, "up", "TConv_1")
+    elif isinstance(module, ParaCALayer):
+        for i, c in enumerate(module.convs):
+            yield from sub(c, f"convs.{i}", f"TConv_{i}")
     elif isinstance(module, ResBlock):
         yield from conv(module.conv1, "conv1", 0)
         yield from conv(module.conv2, "conv2", 1)
     elif isinstance(module, Upsampler):
         for i, c in enumerate(module.convs):
             yield from conv(c, f"convs.{i}", i)
+    elif isinstance(module, DASREncoder):
+        for i, (c, n) in enumerate(zip(module.convs, module.norms)):
+            yield from sub(c, f"convs.{i}", f"TConv_{i}")
+            yield from sub(n, f"norms.{i}", f"BatchNorm_{i}")
+        dense = list(module.mlp) + list(module.dropdown or [])
+        for i, d in enumerate(dense):
+            name = f"mlp.{i}" if i < 2 else f"dropdown.{i - 2}"
+            yield from sub(d, name, f"TDense_{i}")
+    elif isinstance(module, EncodingReducer):
+        for i, d in enumerate(module.layers):
+            yield from sub(d, f"layers.{i}", f"TDense_{i}")
+    elif isinstance(module, BlindSRPipeline):
+        yield from sub(module.generator, "generator", "generator")
+        yield from sub(module.encoder, "encoder", "encoder")
+        if module.reducer is not None:
+            yield from sub(module.reducer, "reducer", "reducer")
     else:
         raise TypeError(f"no flax name map for {type(module).__name__}")
+
+
+def _convs(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path, Conv]]:
+    """(port prefix, flax path of the {kernel, bias} dict, Conv) for every
+    conv under ``module``."""
+    return ((p, f, m) for p, f, m in _entries(module, port, flax) if isinstance(m, Conv))
+
+
+# port tensor name -> (flax collection, leaf name) of each leaf type
+_LEAVES = {
+    Conv: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    Linear: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    BatchNorm: {"scale": ("params", "scale"), "bias": ("params", "bias"),
+                "running_mean": ("batch_stats", "mean"),
+                "running_var": ("batch_stats", "var")},
+}
+
+
+def _leaf_names(module: nn.Module) -> Dict[str, Tuple[str, str]]:
+    names = dict(_LEAVES[type(module)])
+    if isinstance(module, Conv) and module.bias is None:
+        del names["bias"]
+    return names
+
+
+def _to_port(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
+    if name == "weight" and isinstance(module, Conv):
+        return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if name == "weight" and isinstance(module, Linear):
+        return arr.T  # (in, out) -> (out, in)
+    return arr
+
+
+def _to_flax(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
+    if name == "weight" and isinstance(module, Conv):
+        return arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if name == "weight" and isinstance(module, Linear):
+        return arr.T
+    return arr
 
 
 def _lookup(tree: Mapping, path: Path) -> Tuple[Mapping, Path]:
@@ -95,57 +173,72 @@ def _leaves(tree, prefix: Path = ()) -> Iterator[Path]:
         yield prefix
 
 
-def state_dict_from_jax(params, module: nn.Module) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params, module: nn.Module,
+                        batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """Map a flax param tree (nested dicts of arrays, as ``state.params``
-    of a JAX handler) onto ``module``'s state_dict keys, as float32 CPU
-    tensors ready for ``load_state_dict``."""
+    of a JAX handler), and its ``batch_stats`` tree where the module has
+    BatchNorm, onto ``module``'s state_dict keys, as float32 CPU tensors
+    ready for ``load_state_dict``. Without ``batch_stats`` the BatchNorm
+    running statistics are left out of the result (and not asked for)."""
+    trees = {"params": params, "batch_stats": batch_stats}
     out: Dict[str, torch.Tensor] = {}
-    used = set()
-    for port, flax, conv in _convs(module, "", ()):
-        node, real = _lookup(params, flax)
-        wanted = {"weight": "kernel"}
-        if conv.bias is not None:
-            wanted["bias"] = "bias"
-        for name, leaf in wanted.items():
+    used = {"params": set(), "batch_stats": set()}
+    for port, flax, mod in _entries(module, "", ()):
+        nodes = {}
+        for name, (collection, leaf) in _leaf_names(mod).items():
+            if trees[collection] is None:
+                continue
+            if collection not in nodes:
+                nodes[collection] = _lookup(trees[collection], flax)
+            node, real = nodes[collection]
             if leaf not in node:
-                raise KeyError(f"flax tree is missing {'/'.join(real + (leaf,))}")
+                raise KeyError(f"flax {collection} tree is missing {'/'.join(real + (leaf,))}")
             arr = node[leaf]
             arr = (arr.float().numpy() if torch.is_tensor(arr)
                    else np.asarray(arr, dtype=np.float32))
-            if name == "weight":
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            target = tuple(getattr(conv, name).shape)
+            arr = _to_port(arr, mod, name)
+            target = tuple(getattr(mod, name).shape)
             if arr.shape != target:
                 raise ValueError(f"shape mismatch at {'/'.join(real + (leaf,))}: "
                                  f"{arr.shape} vs {port}.{name} {target}")
             out[f"{port}.{name}"] = torch.from_numpy(arr.copy())
-            used.add(real + (leaf,))
-    unused = sorted("/".join(p) for p in _leaves(params) if p not in used)
-    if unused:
-        raise ValueError(f"flax leaves not used by {type(module).__name__}: {unused}")
-    missing = sorted(set(module.state_dict()) - set(out))
+            used[collection].add(real + (leaf,))
+    for collection, tree in trees.items():
+        if tree is None:
+            continue
+        unused = sorted("/".join(p) for p in _leaves(tree) if p not in used[collection])
+        if unused:
+            raise ValueError(f"flax {collection} leaves not used by "
+                             f"{type(module).__name__}: {unused}")
+    wanted = set(module.state_dict())
+    if batch_stats is None:
+        wanted -= {k for k in wanted if k.endswith((".running_mean", ".running_var"))}
+    missing = sorted(wanted - set(out))
     if missing:
         raise KeyError(f"port parameters with no flax leaf: {missing}")
     return out
 
 
 def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
-                             module: nn.Module) -> Dict[str, Any]:
+                             module: nn.Module, collection: str = "params") -> Dict[str, Any]:
     """The inverse of :func:`state_dict_from_jax`: ``module``'s state_dict
-    as a flax param tree (nested dicts of float32 numpy arrays, conv
-    kernels OIHW -> HWIO), so parameters can be compared leaf for leaf."""
+    as a flax tree of ``collection`` ("params", or "batch_stats" for the
+    BatchNorm running statistics), nested dicts of float32 numpy arrays
+    (conv kernels OIHW -> HWIO, dense weights (out, in) -> (in, out)), so
+    parameters can be compared leaf for leaf."""
     tree: Dict[str, Any] = {}
     used = set()
-    for port, flax, conv in _convs(module, "", ()):
-        node = tree
-        for key in flax:
-            node = node.setdefault(key, {})
-        w = state_dict[f"{port}.weight"].detach().cpu().float().numpy()
-        node["kernel"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
-        used.add(f"{port}.weight")
-        if conv.bias is not None:
-            node["bias"] = state_dict[f"{port}.bias"].detach().cpu().float().numpy().copy()
-            used.add(f"{port}.bias")
+    for port, flax, mod in _entries(module, "", ()):
+        for name, (coll, leaf) in _leaf_names(mod).items():
+            key = f"{port}.{name}"
+            used.add(key)
+            if coll != collection:
+                continue
+            node = tree
+            for k in flax:
+                node = node.setdefault(k, {})
+            arr = state_dict[key].detach().cpu().float().numpy()
+            node[leaf] = np.ascontiguousarray(_to_flax(arr, mod, name))
     unused = sorted(set(state_dict) - used)
     if unused:
         raise ValueError(f"state_dict entries with no flax leaf: {unused}")

@@ -5,6 +5,7 @@ interpret mode (as it would on a TPU); the port's from the kernel's plain
 version, on the CPU."""
 
 import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -188,9 +189,9 @@ def test_data_setup_matches_jax(pairs):
 
 @pytest.mark.parametrize("kw", [
     dict(online_degradations=True, mask_data="masks"),
-    dict(input="interp", metadata_file="on_site"),
+    dict(input="interp", metadata_file="degradation_metadata.csv"),
     dict(use_random_colour_distort=True, blacklist="blacklist.csv"),
-    dict(metadata_file="on_site"),
+    dict(metadata_file="degradation_metadata.csv"),
     dict(attributes_loc="attrs.csv"), dict(blacklist="blacklist.csv"),
     dict(predefined_patch_location="patches.csv"), dict(mask_data="masks"),
     dict(custom_mask_name="uvtex_mask.png")])
@@ -198,6 +199,42 @@ def test_options_of_later_slices_raise(pairs, kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tdata.SuperResImages(lr_dir=pairs["png_lr"], hr_dir=pairs["png_hr"],
                              device="cpu", **kw)
+
+
+def test_on_site_metadata_resolves_to_the_lr_folders_csv(pairs, tmp_path):
+    """``metadata_file = "on_site"`` means <lr_dir>/degradation_metadata.csv,
+    as in the JAX package: without one the set carries no metadata; with
+    one it is a metadata CSV, which is still to be ported."""
+    ds = tdata.SuperResImages(lr_dir=pairs["png_lr"], hr_dir=pairs["png_hr"],
+                              metadata_file="on_site", device="cpu")
+    assert len(ds) > 0 and ds[0]["metadata"].size == 0
+    lr = tmp_path / "lr"
+    shutil.copytree(pairs["png_lr"], lr)
+    (lr / "degradation_metadata.csv").write_text("image,qpi\n")
+    with pytest.raises(NotImplementedError, match="metadata CSVs"):
+        tdata.SuperResImages(lr_dir=str(lr), hr_dir=pairs["png_hr"],
+                             metadata_file="on_site", device="cpu")
+
+
+def test_entropy_positions_once_per_item(pairs, monkeypatch):
+    """An item's entropy positions are computed once and shared by its
+    crops; the same index read again (in the next epoch) computes them
+    again, so every item is one pass of the entropy path."""
+    from rumpy_tpu_torch.ops import entropy as tentropy
+    real, calls = tentropy.entropy_patch_positions, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tentropy, "entropy_patch_positions", counted)
+    for crop_count, want in ((1, 2), (3, 2)):
+        calls.clear()
+        ds = tdata.SuperResImages(lr_dir=pairs["png_lr"], hr_dir=pairs["png_hr"], crop=8,
+                                  patch_type="entropy", crop_count=crop_count, device="cpu")
+        ds[0]
+        ds[0]
+        assert len(calls) == want
 
 
 def test_video_sampler_and_bad_files_raise(pairs, tmp_path):

@@ -231,3 +231,17 @@ def test_true_div_keeps_ieee_division():
     q = torch.arange(1, 101, dtype=torch.float32)
     np.testing.assert_array_equal(true_div(5000.0, q).numpy(),
                                   np.float32(5000.0) / q.numpy())
+
+
+BOBW_MODULES = ("models/attention_manipulators.py", "models/contrastive.py",
+                "models/blind_sr.py", "utils/weights.py", "models/common.py")
+
+
+def test_port_covers_the_bobw_modules():
+    """The BoBW slice's modules are in the package, so the import scans
+    above read them too; the registry finds both of its handlers."""
+    from rumpy_tpu_torch.registry import available_models
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    missing = [m for m in BOBW_MODULES if m not in names]
+    assert not missing, missing
+    assert {"qrcan", "contrastiveblindqrcan"} <= set(available_models())
