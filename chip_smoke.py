@@ -34,7 +34,19 @@ seeded random weights):
   its shapes (``qrcab_kernel``); ``cli.train_sisr`` on a copy of
   examples/train_bobw_rcan_supmoco.toml, validating each epoch, then three
   steps at bench.py's BoBW point, batch 96 (``bobw_train``); and
-  ``cli.eval_sisr`` on the saved run (``bobw_eval``).
+  ``cli.eval_sisr`` on the saved run (``bobw_eval``);
+* the BoBW encoder trained in the port: the bf16 backward at C = 128
+  against an f32 gradient over 16 input draws (``rcab_bwd_c128``); the
+  SupMoCo predictor through ``cli.train_sisr`` on a copy of
+  examples/train_supmoco_predictor.toml (dim 256, K 8192, batch 32, 5
+  views of 256 x 256 HR an image degraded on the card in one pass, the
+  contrastive evaluation on LR files and a metadata CSV written here), a
+  fixed batch's step under sync debug mode "error", and the packaged
+  supmoco_fullchain_d256 warm-started by name, its clustering scores on
+  the card beside the CPU's (``contrastive_train``); and joint BoBW
+  (``contrastiveblindqrcan``, ``combined_loss_mode`` "supmoco" at batch 16
+  and 64, then "moco"), its trainable encoder loaded from that run, 200
+  forward and 200 backward RCAB launches a step (``bobw_joint``).
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
@@ -735,6 +747,113 @@ def rcab_bwd_phase(rcab):
     return main
 
 
+C128_SHAPE = (1, 40, 33, 128)
+C128_DRAWS = 8
+# At C = 128 in bf16 the backward's dw1 may stand at most this many times
+# further from an f32 gradient of the same bf16-valued inputs than the bf16
+# plain version's dw1 does, draw by draw.
+C128_FACTOR = 2.0
+F32_UNIT = 2.0 ** -24
+
+
+def c128_f32_dw1(args, dout, scale, mask=None):
+    """dw1 of the block in float32 from the bf16-valued ``args`` (h1 not
+    rounded), with the ReLU's derivative taken from ``mask`` (N, C, H, W)
+    where given, else from the sign of conv1's float32 output; and that
+    output."""
+    import torch.nn.functional as F
+    x, w1, b1, w2, b2, wd, bd, wu, bu = [a.detach().float() for a in args]
+    c = x.shape[-1]
+    with torch.enable_grad():
+        w1.requires_grad_(True)
+        k1 = w1.reshape(3, 3, c, c).permute(3, 2, 0, 1)
+        xc = x.permute(0, 3, 1, 2)
+        pre = F.conv2d(xc, k1, padding=1) + b1[:, None, None]
+        h1 = pre * (pre.detach() > 0 if mask is None else mask).float()
+        k2 = w2.reshape(3, 3, c, c).permute(3, 2, 0, 1)
+        h2 = F.conv2d(h1, k2, padding=1) + b2[:, None, None]
+        gap = h2.mean(dim=(2, 3))
+        u = torch.sigmoid(torch.relu(gap @ wd + bd) @ wu + bu)
+        s = scale.float()[:, :, None, None] if torch.is_tensor(scale) else scale
+        y = h2 * u[:, :, None, None] * s + xc
+        dw1, = torch.autograd.grad(y, [w1], dout.float().permute(0, 3, 1, 2))
+    return dw1, pre.detach()
+
+
+def rcab_bwd_c128_phase(rcab):
+    """The bf16 backward at C = 128 against an f32 gradient: for
+    C128_DRAWS input draws, in the shared and the per-image form, dw1 from
+    the kernel and from the bf16 plain version, each against the f32
+    gradient of the same bf16-valued inputs (h1 unrounded). A ReLU tie, an
+    h1 pre-activation whose float64 value lies within the float32 rounding
+    bound of its 9C + 1 terms (gamma * sum |terms|) of zero, may fall
+    either way: two sum orders put it on different sides, and its whole
+    gradient then enters dw1 or not. So each version is held against the
+    f32 gradient with its own ReLU mask (the kernel's from its own h1); a
+    mask bit of the kernel that differs from float64's sign anywhere but
+    at a tie fails, and so does a kernel that stands more than C128_FACTOR
+    times as far off as the plain version. Prints, per draw, both errors
+    against the ReLU-tie-aware references and against the plain f32
+    gradient, and the ties. Returns the rows."""
+    import torch.nn.functional as F
+    rows = []
+    c = C128_SHAPE[3]
+    gamma = (9 * c + 1) * F32_UNIT / (1 - (9 * c + 1) * F32_UNIT)
+    for form in ("shared", "per_image"):
+        for draw in range(C128_DRAWS):
+            seed = 700 + draw
+            if form == "shared":
+                args, scale = rcab_inputs(C128_SHAPE, torch.bfloat16, seed), None
+            else:
+                args, scale = qrcab_inputs(C128_SHAPE, torch.bfloat16, seed)
+            g = torch.Generator().manual_seed(seed + 50)
+            dout = torch.randn(*C128_SHAPE, generator=g).cuda().to(torch.bfloat16)
+            _, workspace, kargs = rcab._forward(*args, scale, 1.0)
+            keep = {}
+            kernel = rcab._backward(dout, args[0], workspace, kargs, 1.0, keep=keep)[1]
+            plain = rcab.rcab_backward_reference(
+                dout, *args, res_scale=1.0 if scale is None else scale)[1]
+            ref, pre32 = c128_f32_dw1(args, dout, 1.0 if scale is None else scale)
+            mask_k = keep["h1"].permute(0, 3, 1, 2).float() > 0
+            ref_k, _ = c128_f32_dw1(args, dout, 1.0 if scale is None else scale, mask_k)
+            x64 = args[0].double().permute(0, 3, 1, 2)
+            k64 = args[1].double().reshape(3, 3, c, c).permute(3, 2, 0, 1)
+            pre64 = F.conv2d(x64, k64, padding=1) + args[2].double()[:, None, None]
+            bound = gamma * (F.conv2d(x64.abs(), k64.abs(), padding=1)
+                             + args[2].double().abs()[:, None, None])
+            flips = mask_k != (pre64 > 0)
+            ties = flips & (pre64.abs() <= bound)
+            ref_max = ref.abs().max().item()
+            err = {"kernel": (kernel.float() - ref_k).abs().max().item() / ref_max,
+                   "plain_bf16": (plain.float() - ref).abs().max().item() / ref_max}
+            raw = {"kernel": (kernel.float() - ref).abs().max().item() / ref_max,
+                   "plain_bf16": err["plain_bf16"]}
+            at = torch.nonzero(flips)[:4].tolist()
+            row = {"phase": "rcab_bwd_c128", "shape": C128_SHAPE, "form": form,
+                   "draw": draw, "dw1_rel_err": err,
+                   "ratio": err["kernel"] / max(err["plain_bf16"], 1e-30),
+                   "factor": C128_FACTOR, "dw1_rel_err_vs_f32_mask": raw,
+                   "ratio_vs_f32_mask": raw["kernel"] / max(raw["plain_bf16"], 1e-30),
+                   "kernel_mask_flips": int(flips.sum().item()),
+                   "of_them_ties": int(ties.sum().item()),
+                   "f32_mask_flips": int(((pre32 > 0) != (pre64 > 0)).sum().item()),
+                   "flips_at": [{"nchw": i, "pre_f64": pre64[tuple(i)].item(),
+                                 "tie_bound": bound[tuple(i)].item()} for i in at]}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del workspace, kargs, keep
+    torch.cuda.empty_cache()
+    faults = [r for r in rows if r["kernel_mask_flips"] != r["of_them_ties"]]
+    if faults:
+        raise AssertionError(f"rcab backward: a ReLU mask bit of the kernel at C = 128 differs "
+                             f"from float64's sign beyond rounding: {faults[0]}")
+    worst = max(rows, key=lambda r: r["ratio"])
+    if worst["ratio"] > C128_FACTOR:
+        raise AssertionError(f"rcab backward: dw1 at C = 128 stands {worst['ratio']} times as "
+                             f"far from f32 as the bf16 plain version: {worst}")
+    return rows
+
+
 def write_pairs(root, rng):
     """Seeded LR/HR pairs as uint8 .npy files: textured HR images whose
     local contrast varies over the image, LR their 4x decimation."""
@@ -813,18 +932,25 @@ def device_ops(fn, name: str):
     fn()  # warm: libraries built, tables uploaded
     torch.cuda.synchronize()
     # a traced span's first device events can go missing while the tracer
-    # starts: one call in a warm-up step, then the call that is counted
+    # starts: one call in a warm-up step, then the call that is counted. A
+    # session now and then records no device event at all (as in traced):
+    # the call is traced again, up to three sessions.
     path = os.path.join(ROOT, "build", f"{name}.json")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
-                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                      and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if events:
+            break
+        print(f"device_ops {name}: no device event in session {attempt + 1}",
+              file=sys.stderr, flush=True)
     d2h = [e for e in events if e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]]
     return {"launches": len(events),
             "by_kind": {k: sum(e["cat"] == k for e in events)
@@ -1736,12 +1862,17 @@ def reader_phase(card):
 
 # A QRCAB's shapes on the BoBW path: bench.py's BoBW batch (96 of 48x48
 # LR crops), the example config's batch 16, one DIV2K x4 eval image; the
-# train shape in f32 too. Tolerances as for the shared form (F32_ATOL,
-# BF16_REL_ULP forward; BWD_F32_REL, BWD_BF16_REL backward).
+# train shape in f32 too; then every batch of the joint phase (the launch
+# plan depends on N) that is not among them. Tolerances as for the shared
+# form (F32_ATOL, BF16_REL_ULP forward; BWD_F32_REL, BWD_BF16_REL backward).
 BOBW_BENCH_BATCH = 96  # bench.py:196
+# The joint step's batches: K = 8192 refuses bench.py's BoBW batch 96
+JOINT_BATCHES = (16, 64)
 QRCAB_SHAPES = [((BOBW_BENCH_BATCH, TRAIN_CROP, TRAIN_CROP, 64), torch.bfloat16),
                 (TRAIN_SHAPE, torch.bfloat16), ((1, *DIV2K_LR, 64), torch.bfloat16),
                 (TRAIN_SHAPE, torch.float32)]
+QRCAB_SHAPES += [((n, TRAIN_CROP, TRAIN_CROP, 64), torch.bfloat16) for n in JOINT_BATCHES
+                 if (n, TRAIN_CROP, TRAIN_CROP, 64) not in [sh for sh, _ in QRCAB_SHAPES]]
 QRCAB_GRAD_NAMES = GRAD_NAMES + ["dscale"]
 
 
@@ -2113,6 +2244,389 @@ def bobw_eval_phase(rcab, card, exp_root, lr_dir, hr_dir):
     return row
 
 
+PREDICTOR_CONFIG = os.path.join("examples", "train_supmoco_predictor.toml")
+PREDICTOR_EXP = "supmoco_predictor"  # the example's experiment name
+PREDICTOR_FULL = dict(dim=256, K=8192)
+PREDICTOR_BATCH, PREDICTOR_CROP, PREDICTOR_VIEWS = 32, 64, 5
+PREDICTOR_STEPS = 4  # 2 epochs of 2 steps
+PREDICTOR_SETS = PREDICTOR_STEPS * PREDICTOR_BATCH // (2 * TRAIN_IMAGES)
+EVAL_VIEWS_AN_IMAGE = 8
+# Clustering scores on the card (float64) against the CPU's on the same
+# embeddings: two float64 sums in other orders.
+CLUSTER_RTOL = 1e-6
+
+
+def write_predictor_eval_set(root, hr_dir, card_seed):
+    """An eval set as the JAX package's offline pipeline lays it out: LR
+    .npy files degraded by the example's chain on the card (64 x 64 from
+    256 x 256 HR crops, EVAL_VIEWS_AN_IMAGE an HR image) and
+    degradation_metadata.csv (image, then a column per metadata key),
+    written with the csv module. The columns are in the sorted order of
+    the online chain's metadata matrix: the regression trainer labels an
+    eval set by the column indices of its training chain's keys (as the
+    JAX package does), so a CSV in the offline pipeline's step order is
+    read under the wrong keys. The same LR files with the CSV in that step
+    order (the JAX offline pipeline's layout) go to a second folder, so
+    that the run shows what the fault does. Returns both folders (sorted,
+    step order)."""
+    from rumpy_tpu_torch.config.loader import load_config
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    table = load_config(os.path.join(ROOT, PREDICTOR_CONFIG)).as_plain()["data"][
+        "online_degradations"]
+    pipe = ImagePipeline(table["pipeline"], deg_configs=table["deg_configs"], scale=TRAIN_SCALE)
+    side = PREDICTOR_CROP * TRAIN_SCALE
+    rng = np.random.default_rng(21)
+    crops, names = [], []
+    for name in sorted(os.listdir(hr_dir)):
+        hr = np.load(os.path.join(hr_dir, name))
+        for v in range(EVAL_VIEWS_AN_IMAGE):
+            top = int(rng.integers(0, hr.shape[0] - side))
+            left = int(rng.integers(0, hr.shape[1] - side))
+            crops.append(hr[top:top + side, left:left + side])
+            names.append(f"{os.path.splitext(name)[0]}_{v}.npy")
+    hr_t = torch.from_numpy(np.stack(crops).astype(np.float32) / 255.0).cuda()
+    lr, meta = pipe.degrade_batch(card_generator(card_seed), hr_t)
+    lr = (lr.clamp(0, 1) * 255.0).round().to(torch.uint8).cpu().numpy()
+    dirs = []
+    for folder, keys in (("lr", sorted(meta)), ("lr_step_order", list(meta))):
+        lr_dir = os.path.join(root, folder)
+        os.makedirs(lr_dir)
+        for name, img in zip(names, lr):
+            np.save(os.path.join(lr_dir, name), img)
+        cols = [meta[k].float().cpu().numpy() for k in keys]
+        with open(os.path.join(lr_dir, "degradation_metadata.csv"), "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["image"] + keys)
+            for i, name in enumerate(names):
+                w.writerow([name] + [repr(float(c[i])) for c in cols])
+        dirs.append(lr_dir)
+    return dirs
+
+
+def contrastive_train_phase(card):
+    """The SupMoCo predictor through cli.train_sisr on a copy of
+    examples/train_supmoco_predictor.toml at its widths (dim 256, K 8192,
+    batch 32, LR crop 64 from 256 x 256 HR views, 5 crops an image: its
+    crop_count of 2 would give SupMoCo one positive where it takes 4) and
+    its chain on the card, 2 epochs of 2 steps, contrastive evaluation each
+    epoch on an eval set written here. Then one fixed batch, 1 warm-up and
+    3 steps of the trainer's own step (views degraded in one pass, classes
+    on the card, train_batch); the queue, the label queue, the momentum
+    update and no host sync in a step; last, a warm start from the
+    packaged supmoco_fullchain_d256 by name and its clustering scores on
+    the card beside the CPU's. Returns the row and the run's saved_models
+    directory."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.evaluation.contrastive_eval import ContrastiveEval, clustering_scores
+    from rumpy_tpu_torch.models.contrastive import momentum_update
+    from rumpy_tpu_torch.training.regression_trainer import RegressionTrainingHandler
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_contrastive")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(20))
+    eval_lr, eval_lr_steps = write_predictor_eval_set(os.path.join(root, "eval_data"),
+                                                      hr_dir, 22)
+    cfg = load_config(os.path.join(ROOT, PREDICTOR_CONFIG)).as_plain()
+    internal = cfg["model"]["internal_params"]
+    if ({k: internal[k] for k in PREDICTOR_FULL} != PREDICTOR_FULL
+            or cfg["training"]["batch_size"] != PREDICTOR_BATCH
+            or cfg["data"]["crop"] != PREDICTOR_CROP):
+        raise AssertionError(f"{PREDICTOR_CONFIG} is not SupMoCo dim 256, K 8192 at batch 32, "
+                             f"crop 64: {cfg}")
+    exp_root = os.path.join(root, "experiments")
+    cfg["experiment_save_loc"] = exp_root
+    del cfg["data"]["crop_count"]  # the trainer takes SupMoCo's 4 positives: 5 crops
+    cfg["data"]["dataloader_threads"] = 8
+    cfg["data"]["training_sets"] = {f"data_{i}": {"hr_dir": hr_dir}
+                                    for i in range(PREDICTOR_SETS)}
+    cfg["data"]["eval_sets"] = {"data_1": {"lr_dir": eval_lr, "metadata_file": "on_site"}}
+    cfg["training"].update(num_epochs=2)
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with watched(RegressionTrainingHandler, "eval") as evals:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    scores = {k: [stats[e].get(k) for e in sorted(stats)]
+              for k in ("val-davies_bouldin", "val-calinski_harabasz", "val-silhouette")}
+    if len(losses) != 2 or not np.isfinite(losses).all() or not all(
+            np.isfinite(v).all() for v in scores.values() if None not in v):
+        raise AssertionError(f"predictor run: losses {losses}, scores {scores}")
+    if any(None in v for v in scores.values()):
+        raise AssertionError(f"predictor run: no clustering scores {scores}")
+    saved = os.path.join(exp_root, PREDICTOR_EXP, "saved_models")
+    enc = os.path.join(exp_root, PREDICTOR_EXP, "result_outputs", "encodings_epoch_1.npz")
+    if not os.path.isfile(os.path.join(saved, "train_model_1")) or not os.path.isfile(enc):
+        raise AssertionError("predictor run: no checkpoint or embedding dump of epoch 1")
+
+    # the trainer's own step on one fixed batch
+    cfg_fixed = dict(cfg, no_directories=True)
+    trainer = RegressionTrainingHandler(load_config_from(cfg_fixed, root, "fixed.toml"),
+                                        verbose=False)
+    handler = trainer.model.model
+    side = PREDICTOR_CROP * TRAIN_SCALE
+    rng = np.random.default_rng(23)
+    views = []
+    for k in range(PREDICTOR_BATCH):
+        hr = np.load(os.path.join(hr_dir, f"im{k % TRAIN_IMAGES}.npy"))
+        for _ in range(PREDICTOR_VIEWS):
+            top = int(rng.integers(0, hr.shape[0] - side))
+            left = int(rng.integers(0, hr.shape[1] - side))
+            views.append(hr[top:top + side, left:left + side])
+    hr_views = torch.from_numpy(np.stack(views).astype(np.float32) / 255.0).cuda().reshape(
+        PREDICTOR_BATCH, PREDICTOR_VIEWS, side, side, 3)
+    step_losses = []
+
+    def step():
+        db = trainer._assemble_contrastive_batch(trainer._degrade_views({"hr": hr_views}))
+        trainer.model.state, losses = handler.train_batch(trainer.model.state, db)
+        step_losses.append(losses["train-loss"])
+        return db
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, 3, warmup=1, backlog_s=0)
+    peak = torch.cuda.max_memory_allocated()
+    trace = traced(step, "contrastive_step_trace", 1)
+    # one step checked: no host sync, the queue and label queue, the
+    # momentum update
+    mod = handler.module
+    ptr = int(mod.queue_ptr)
+    key_before = [p.detach().clone() for p in mod.key_encoder.parameters()]
+    want_key = [p.detach().clone() for p in mod.key_encoder.parameters()]
+    query = torch.nn.Module()
+    query.p = torch.nn.ParameterList([torch.nn.Parameter(p.detach().clone())
+                                      for p in mod.encoder.parameters()])
+    key = torch.nn.Module()
+    key.p = torch.nn.ParameterList([torch.nn.Parameter(p) for p in want_key])
+    momentum_update(key, query, handler.m)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        db = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    new_ptr = int(mod.queue_ptr)
+    labels_written = torch.equal(mod.queue_labels[ptr:ptr + PREDICTOR_BATCH], db["labels"])
+    momentum_exact = all(torch.equal(a, b.detach()) for a, b in zip(
+        mod.key_encoder.parameters(), key.p))
+    key_moved = not all(torch.equal(a, b) for a, b in zip(mod.key_encoder.parameters(),
+                                                           key_before))
+    fixed_losses = [float(x) for x in step_losses]
+
+    # the packaged encoder, warm-started by name, on the eval set
+    cfg_warm = dict(cfg, no_directories=True)
+    cfg_warm["training"] = dict(cfg["training"], warm_start=PACKAGED_ENCODER)
+    warm = RegressionTrainingHandler(load_config_from(cfg_warm, root, "warm.toml"),
+                                     verbose=False)
+    ce = ContrastiveEval(warm.model.model, warm.model.state, m_map=warm._m_map,
+                         valid=warm._valid, mags=warm._mags, num_classes=warm._num_classes)
+    emb, labels = ce.generate_data_encoding(warm.eval_data)
+    t1 = time.perf_counter()
+    card_scores = clustering_scores(emb, labels)
+    card_scores_s = time.perf_counter() - t1
+    cpu_scores = clustering_scores(emb.cpu(), labels.cpu())
+    score_rel = {k: abs(card_scores[k] - cpu_scores[k]) / max(abs(cpu_scores[k]), 1e-30)
+                 for k in cpu_scores}
+    # the same eval images with the CSV in the JAX offline pipeline's step
+    # order: labelled by the chain's sorted key indices (a fault of both
+    # packages, ROADMAP.md section 3), they fall into other classes
+    cfg_steps = dict(cfg_warm, data=dict(cfg["data"], eval_sets={
+        "data_1": {"lr_dir": eval_lr_steps, "metadata_file": "on_site"}}))
+    steps_run = RegressionTrainingHandler(load_config_from(cfg_steps, root, "steps.toml"),
+                                          verbose=False)
+    ce_steps = ContrastiveEval(steps_run.model.model, steps_run.model.state,
+                               m_map=steps_run._m_map, valid=steps_run._valid,
+                               mags=steps_run._mags, num_classes=steps_run._num_classes)
+    emb_steps, labels_steps = ce_steps.generate_data_encoding(steps_run.eval_data)
+    step_order = {"classes_present": int(torch.unique(labels_steps).numel()),
+                  "same_embeddings": bool(torch.equal(emb_steps, emb)),
+                  "scores_card": clustering_scores(emb_steps, labels_steps)}
+    del steps_run, ce_steps
+    row = {"phase": "contrastive_train", "model": "supmoco dim 256, K 8192, DASR encoder",
+           "card": card, "config": PREDICTOR_CONFIG, "batch": PREDICTOR_BATCH,
+           "crop": PREDICTOR_CROP, "views_an_image": PREDICTOR_VIEWS,
+           "classes": trainer._num_classes, "steps": PREDICTOR_STEPS,
+           "epoch_train_loss": losses, "val_scores": scores, "run_experiment_s": seconds,
+           "contrastive_eval_s": evals,
+           "compute_efficiency": [stats[e]["compute_efficiency"] for e in sorted(stats)],
+           "peak_memory_bytes_run": peak_run,
+           "fixed_batch": {"step_ms": ms,
+                           "views_per_s": PREDICTOR_BATCH * PREDICTOR_VIEWS / (ms / 1e3),
+                           "peak_memory_bytes": peak, "kernels_a_step": trace["kernels_per_call"],
+                           "device_busy_ms_a_step": trace["busy_us"] / 1e3,
+                           "step_idle_share": trace["idle_share"],
+                           "device_us_by_family": trace["per_call_device_us"],
+                           "queue_ptr": [ptr, new_ptr], "label_queue_written": labels_written,
+                           "key_encoder_moved": key_moved,
+                           "momentum_update_bit_identical": momentum_exact,
+                           "losses": fixed_losses, "no_host_sync_in_a_step": True},
+           "packaged_warm_start": {"name": PACKAGED_ENCODER, "eval_images": int(emb.shape[0]),
+                                   "classes_present": int(torch.unique(labels).numel()),
+                                   "scores_card": card_scores, "scores_cpu": cpu_scores,
+                                   "scores_rel_diff": score_rel, "scores_card_s": card_scores_s,
+                                   "step_order_csv": step_order}}
+    print(json.dumps(row), flush=True)
+    if new_ptr != (ptr + PREDICTOR_BATCH) % PREDICTOR_FULL["K"] or not labels_written:
+        raise AssertionError(f"predictor step: queue_ptr {ptr} -> {new_ptr}, labels written "
+                             f"{labels_written}")
+    if not (momentum_exact and key_moved):
+        raise AssertionError(f"predictor step: key encoder moved {key_moved}, by the momentum "
+                             f"update bit for bit {momentum_exact}")
+    if not np.isfinite(fixed_losses).all():
+        raise AssertionError(f"predictor fixed-batch losses {fixed_losses}")
+    if set(card_scores) != set(cpu_scores) or len(cpu_scores) != 3 or max(
+            score_rel.values()) > CLUSTER_RTOL:
+        raise AssertionError(f"clustering scores on the card {card_scores}, CPU {cpu_scores}")
+    del trainer, handler, warm, hr_views
+    torch.cuda.empty_cache()
+    return row, saved
+
+
+def load_config_from(cfg, root, name):
+    """``cfg`` written to ``root/name`` and read back as the trainer reads
+    a config file."""
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    path = os.path.join(root, name)
+    dump_toml(cfg, path)
+    return load_config(path)
+
+
+JOINT_CROP_COUNT = 3
+
+
+def joint_batch(pipe, hr_dir, batch, seed, m_map, valid, mags, classes):
+    """A joint BoBW batch: JOINT_CROP_COUNT HR crops of 192 x 192 an
+    image, degraded in one pass by bench.py's chain with one set of draws
+    an image (crop 0 is the SR and query view, its HR the target), and
+    the images' classes from the port's assign_classes."""
+    from rumpy_tpu_torch.models import contrastive_labelling as cl
+    rng = np.random.default_rng(seed)
+    views = []
+    for k in range(batch):
+        hr = np.load(os.path.join(hr_dir, f"im{k % TRAIN_IMAGES}.npy"))
+        for _ in range(JOINT_CROP_COUNT):
+            top = int(rng.integers(0, hr.shape[0] - HR_SIDE))
+            left = int(rng.integers(0, hr.shape[1] - HR_SIDE))
+            views.append(hr[top:top + HR_SIDE, left:left + HR_SIDE])
+    hr_t = torch.from_numpy(np.stack(views).astype(np.float32) / 255.0).cuda()
+    with torch.no_grad():
+        lr, meta = pipe.degrade_batch(card_generator(seed), hr_t, views=JOINT_CROP_COUNT)
+    mat, _ = pipe.metadata_matrix(meta)
+    labels = cl.assign_classes(mat, m_map, valid, mags, classes)
+    lr = lr.reshape(batch, JOINT_CROP_COUNT, TRAIN_CROP, TRAIN_CROP, 3)
+    hr_t = hr_t.reshape(batch, JOINT_CROP_COUNT, HR_SIDE, HR_SIDE, 3)[:, 0].contiguous()
+    return {"lr": lr, "hr": hr_t, "labels": labels}
+
+
+def bobw_joint_phase(rcab, card, predictor_dir):
+    """Joint BoBW at full width (QRCAN 10x20x64, max_concat with q-layers,
+    pre-q, bf16): combined_loss_mode "supmoco" with a trainable encoder
+    warm-started by load_encoder from the predictor run that
+    contrastive_train wrote, LR crop 48, crop_count 3, K 8192, batch 16 and
+    64: 1 warm-up and 3 steps each, then one step of "moco". Each step:
+    200 forward and 200 backward RCAB launches, the encoder's convs (key
+    forward and pipeline forward) and its running statistics advanced once,
+    the queue and its labels written, finite losses. Returns the row."""
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.models import contrastive_labelling as cl
+    from rumpy_tpu_torch.models.common import BatchNorm
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_joint")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(30))
+    pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+    _, keys = pipe.metadata_matrix(pipe.degrade_batch(
+        card_generator(0), torch.zeros(1, 32, 32, 3, device="cuda"))[1])
+    m_map = {k: i for i, k in enumerate(cl.register_metadata(keys))}
+    valid, mags, classes = cl.partition_metadata(m_map)
+    common = dict(device="cuda", dtype="bf16", lr=1e-4, crop_count=JOINT_CROP_COUNT,
+                  contrastive_K=PREDICTOR_FULL["K"], num_classes=classes,
+                  pre_trained_encoder_weights=predictor_dir, **BOBW_FULL)
+    rcab.launches = rcab.backward_launches = 0
+    rows = []
+    for mode, batches, steps in (("supmoco", JOINT_BATCHES, 3), ("moco", JOINT_BATCHES[:1], 1)):
+        handler = get_model("contrastiveblindqrcan")(combined_loss_mode=mode, **common)
+        state = handler.init_state()
+        mod = handler.module
+        counts = collections.Counter()
+        hooks = [c.register_forward_pre_hook(lambda m, a: counts.update(["encoder_conv"]))
+                 for enc in (mod.encoder, mod.key_encoder) for c in enc.convs]
+        hooks += [m.register_forward_pre_hook(
+            lambda m, a: counts.update(["stats_update"] if len(a) > 1 and a[1]
+                                       and (len(a) < 3 or a[2]) else []))
+            for enc in (mod.encoder, mod.key_encoder) for m in enc.modules()
+            if isinstance(m, BatchNorm)]
+        for b in batches:
+            batch = joint_batch(pipe, hr_dir, b, 31 + b, m_map, valid, mags, classes)
+            losses = []
+
+            def step():
+                nonlocal state
+                state, l = handler.train_batch(state, batch)
+                losses.append(l)
+
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, steps, warmup=1 if steps > 1 else 0, backlog_s=0)
+            peak = torch.cuda.max_memory_allocated()
+            counts.clear()
+            before = (rcab.launches, rcab.backward_launches)
+            ptr = int(mod.queue_ptr)
+            stats0 = [n.running_mean.clone() for n in mod.encoder.norms]
+            step()
+            torch.cuda.synchronize()
+            launches = {"rcab_fused": rcab.launches - before[0],
+                        "rcab_fused_backward": rcab.backward_launches - before[1]}
+            step_counts = dict(counts)
+            new_ptr = int(mod.queue_ptr)
+            stats_moved = sum(not torch.equal(s, n.running_mean)
+                              for s, n in zip(stats0, mod.encoder.norms))
+            labels_ok = (mode != "supmoco" or torch.equal(
+                mod.queue_labels[ptr:ptr + b], batch["labels"]))
+            trace = traced(step, f"bobw_joint_{mode}_{b}_trace", 1) if steps > 1 else None
+            vals = {k: [float(l[k]) for l in losses] for k in losses[0]}
+            row = {"mode": mode, "batch": b, "step_ms": ms,
+                   "hr_megapixels_per_s": b * HR_SIDE ** 2 / 1e6 / (ms / 1e3),
+                   "peak_memory_bytes": peak, "launches_a_step": launches,
+                   "encoder_conv2d_calls_a_step": step_counts.get("encoder_conv", 0),
+                   "encoder_stats_updates_a_step": step_counts.get("stats_update", 0),
+                   "encoder_running_means_moved": stats_moved,
+                   "queue_ptr": [ptr, new_ptr], "label_queue_written": labels_ok,
+                   "losses": vals}
+            if trace is not None:
+                row.update(kernels_a_step=trace["kernels_per_call"],
+                           device_busy_ms_a_step=trace["busy_us"] / 1e3,
+                           step_idle_share=trace["idle_share"],
+                           device_us_by_family=trace["per_call_device_us"])
+            print(json.dumps({"phase": "bobw_joint", "card": card, **row}), flush=True)
+            rows.append(row)
+            if launches != {"rcab_fused": 200, "rcab_fused_backward": 200}:
+                raise AssertionError(f"a joint BoBW step launched {launches}")
+            if (row["encoder_conv2d_calls_a_step"] != 12
+                    or row["encoder_stats_updates_a_step"] != 6 or stats_moved != 6):
+                raise AssertionError(f"a joint BoBW step's encoder: {row}")
+            if new_ptr != (ptr + b) % PREDICTOR_FULL["K"] or not labels_ok:
+                raise AssertionError(f"a joint BoBW step's queue: {row}")
+            if not all(np.isfinite(v).all() for v in vals.values()):
+                raise AssertionError(f"joint BoBW losses {vals}")
+        for h in hooks:
+            h.remove()
+        del handler, state, batch
+        torch.cuda.empty_cache()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    shutil.rmtree(root)
+    return {"phase": "bobw_joint_total", "launches": launches, "rows": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2153,6 +2667,12 @@ def main() -> int:
     bobw_row, bobw_dirs = bobw_train_phase(rcab, card)
     bobw_eval_row = bobw_eval_phase(rcab, card, *bobw_dirs)
     bobw_launches = bobw_row["launches"]
+    rcab_bwd_c128_phase(rcab)
+    _, predictor_dir = contrastive_train_phase(card)
+    joint = bobw_joint_phase(rcab, card, predictor_dir)
+    print(json.dumps(joint), flush=True)
+    shutil.rmtree(os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_contrastive"))
+    joint_launches = joint["launches"]
     per_image = [{k: r[k] for k in (
         "shape", "dtype", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",
         "backward_ms", "shared_form_backward_ms", "backward_plain_ms", "backward_bound_ms",
@@ -2164,7 +2684,8 @@ def main() -> int:
         "replaces": "rumpy_tpu/ops/pallas/rcab_fused.py:73",
         "launches": (serve_launches + train_launches["rcab_fused"]
                      + blind_launches["rcab_fused"] + eval_row["rcab_launches"]
-                     + bobw_launches["rcab_fused"] + bobw_eval_row["rcab_launches"]),
+                     + bobw_launches["rcab_fused"] + bobw_eval_row["rcab_launches"]
+                     + joint_launches["rcab_fused"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
@@ -2173,6 +2694,7 @@ def main() -> int:
         "launches_bobw_training_path": bobw_launches["rcab_fused"],
         "launches_bobw_validation": bobw_launches["rcab_fused_validation"],
         "launches_bobw_eval_path": bobw_eval_row["rcab_launches"],
+        "launches_bobw_joint_path": joint_launches["rcab_fused"],
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -2196,10 +2718,12 @@ def main() -> int:
         "replaces": "rumpy_tpu/ops/pallas/rcab_fused.py:73",
         "launches": (train_launches["rcab_fused_backward"]
                      + blind_launches["rcab_fused_backward"]
-                     + bobw_launches["rcab_fused_backward"]),
+                     + bobw_launches["rcab_fused_backward"]
+                     + joint_launches["rcab_fused_backward"]),
         "launches_training_path": train_launches["rcab_fused_backward"],
         "launches_blind_training_path": blind_launches["rcab_fused_backward"],
         "launches_bobw_training_path": bobw_launches["rcab_fused_backward"],
+        "launches_bobw_joint_path": joint_launches["rcab_fused_backward"],
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

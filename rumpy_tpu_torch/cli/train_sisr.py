@@ -3,7 +3,9 @@
 Port of ``rumpy_tpu/cli/train_sisr.py`` over ``argparse``: loads a TOML
 config, merges CLI overrides, copies the config into the experiment dir
 (versioned as ``config_from_epoch_N.toml`` on resume), and runs the
-experiment on the card (``--device cpu`` for the CPU).
+experiment on the card (``--device cpu`` for the CPU): SR training, or,
+with ``data.task_type = "regression"``, a degradation predictor
+(``training/regression_trainer.py``).
 
     python -m rumpy_tpu_torch.cli.train_sisr -p config.toml
 """
@@ -53,11 +55,11 @@ def main(argv: Optional[Sequence[str]] = None):
 
     task = (cfg.get("data") or {}).get("task_type") or "sisr"
     if task == "regression":
-        raise NotImplementedError(
-            "regression (contrastive predictor) training is not ported yet: "
-            "it comes with the BoBW slice")
-    from rumpy_tpu_torch.training.trainer import TrainingHandler
-    handler = TrainingHandler(cfg, device=args.device)
+        from rumpy_tpu_torch.training.regression_trainer import (
+            RegressionTrainingHandler as Handler)
+    else:
+        from rumpy_tpu_torch.training.trainer import TrainingHandler as Handler
+    handler = Handler(cfg, device=args.device)
 
     # config copy into the experiment dir
     base = handler.model.base_folder

@@ -21,9 +21,13 @@ Besides the image extensions the dataset reads ``.npy`` files holding a
 uint8 (H, W, 3) array, so that it runs where PIL is not installed: PIL is
 imported only when an image file is actually opened.
 
+A ``metadata_file`` (or ``"on_site"``: ``<lr_dir>/degradation_metadata.csv``
+where there is one) gives each item its image's row of degradation
+metadata, read by ``data/metadata.py``, and the set its ``metadata_keys``.
+
 Not ported yet, and raising ``NotImplementedError`` rather than doing
-something else: metadata CSVs and facial attributes, blacklist and
-patch-location CSV files, loss masks, and ``VideoSequenceImages``.
+something else: facial attributes, blacklist and patch-location CSV
+files, loss masks, and ``VideoSequenceImages``.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from rumpy_tpu_torch.config.constants import dataset_splits
+from rumpy_tpu_torch.data.metadata import read_augmentation_list
 from rumpy_tpu_torch.device import resolve_device
 from rumpy_tpu_torch.ops.color_aug import apply_colour_distortion, colour_distortion_draws
 from rumpy_tpu_torch.ops.resize import pil_resize
@@ -130,13 +135,13 @@ class SuperResImages:
             raise ValueError("use_random_colour_distort operates on RGB images "
                              "(the reference distorts the image before any "
                              "colorspace transform)")
-        if metadata_file == "on_site":
+        if metadata_file == "on_site" or (metadata_file is None and metadata and lr_dir):
             # <lr_dir>/degradation_metadata.csv where there is one, as in
             # the JAX package; without one the set carries no metadata
             candidate = os.path.join(lr_dir, "degradation_metadata.csv") if lr_dir else None
             metadata_file = candidate if candidate and os.path.isfile(candidate) else None
-        if metadata_file is not None or attributes_loc is not None:
-            raise _later("metadata CSVs and facial attributes", "the metadata slice")
+        if attributes_loc is not None:
+            raise _later("facial attributes", "the metadata slice")
         if predefined_patch_location:
             raise _later("predefined_patch_location CSV files", "the metadata slice")
         if isinstance(blacklist, str):
@@ -213,11 +218,25 @@ class SuperResImages:
         self.hr_dir = hr_dir
         self.metadata_keys: List[str] = []
         self.metadata_map: Dict[str, np.ndarray] = {}
+        if metadata_file is not None:
+            self.metadata_map, self.metadata_keys = read_augmentation_list(
+                metadata_file, [os.path.basename(f) for f in files],
+                normalize=metadata_normalize,
+                ignore_degradation_location=ignore_degradation_location,
+                qpi_selection=qpi_selection)
+            # QPI filtering may drop images
+            self.lr_files = [f for f in files if os.path.basename(f) in self.metadata_map]
 
     def __len__(self) -> int:
         return len(self.lr_files)
 
     # -- helpers -----------------------------------------------------------
+
+    def _metadata(self, tag: str) -> np.ndarray:
+        """The image's full metadata row (empty without a CSV); a handler
+        selects its columns (``select_metadata``)."""
+        meta = self.metadata_map.get(tag)
+        return meta if meta is not None else np.array([], np.float32)
 
     def _hr_path(self, lr_path: str) -> Optional[str]:
         if self.hr_dir is None:
@@ -405,7 +424,7 @@ class SuperResImages:
                 crops.append(patch)
                 t = self._lap("crop_augment", t)
             out["lr"] = np.stack(crops).astype(np.float32)
-            out["metadata"] = np.array([], np.float32)
+            out["metadata"] = self._metadata(tag)
             out["metadata_keys"] = self.metadata_keys
             return out
 
@@ -432,7 +451,7 @@ class SuperResImages:
         out["lr"] = lr_f.astype(np.float32)
         if hr_f is not None:
             out["hr"] = hr_f.astype(np.float32)
-        out["metadata"] = np.array([], np.float32)
+        out["metadata"] = self._metadata(tag)
         out["metadata_keys"] = self.metadata_keys
         self._lap("crop_augment", t)
         return out

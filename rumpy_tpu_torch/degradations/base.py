@@ -23,6 +23,13 @@ def normalize(value, lo, hi):
     return (value - lo) / (hi - lo)
 
 
+def per_view(t, views: int):
+    """An image's draw repeated for each of its ``views`` consecutive rows
+    of a view stack (image-major: rows i * views ... i * views + views - 1
+    are image i's)."""
+    return t if views == 1 else t.repeat_interleave(views, dim=0)
+
+
 class DegradationOp:
     def get_hyperparams(self) -> Dict[str, Any]:
         raise NotImplementedError
@@ -31,8 +38,11 @@ class DegradationOp:
         raise tools_slice(f"the host path of {type(self).__name__} (one PIL "
                           "image or uint8 array at a time)")
 
-    def batch_apply(self, generator, imgs):
-        """(B, H, W, C) float batch -> (batch, {attribute: (B,) or (B, M)})
-        on the generator's device. Ops without a device path raise."""
+    def batch_apply(self, generator, imgs, views: int = 1):
+        """(B, H, W, C) float batch -> (batch, {attribute: (B / views,) or
+        (B / views, M)}) on the generator's device. With ``views`` the batch
+        is a stack of that many views of each image, image-major, and every
+        draw is made once an image and shared by its views; the metadata
+        has a row an image. Ops without a device path raise."""
         raise NotImplementedError(
             f"{type(self).__name__} has no on-device implementation")

@@ -16,7 +16,7 @@ from typing import Any, Dict
 import torch
 
 from rumpy_tpu_torch.config.constants import blur_kernel_codes
-from rumpy_tpu_torch.degradations.base import DegradationOp, normalize
+from rumpy_tpu_torch.degradations.base import DegradationOp, normalize, per_view
 from rumpy_tpu_torch.ops import blur as blur_ops
 from rumpy_tpu_torch.ops import blur_kernels as bk
 from rumpy_tpu_torch.registry import register_tool
@@ -114,13 +114,13 @@ class RealESRGANBlur(DegradationOp):
                 "kernel_size": full(ks)}
         return kernels, meta
 
-    def batch_apply(self, generator, imgs):
-        b = imgs.shape[0]
+    def batch_apply(self, generator, imgs, views: int = 1):
+        b = imgs.shape[0] // views
         if self.random_selection or not self.specific_params:
             kernels, meta = bk.sample_kernels(generator, b, self.cfg)
         else:
             kernels, meta = self._fixed_kernels(b, imgs.device)
-        out = blur_ops.apply_kernels(imgs, kernels)
+        out = blur_ops.apply_kernels(imgs, per_view(kernels, views))
         meta_out: Dict[str, torch.Tensor] = {}
         if self.request_kernel_metadata:
             meta_out = dict(meta)

@@ -20,7 +20,7 @@ from typing import Any, Dict
 
 import torch
 
-from rumpy_tpu_torch.degradations.base import DegradationOp, normalize
+from rumpy_tpu_torch.degradations.base import DegradationOp, normalize, per_view
 from rumpy_tpu_torch.ops import jpeg as jpeg_ops
 from rumpy_tpu_torch.registry import register_tool
 
@@ -53,9 +53,10 @@ class JPEGCompress(_Codec):
         return {"min_quality": self.compression_range[0],
                 "max_quality": self.compression_range[1]}
 
-    def batch_apply(self, generator, imgs):
-        quality = self._levels(generator, imgs.shape[0], self.quality)
-        return jpeg_ops.jpeg_compress(imgs, quality), {"quality": self._norm(quality)}
+    def batch_apply(self, generator, imgs, views: int = 1):
+        quality = self._levels(generator, imgs.shape[0] // views, self.quality)
+        return (jpeg_ops.jpeg_compress(imgs, per_view(quality, views)),
+                {"quality": self._norm(quality)})
 
 
 @register_tool("jmcompress")
@@ -74,9 +75,10 @@ class JMCompress(_Codec):
         return {"min_qpi": self.compression_range[0],
                 "max_qpi": self.compression_range[1]}
 
-    def batch_apply(self, generator, imgs):
-        qpi = self._levels(generator, imgs.shape[0], self.qpi)
-        return jpeg_ops.h264_intra_compress(imgs, qpi), {"qpi": self._norm(qpi)}
+    def batch_apply(self, generator, imgs, views: int = 1):
+        qpi = self._levels(generator, imgs.shape[0] // views, self.qpi)
+        return (jpeg_ops.h264_intra_compress(imgs, per_view(qpi, views)),
+                {"qpi": self._norm(qpi)})
 
 
 @register_tool("randomcompress")
@@ -91,12 +93,12 @@ class RandomCompress(DegradationOp):
                 "min_qpi": self.jm_class.compression_range[0],
                 "max_qpi": self.jm_class.compression_range[1]}
 
-    def batch_apply(self, generator, imgs):
-        use_jm = torch.rand(imgs.shape[0], generator=generator,
+    def batch_apply(self, generator, imgs, views: int = 1):
+        use_jm = torch.rand(imgs.shape[0] // views, generator=generator,
                             device=generator.device) < 0.5
-        jm_out, jm_meta = self.jm_class.batch_apply(generator, imgs)
-        jp_out, jp_meta = self.jpeg_class.batch_apply(generator, imgs)
-        out = torch.where(use_jm[:, None, None, None], jm_out, jp_out)
+        jm_out, jm_meta = self.jm_class.batch_apply(generator, imgs, views)
+        jp_out, jp_meta = self.jpeg_class.batch_apply(generator, imgs, views)
+        out = torch.where(per_view(use_jm, views)[:, None, None, None], jm_out, jp_out)
         zeros = torch.zeros_like(jm_meta["qpi"])
         return out, {"jm_qpi": torch.where(use_jm, jm_meta["qpi"], zeros),
                      "jpeg_quality": torch.where(use_jm, zeros, jp_meta["quality"])}

@@ -12,7 +12,7 @@ from typing import Any, Dict
 
 import torch
 
-from rumpy_tpu_torch.degradations.base import DegradationOp, normalize
+from rumpy_tpu_torch.degradations.base import DegradationOp, normalize, per_view
 from rumpy_tpu_torch.degradations.blur import pca_slice
 from rumpy_tpu_torch.ops import noise as noise_ops
 from rumpy_tpu_torch.registry import register_tool
@@ -47,12 +47,12 @@ class RealESRGANNoise(DegradationOp):
                 "gaussian_noise_sigma_range": list(self.gaussian_noise_sigma_range),
                 "gray_noise_probability": self.gray_noise_probability}
 
-    def batch_apply(self, generator, imgs):
-        out, meta, _ = self._batch_apply_noise(generator, imgs)
+    def batch_apply(self, generator, imgs, views: int = 1):
+        out, meta, _ = self._batch_apply_noise(generator, imgs, views)
         return out, meta
 
-    def _batch_apply_noise(self, generator, imgs):
-        b = imgs.shape[0]
+    def _batch_apply_noise(self, generator, imgs, views: int = 1):
+        b = imgs.shape[0] // views
         dev = generator.device
         gauss_range = self.gaussian_noise_sigma_range
         poisson_range = self.poisson_noise_scale_range
@@ -81,10 +81,10 @@ class RealESRGANNoise(DegradationOp):
                     raise RuntimeError("gray noise must be 1 or 0, not in between.")
                 gray_p = float(gray)
         g_out, g_meta, g_noise = noise_ops.add_gaussian_noise(
-            generator, imgs, gauss_range, gray_p, return_noise=True)
+            generator, imgs, gauss_range, gray_p, return_noise=True, views=views)
         p_out, p_meta, p_noise = noise_ops.add_poisson_noise(
-            generator, imgs, poisson_range, gray_p, return_noise=True)
-        sel = use_gauss[:, None, None, None]
+            generator, imgs, poisson_range, gray_p, return_noise=True, views=views)
+        sel = per_view(use_gauss, views)[:, None, None, None]
         out = torch.where(sel, g_out, p_out)
         noise = torch.where(sel, g_noise, p_noise)
         zeros = torch.zeros(b, device=dev)

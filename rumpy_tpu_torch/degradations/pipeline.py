@@ -55,14 +55,23 @@ class ImagePipeline:
         return all(type(op).batch_apply is not DegradationOp.batch_apply
                    for op in self.pipeline.values())
 
-    def degrade_batch(self, generator: torch.Generator, hr_batch: torch.Tensor
-                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def degrade_batch(self, generator: torch.Generator, hr_batch: torch.Tensor,
+                      views: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Run the chain on a (B, H, W, C) float batch on the generator's
-        device. Returns (lr_batch, {step-op-attr: (B,) or (B, M) tensors})."""
+        device. Returns (lr_batch, {step-op-attr: (B,) or (B, M) tensors}).
+
+        Multi-view mode (``views`` > 1, for contrastive training): the batch
+        stacks ``views`` crops of each of B / views images, image-major, and
+        the whole stack is degraded in one pass with one set of draws an
+        image, shared by its views (kernel, noise type, level and field,
+        codec and quality; Poisson samples, which follow each view's pixels,
+        excepted). The metadata has a row an image."""
+        if hr_batch.shape[0] % views:
+            raise ValueError(f"a batch of {hr_batch.shape[0]} is not {views} views an image")
         x = hr_batch
         metadata: Dict[str, torch.Tensor] = {}
         for (step, opname), op in self.pipeline.items():
-            x, meta = op.batch_apply(generator, x)
+            x, meta = op.batch_apply(generator, x, views)
             metadata.update({format_metadata_key(step, opname, a): v
                              for a, v in meta.items()})
         return x, metadata

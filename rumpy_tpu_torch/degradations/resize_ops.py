@@ -33,11 +33,11 @@ class _Resize(DegradationOp):
     def _norm(self, s):
         return normalize(s, *self.scale_range) if self.normalize_metadata else s
 
-    def _resized(self, imgs, out_hw):
+    def _resized(self, imgs, out_hw, views: int = 1):
         if self.random_scale:
             raise NotImplementedError(
                 "random_scale produces dynamic shapes; use the host path")
-        b = imgs.shape[0]
+        b = imgs.shape[0] // views
         scale = torch.full((b,), float(self._norm(self.scale)), device=imgs.device)
         return resize_ops.resize_float(imgs, out_hw), scale
 
@@ -51,15 +51,15 @@ class Downsample(_Resize):
         super().__init__(scale, random_scale, scale_range, normalize_metadata, seed)
         self.restrict_metadata = restrict_metadata
 
-    def batch_apply(self, generator, imgs):
+    def batch_apply(self, generator, imgs, views: int = 1):
         _, h, w, _ = imgs.shape
-        out, scale = self._resized(imgs, (h // self.scale, w // self.scale))
+        out, scale = self._resized(imgs, (h // self.scale, w // self.scale), views)
         return out, ({} if self.restrict_metadata else {"scale": scale})
 
 
 @register_tool("upsample")
 class Upsample(_Resize):
-    def batch_apply(self, generator, imgs):
+    def batch_apply(self, generator, imgs, views: int = 1):
         _, h, w, _ = imgs.shape
-        out, scale = self._resized(imgs, (h * self.scale, w * self.scale))
+        out, scale = self._resized(imgs, (h * self.scale, w * self.scale), views)
         return out, {"scale": scale}

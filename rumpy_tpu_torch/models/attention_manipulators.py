@@ -41,7 +41,7 @@ from rumpy_tpu_torch.ops.cuda import rcab_fused as rcab_ops
 from rumpy_tpu_torch.registry import register_model
 
 KERNEL_STYLES = ("standard", "modulate", "max_concat", "mini_concat")
-LATER = "ROADMAP queue 1 item 6b (the rest of the BoBW family)"
+LATER = "ROADMAP queue 1 item 6c (the rest of the BoBW family)"
 
 
 def _later(what: str) -> NotImplementedError:

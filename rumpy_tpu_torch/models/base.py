@@ -320,15 +320,16 @@ class BaseHandler:
         ``state.step``, update. Returns the next state (the same parameter
         tensors, updated in place) and the losses as device scalars."""
         self._use_params(state.params)
-        opt = self.optimizer()
         batch = {k: (torch.as_tensor(v, device=self.device)
                      if k in ("lr", "hr", "mask", "metadata") else v)
                  for k, v in batch.items()}
         if self.input_fn is not None:
             with torch.no_grad():
                 batch = self.input_fn(self.rng, batch)
-        opt.zero_grad(set_to_none=True)
-        with torch.enable_grad():
+        new_extra = state.extra
+
+        def loss_fn():
+            nonlocal new_extra
             sr, aux, new_extra = self.apply(state.params, batch, train=True,
                                             extra=state.extra)
             lbatch = batch
@@ -339,7 +340,22 @@ class BaseHandler:
                 sr = sr * m
                 lbatch = dict(batch)
                 lbatch["hr"] = batch["hr"] * m
-            losses = self.compute_losses(sr, lbatch, aux)
+            return self.compute_losses(sr, lbatch, aux)
+
+        losses = self._optimize(state, batch, loss_fn)
+        new_state = TrainState(step=int(state.step) + 1, params=state.params,
+                               extra=state.extra if new_extra is None else new_extra)
+        return new_state, losses
+
+    def _optimize(self, state: TrainState, batch, loss_fn) -> Dict[str, torch.Tensor]:
+        """The update of one train step: ``loss_fn()`` (losses, its
+        "train-loss" differentiated) under autograd, the gradient hook,
+        clipping, the schedule's lr at ``state.step``, the optimizer step,
+        the update hook. Returns the losses, detached, on the device."""
+        opt = self.optimizer()
+        opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            losses = loss_fn()
             losses["train-loss"].backward()
         named = {k: p for k, p in self.module.named_parameters()
                  if p.grad is not None}
@@ -365,9 +381,7 @@ class BaseHandler:
                     state, batch)
                 for k, p in named.items():
                     p.copy_(before[k] + updates[k])
-        new_state = TrainState(step=int(state.step) + 1, params=state.params,
-                               extra=state.extra if new_extra is None else new_extra)
-        return new_state, {k: v.detach() for k, v in losses.items()}
+        return {k: v.detach() for k, v in losses.items()}
 
     # -- eval --------------------------------------------------------------
 

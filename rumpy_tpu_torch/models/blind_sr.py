@@ -1,8 +1,7 @@
 """Blind SR with a degradation encoder: the Best-of-Both-Worlds (BoBW)
 pipelines.
 
-Port of ``rumpy_tpu/models/blind_sr.py`` for the frozen-encoder pipeline
-and the non-joint trainable-encoder one: an encoder E (``DASREncoder``)
+Port of ``rumpy_tpu/models/blind_sr.py``: an encoder E (``DASREncoder``)
 predicts an embedding of the LR image, an optional reducer MLP shrinks it,
 and a meta-attention generator G(x, embedding) (QRCAN) super-resolves.
 Embedding taps: ``pre-q`` (the pooled features), ``q`` (the projection)
@@ -18,23 +17,41 @@ warm-starts from a trained predictor experiment or a packaged pretrained
 network (``utils/checkpoint.py::resolve_packaged``), its BatchNorm running
 statistics included.
 
-Joint ``moco``/``supmoco`` training, the SFT/SRMD modes and generators
-other than QRCAN raise ``NotImplementedError`` (ROADMAP queue 1 item 6b).
+Joint training (``combined_loss_mode`` ``"moco"`` / ``"supmoco"``): E
+trains with G on ``l1_weight`` x pixel loss + ``contrastive_weight`` x the
+MoCo (or SupMoCo) cross entropy of the query crop against the key crops and
+a queue. The pipeline then also holds the momentum (key) encoder, without
+gradients, and the queue, its pointer and (SupMoCo) its label queue, as
+buffers. A step: the momentum update (from the parameters before the
+step's update), the key forward (batch statistics, running ones left as
+they are), the pipeline's forward, whose encoder pass serves the SR
+embedding and the contrastive query alike (so E's running statistics
+advance once a step, as in the JAX package, which runs E a third time and
+discards that pass's update), the optimizer step over G, E and the
+reducer, and the enqueue, with no host sync. As in the JAX package the key
+encoder is copied from E at initialisation, before a warm start loads E.
+
+The SFT/SRMD modes and generators other than QRCAN raise
+``NotImplementedError`` (ROADMAP queue 1 item 6c).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from rumpy_tpu_torch.models.attention_manipulators import LATER, QRCAN
-from rumpy_tpu_torch.models.base import BaseHandler, TrainState
+from rumpy_tpu_torch.models.base import PIXEL_LOSSES, BaseHandler, TrainState
 from rumpy_tpu_torch.models.common import Linear
-from rumpy_tpu_torch.models.contrastive import DASREncoder
+from rumpy_tpu_torch.models.contrastive import (DASREncoder, _normalize, check_queue_batch,
+                                                device_batch, enqueue, moco_logits,
+                                                momentum_update, softmax_cross_entropy_first)
 from rumpy_tpu_torch.registry import register_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 
@@ -126,10 +143,6 @@ class ContrastiveBlindSRHandler(BaseHandler):
                  contrastive_T=0.07, contrastive_m=0.999, contrastive_K=8192,
                  num_classes=0, l1_weight=1.0, contrastive_weight=1.0,
                  encoder_dim=256, **kwargs):
-        if combined_loss_mode in ("moco", "supmoco"):
-            raise NotImplementedError(
-                f"joint encoder training (combined_loss_mode={combined_loss_mode!r}) "
-                f"is not ported yet ({LATER})")
         if sft_mode or srmd_mode:
             raise NotImplementedError(f"the SFT/SRMD pipeline modes are not ported yet ({LATER})")
         self.embedding_type = embedding_type
@@ -142,14 +155,24 @@ class ContrastiveBlindSRHandler(BaseHandler):
         self.reducer_layer_sizes = (tuple(reducer_layer_sizes)
                                     if reducer_layer_sizes else None)
         self.encoder_dim = encoder_dim
+        self.T = contrastive_T
+        self.m = contrastive_m
+        self.K = contrastive_K
+        self.num_classes = num_classes
+        self.l1_weight = l1_weight
+        self.contrastive_weight = contrastive_weight
         self._generator = generator or self.generator_name
         super().__init__(**kwargs)
         if self.frozen:
             self.module.encoder.requires_grad_(False)
 
     @property
+    def joint(self) -> bool:
+        return self.combined_loss_mode in ("moco", "supmoco")
+
+    @property
     def frozen(self) -> bool:
-        return self.encoder_freeze_mode == "all"
+        return self.encoder_freeze_mode == "all" and not self.joint
 
     @property
     def emb_size(self) -> int:
@@ -172,8 +195,18 @@ class ContrastiveBlindSRHandler(BaseHandler):
                    if self.reducer_layer_sizes else None)
         generator = _build_generator(self._generator, self.scale, self.emb_size,
                                      self.dtype, dict(gen_kwargs))
-        return BlindSRPipeline(generator, encoder, reducer, self.embedding_type,
-                               frozen_encoder=self.frozen)
+        pipeline = BlindSRPipeline(generator, encoder, reducer, self.embedding_type,
+                                   frozen_encoder=self.frozen)
+        if self.joint:
+            pipeline.key_encoder = DASREncoder(
+                dropdown_q=self.encoder_dropdown, out_dim=self.encoder_dim,
+                dtype=self.dtype).requires_grad_(False)
+            pipeline.register_buffer("queue", torch.zeros(self.K, self.encoder_dim))
+            pipeline.register_buffer("queue_ptr", torch.zeros((), dtype=torch.int64))
+            if self.combined_loss_mode == "supmoco":
+                pipeline.register_buffer("queue_labels",
+                                         torch.full((self.K,), -1, dtype=torch.int64))
+        return pipeline
 
     def trainable_parameters(self):
         """The generator's and the reducer's, and the encoder's unless it
@@ -184,6 +217,15 @@ class ContrastiveBlindSRHandler(BaseHandler):
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         state = super().init_state(seed)
+        if self.joint:
+            with torch.no_grad():
+                mod = self.module
+                mod.key_encoder.load_state_dict(mod.encoder.state_dict())
+                gen = torch.Generator().manual_seed((self.seed if seed is None else seed) + 1)
+                mod.queue.copy_(_normalize(torch.randn(mod.queue.shape, generator=gen)))
+                mod.queue_ptr.zero_()
+                if self.combined_loss_mode == "supmoco":
+                    mod.queue_labels.fill_(-1)
         if self.pre_trained_encoder_weights and not self.block_encoder_loading:
             state = self.load_encoder(state, self.pre_trained_encoder_weights)
         return state
@@ -191,22 +233,26 @@ class ContrastiveBlindSRHandler(BaseHandler):
     @torch.no_grad()
     def load_encoder(self, state: TrainState, weights_dir: str, epoch="last") -> TrainState:
         """Warm-start the encoder from a trained predictor experiment or a
-        packaged pretrained network's name: its weights and its BatchNorm
-        running statistics (the checkpoint's ``extra.q_bstats``; without
-        them a frozen encoder would normalise by fresh mean-0/var-1
-        statistics at evaluation)."""
+        packaged pretrained network's name, the JAX package's or the port's
+        own: its weights and its BatchNorm running statistics (without them
+        a frozen encoder would normalise by fresh mean-0/var-1 statistics
+        at evaluation). A JAX checkpoint holds them as ``network`` and
+        ``extra.q_bstats``; a port MoCo-family checkpoint as the
+        ``encoder.*`` entries of its state."""
         from rumpy_tpu_torch.utils.weights import state_dict_from_jax
         weights_dir = ckpt.resolve_packaged(weights_dir)
         ep = ckpt.select_epoch(weights_dir, epoch)
         path = ckpt.checkpoint_path(weights_dir, ep)
-        if ckpt.checkpoint_format(path) != "flax":
-            raise NotImplementedError(
-                f"{path}: encoder checkpoints written by the port's own MoCo-family "
-                f"handlers wait for them ({LATER}); the JAX package's load")
         raw = ckpt.load_checkpoint(path)
-        stats = (raw.get("extra") or {}).get("q_bstats")
         encoder = self.module.encoder
-        sd = state_dict_from_jax(raw["network"], encoder, batch_stats=stats or None)
+        if ckpt.checkpoint_format(path) == "flax":
+            stats = (raw.get("extra") or {}).get("q_bstats")
+            sd = state_dict_from_jax(raw["network"], encoder, batch_stats=stats or None)
+        else:
+            sd = {k[len("encoder."):]: v for k, v in raw["network"].items()
+                  if k.startswith("encoder.")}
+            if not sd:
+                raise ValueError(f"{path}: no encoder.* entries (not a predictor's checkpoint)")
         self._use_params(state.params)
         encoder.load_state_dict({**encoder.state_dict(), **sd})
         if not self.frozen:
@@ -222,7 +268,74 @@ class ContrastiveBlindSRHandler(BaseHandler):
         params = dict(loaded["network"])
         if "frozen_encoder" in extra:
             params["encoder"] = extra["frozen_encoder"]
-        return state_dict_from_jax(params, self.module, batch_stats=extra.get("bstats"))
+        if not self.joint:
+            return state_dict_from_jax(params, self.module, batch_stats=extra.get("bstats"))
+        # joint: the pipeline's subtrees, the key encoder and the queue
+        mod, stats = self.module, extra.get("bstats") or {}
+        sd: Dict[str, torch.Tensor] = {}
+        for name in ("generator", "encoder", "reducer"):
+            if getattr(mod, name) is not None:
+                sub = state_dict_from_jax(params[name], getattr(mod, name),
+                                          batch_stats=stats.get(name))
+                sd.update({f"{name}.{k}": v for k, v in sub.items()})
+        key = state_dict_from_jax(extra["key_params"], mod.key_encoder)
+        sd.update({f"key_encoder.{k}": v for k, v in key.items()})
+        for k, v in mod.key_encoder.state_dict().items():  # statistics unused in JAX
+            sd.setdefault(f"key_encoder.{k}", v)
+        for name in ("queue", "queue_ptr", "queue_labels"):
+            if hasattr(mod, name):
+                sd[name] = torch.as_tensor(np.array(extra[name])).to(getattr(mod, name).dtype)
+        return sd
+
+    # -- joint training ------------------------------------------------------
+
+    def train_batch(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        if not self.joint:
+            return super().train_batch(state, batch)
+        batch = device_batch(batch, self.device)
+        lr = batch["lr"]
+        if "image_key" not in batch and lr.dim() == 5:
+            # a multi-crop stack (B, P, h, w, C): crop 0 is the SR and query
+            # view, crops 1.. the keys
+            batch["lr"] = lr[:, 0]
+            batch["image_key"] = lr[:, 1:].reshape((-1,) + tuple(lr.shape[2:]))
+        return self._joint_step(state, batch)
+
+    def _joint_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        self._use_params(state.params)
+        mod = self.module
+        n = batch["lr"].shape[0]
+        check_queue_batch(self.K, n)
+        labels = (batch["labels"].to(torch.int64)
+                  if self.combined_loss_mode == "supmoco" else None)
+        momentum_update(mod.key_encoder, mod.encoder, self.m)
+        with torch.no_grad():
+            _, k_outs = mod.key_encoder(batch["image_key"].permute(0, 3, 1, 2), train=True,
+                                        update_stats=False)
+            k = _normalize(k_outs["q"])
+        p = (self.crop_count - 1) if self.crop_count else k.shape[0] // n
+        kp = k.reshape(n, p, self.encoder_dim)
+
+        def loss_fn():
+            x = batch["lr"].permute(0, 3, 1, 2)
+            emb, outs = mod.embed(x, train=True)  # E's running statistics advance here only
+            sr = mod.generator(x, emb).permute(0, 2, 3, 1)
+            logits = moco_logits(_normalize(outs["q"]), kp, mod.queue, self.T, labels,
+                                 getattr(mod, "queue_labels", None), max(self.num_classes, 1))
+            ce = softmax_cross_entropy_first(logits)
+            pixel = PIXEL_LOSSES[self.loss_type](sr.float(), batch["hr"].float())
+            total = self.l1_weight * pixel + self.contrastive_weight * ce
+            return {"train-loss": total, "pixel-loss": pixel, "contrastive-loss": ce}
+
+        losses = self._optimize(state, batch, loss_fn)
+        with torch.no_grad():
+            ptr = mod.queue_ptr.clone()
+            enqueue(mod.queue, ptr, kp[:, 0])
+            if labels is not None:
+                enqueue(mod.queue_labels, ptr, labels)
+            mod.queue_ptr.copy_((ptr + n) % self.K)
+        return TrainState(step=int(state.step) + 1, params=state.params,
+                          extra=state.extra), losses
 
     # -- forward -------------------------------------------------------------
 

@@ -129,20 +129,22 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x, train: bool = False):
-        """``train``: normalise by the batch's statistics and update the
-        running ones (flax's ``use_running_average=False``), whatever the
-        module's ``training`` flag."""
+    def forward(self, x, train: bool = False, update: bool = True):
+        """``train``: normalise by the batch's statistics and, with
+        ``update``, update the running ones (flax's
+        ``use_running_average=False``; without ``update`` as flax's with the
+        mutation discarded), whatever the module's ``training`` flag."""
         xf = x.float()
         if train:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if train and update:
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1 - self.momentum) * mean)
                 self.running_var.copy_(self.momentum * self.running_var
                                        + (1 - self.momentum) * var)
-        else:
+        elif not train:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]

@@ -196,11 +196,14 @@ def _forward(x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale):
     return out, workspace, kargs
 
 
-def _backward(dout, x, workspace, kargs, res_scale):
+def _backward(dout, x, workspace, kargs, res_scale, keep=None):
     """Launch the backward kernel; returns the nine gradients, dx in x's
     dtype and the parameters' in float32, each of its input's shape (bd
     and bu per image where they were), and the per-image scale's gradient
-    (N, C) float32, or None without one."""
+    (N, C) float32, or None without one. A ``keep`` dict receives the
+    kernel's own h1 (recomputed, rounded as the forward rounds it) and
+    dh1 (the gradient at conv1's output, after the ReLU), NHWC in x's
+    dtype."""
     global backward_launches
     w1, b1, w2, _, wd, bd, wu, bu, scale = kargs
     n, h, w, c = x.shape
@@ -227,6 +230,8 @@ def _backward(dout, x, workspace, kargs, res_scale):
         torch._C._cuda_getCurrentRawStream(x.device.index))
     _raise_on(err, "backward launch")
     backward_launches += 1
+    if keep is not None:
+        keep.update(h1=h1, dh1=dh1)
     return (dx, *grads, dscale)
 
 

@@ -20,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from rumpy_tpu_torch.degradations.base import per_view
 from rumpy_tpu_torch.device import true_div
 
 
@@ -49,20 +50,30 @@ def apply_gaussian_noise(img: torch.Tensor, sigma: torch.Tensor, gray: torch.Ten
     return out, meta, scaled
 
 
+def _per_image(meta, views: int):
+    return meta if views == 1 else {k: v[::views] for k, v in meta.items()}
+
+
 def add_gaussian_noise(generator: torch.Generator, img: torch.Tensor,
                        sigma_range: Tuple[float, float] = (0.0, 10.0),
                        gray_prob: float = 0.0, clip: bool = True,
-                       return_noise: bool = False):
+                       return_noise: bool = False, views: int = 1):
     """img: (B, H, W, C) in [0, 1]; sigma in 0..255 units, uniform in
     ``sigma_range``; gray noise with probability ``gray_prob``. With
-    ``return_noise`` also returns the scaled noise field."""
-    b = img.shape[0]
+    ``return_noise`` also returns the scaled noise field. With ``views``,
+    ``img`` stacks that many views of each image (image-major) and each
+    image's sigma, gray flag and unit field are drawn once and shared by
+    its views; the metadata has a row an image."""
+    b = img.shape[0] // views
     lo, hi = sigma_range
     sigma = lo + (hi - lo) * _rand(generator, b)
     gray = (_rand(generator, b) < gray_prob).to(img.dtype)
-    noise = torch.randn(img.shape, generator=generator, device=generator.device,
-                        dtype=img.dtype)
-    out, meta, scaled = apply_gaussian_noise(img, sigma, gray, noise, clip)
+    noise = torch.randn((b,) + tuple(img.shape[1:]), generator=generator,
+                        device=generator.device, dtype=img.dtype)
+    out, meta, scaled = apply_gaussian_noise(img, per_view(sigma, views),
+                                             per_view(gray, views),
+                                             per_view(noise, views), clip)
+    meta = _per_image(meta, views)
     return (out, meta, scaled) if return_noise else (out, meta)
 
 
@@ -111,14 +122,19 @@ def apply_poisson_noise(img: torch.Tensor, scale: torch.Tensor, gray: torch.Tens
 def add_poisson_noise(generator: torch.Generator, img: torch.Tensor,
                       scale_range: Tuple[float, float] = (0.0, 1.0),
                       gray_prob: float = 0.0, clip: bool = True,
-                      return_noise: bool = False):
-    b = img.shape[0]
+                      return_noise: bool = False, views: int = 1):
+    """As :func:`add_gaussian_noise`; with ``views`` the scale and the
+    gray flag are shared by an image's views, while the Poisson samples,
+    whose rates are each view's own pixels, are drawn for every view."""
+    b = img.shape[0] // views
     lo, hi = scale_range
     scale = lo + (hi - lo) * _rand(generator, b)
     gray = (_rand(generator, b) < gray_prob).to(img.dtype)
     rates = rounded, gray_img, vals_c, vals_g = poisson_rates(img)
     sample_c = torch.poisson(rounded * vals_c, generator=generator)
     sample_g = torch.poisson(gray_img * vals_g, generator=generator)
-    out, meta, scaled = apply_poisson_noise(img, scale, gray, sample_c, sample_g,
+    out, meta, scaled = apply_poisson_noise(img, per_view(scale, views),
+                                            per_view(gray, views), sample_c, sample_g,
                                             rates, clip)
+    meta = _per_image(meta, views)
     return (out, meta, scaled) if return_noise else (out, meta)

@@ -18,6 +18,7 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.advanced",
     "rumpy_tpu_torch.models.attention_manipulators",
     "rumpy_tpu_torch.models.blind_sr",
+    "rumpy_tpu_torch.models.contrastive",
 ]
 _TOOL_MODULES = [
     "rumpy_tpu_torch.degradations.blur",

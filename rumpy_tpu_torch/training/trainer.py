@@ -241,10 +241,15 @@ class TrainingHandler:
                     "ground truth (add hr_dir to the eval_sets table, or drop "
                     "eval_sets to skip validation)")
             lrs, hrs, metas = batch["lr"], batch["hr"], batch.get("metadata")
+            keys = (batch.get("metadata_keys") or [None])[0]
+            selector = getattr(self.model.model, "select_metadata", None)
             for i in range(len(lrs)):
                 meta = None
                 if metas is not None and np.size(metas[i]):
                     meta = np.asarray(metas[i])
+                    if selector is not None and keys:
+                        # the handler's columns of the CSV row
+                        meta = np.asarray(selector(meta[None], list(keys))[0])
                 lr = np.asarray(lrs[i])
                 tag = batch["tag"][i] if "tag" in batch else f"im{i}"
                 mshape = None if meta is None else meta.shape

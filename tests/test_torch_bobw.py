@@ -239,11 +239,10 @@ def test_jax_bobw_checkpoint_loads_into_port(jax_bobw, tmp_path):
 
 
 def test_bobw_options_of_later_slices_raise():
-    for kw in (dict(combined_loss_mode="moco"), dict(combined_loss_mode="supmoco"),
-               dict(sft_mode=True), dict(srmd_mode=True), dict(generator="qedsr")):
-        with pytest.raises(NotImplementedError, match="item 6b"):
+    for kw in (dict(sft_mode=True), dict(srmd_mode=True), dict(generator="qedsr")):
+        with pytest.raises(NotImplementedError, match="item 6c"):
             torch_model("contrastiveblindqrcan")(device="cpu", **BOBW, **kw)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         torch_model("contrastiveblindqrcan")(device="cpu", **BOBW, style="softmax")
 
 

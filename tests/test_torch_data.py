@@ -189,9 +189,9 @@ def test_data_setup_matches_jax(pairs):
 
 @pytest.mark.parametrize("kw", [
     dict(online_degradations=True, mask_data="masks"),
-    dict(input="interp", metadata_file="degradation_metadata.csv"),
+    dict(input="interp", attributes_loc="attrs.csv"),
     dict(use_random_colour_distort=True, blacklist="blacklist.csv"),
-    dict(metadata_file="degradation_metadata.csv"),
+    dict(metadata_file="degradation_metadata.csv", attributes_loc="attrs.csv"),
     dict(attributes_loc="attrs.csv"), dict(blacklist="blacklist.csv"),
     dict(predefined_patch_location="patches.csv"), dict(mask_data="masks"),
     dict(custom_mask_name="uvtex_mask.png")])
@@ -204,16 +204,24 @@ def test_options_of_later_slices_raise(pairs, kw):
 def test_on_site_metadata_resolves_to_the_lr_folders_csv(pairs, tmp_path):
     """``metadata_file = "on_site"`` means <lr_dir>/degradation_metadata.csv,
     as in the JAX package: without one the set carries no metadata; with
-    one it is a metadata CSV, which is still to be ported."""
+    one every item carries its image's row and the set the CSV's keys."""
     ds = tdata.SuperResImages(lr_dir=pairs["png_lr"], hr_dir=pairs["png_hr"],
                               metadata_file="on_site", device="cpu")
     assert len(ds) > 0 and ds[0]["metadata"].size == 0
     lr = tmp_path / "lr"
     shutil.copytree(pairs["png_lr"], lr)
-    (lr / "degradation_metadata.csv").write_text("image,qpi\n")
-    with pytest.raises(NotImplementedError, match="metadata CSVs"):
-        tdata.SuperResImages(lr_dir=str(lr), hr_dir=pairs["png_hr"],
-                             metadata_file="on_site", device="cpu")
+    names = sorted(os.path.basename(f) for f in tdata.list_images(str(lr)))
+    rows = "".join(f"{n},{20 + 2 * i},{i}\n" for i, n in enumerate(names))
+    (lr / "degradation_metadata.csv").write_text("image,QPI,0-blur-sigma\n" + rows)
+    ds = tdata.SuperResImages(lr_dir=str(lr), hr_dir=pairs["png_hr"],
+                              metadata_file="on_site", device="cpu")
+    assert ds.metadata_keys == ["qpi", "0-blur-sigma"]
+    last = len(names) - 1
+    for i in (0, last):
+        item = ds[i]
+        assert item["metadata_keys"] == ["qpi", "0-blur-sigma"]
+        # QPI pinned to (20, 40), the other column by its min and max
+        np.testing.assert_allclose(item["metadata"], [(2 * i) / 20, i / last], rtol=1e-6)
 
 
 def test_entropy_positions_once_per_item(pairs, monkeypatch):

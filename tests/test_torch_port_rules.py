@@ -105,10 +105,10 @@ def test_port_covers_the_training_modules_and_cli():
 
 def test_port_imports_at_module_level_only_torch_and_numpy_extras():
     """The port must import where only torch and numpy are installed: no
-    PIL, pandas, click, msgpack, matplotlib or triton when a module is
-    imported (PIL is imported inside the function that opens an image
-    file)."""
-    absent = ("PIL", "pandas", "click", "msgpack", "matplotlib", "triton")
+    PIL, pandas, click, msgpack, matplotlib, triton, scikit-learn or umap
+    when a module is imported (PIL is imported inside the function that
+    opens an image file)."""
+    absent = ("PIL", "pandas", "click", "msgpack", "matplotlib", "triton", "sklearn", "umap")
     bad = []
     for p in _port_files():
         for node in ast.parse(p.read_text()).body:
@@ -245,3 +245,60 @@ def test_port_covers_the_bobw_modules():
     missing = [m for m in BOBW_MODULES if m not in names]
     assert not missing, missing
     assert {"qrcan", "contrastiveblindqrcan"} <= set(available_models())
+
+
+PREDICTOR_MODULES = ("models/contrastive_labelling.py", "models/contrastive.py",
+                     "utils/losses.py", "data/metadata.py", "training/regression_trainer.py",
+                     "evaluation/contrastive_eval.py")
+
+
+def test_port_covers_the_predictor_modules():
+    """The predictor slice's modules are in the package (so the import
+    scans above read them) and the registry finds its five handlers."""
+    from rumpy_tpu_torch.registry import available_models
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    missing = [m for m in PREDICTOR_MODULES if m not in names]
+    assert not missing, missing
+    assert {"moco", "supmoco", "weakcon", "supcon", "degradationregressor"} <= set(
+        available_models())
+
+
+@pytest.mark.parametrize("module,functions", [
+    ("models/contrastive.py", ("train_batch", "compute_logits", "enqueue", "enqueue_sides",
+                               "momentum_update", "class_matches", "moco_logits", "extra_losses",
+                               "softmax_cross_entropy_first")),
+    ("models/blind_sr.py", ("train_batch", "_joint_step")),
+    ("training/regression_trainer.py", ("_degrade_views", "_assemble_contrastive_batch"))])
+def test_contrastive_steps_read_nothing_back(module, functions):
+    """A contrastive step (momentum update, key and query forwards, queue
+    contrast, enqueue) and the trainer's view assembly stay on the device:
+    no call in them waits for the card (chip_smoke.py runs the steps under
+    torch.cuda.set_sync_debug_mode("error") as well)."""
+    tree = ast.parse((ROOT / "rumpy_tpu_torch" / module).read_text())
+    fns = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name in functions]
+    assert {f.name for f in fns} == set(functions)
+    bad = [f"{module}:{n.lineno} .{n.func.attr}()" for f in fns for n in ast.walk(f)
+           if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+           and n.func.attr in SYNCING_CALLS]
+    assert not bad, bad
+
+
+def test_predictor_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The predictor handlers and the regression trainer default to the
+    card and raise without it."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("moco", "supmoco", "weakcon", "supcon", "degradationregressor"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            get_model(name)()
+    import numpy as np
+    np.save(tmp_path / "a.npy", np.zeros((64, 64, 3), np.uint8))
+    cfg = {"experiment": "e", "no_directories": True,
+           "data": {"task_type": "regression", "scale": 2, "crop": 16,
+                    "training_sets": {"d": {"lr_dir": str(tmp_path)}}},
+           "model": {"name": "supmoco", "internal_params": {"K": 8, "dim": 32}}}
+    dump_toml(cfg, str(tmp_path / "c.toml"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_sisr.main(["-p", str(tmp_path / "c.toml")])

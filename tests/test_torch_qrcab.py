@@ -189,9 +189,9 @@ UNFOLDABLE = [(dict(style="softmax"), dict(style="softmax")),
                          ids=["softmax", "extended_attention", "pa", "sft_layer"])
 def test_unfoldable_options_raise(block_kw, net_kw):
     """The options the fused kernel cannot absorb raise, naming their item."""
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         tam.QRCAB(C, R, **{"style": "max_concat", **block_kw}, num_metadata=5)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         tam.QRCAN(n_feats=C, n_resgroups=1, n_resblocks=1, reduction=R, num_metadata=5,
                   include_q_layer=True, **{"style": "max_concat", **net_kw})
 

@@ -196,7 +196,7 @@ def test_early_stopping_cleanup_and_epoch_cutoff(tmp_path, dataset):
         "train_model_0", "train_model_1", "train_model_5"]
 
 
-def test_options_of_later_slices_raise(tmp_path, dataset):
+def test_options_of_later_slices_raise(tmp_path, dataset, monkeypatch):
     base = load_config(_write_config(tmp_path / "c.toml", dataset, tmp_path / "out"))
     for table, key, value in (
             ("training", "metrics", ["PSNR", "LPIPS"]),
@@ -207,10 +207,24 @@ def test_options_of_later_slices_raise(tmp_path, dataset):
         cfg[table][key] = value
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TrainingHandler(cfg, verbose=False, device="cpu")
+    # task_type = "regression" goes to the regression trainer, as in the JAX
+    # package's CLI
     base["data"]["task_type"] = "regression"
     dump_toml(base, str(tmp_path / "r.toml"))
-    with pytest.raises(NotImplementedError, match="regression"):
+    from rumpy_tpu_torch.training import regression_trainer
+    routed = []
+
+    class Routed(Exception):
+        pass
+
+    def handler(cfg, **kw):
+        routed.append((cfg["data"]["task_type"], kw))
+        raise Routed
+
+    monkeypatch.setattr(regression_trainer, "RegressionTrainingHandler", handler)
+    with pytest.raises(Routed):
         train_sisr.main(["-p", str(tmp_path / "r.toml"), "--device", "cpu"])
+    assert routed == [("regression", {"device": "cpu"})]
     # without eval sets, eval returns nothing, as in the JAX package
     h = TrainingHandler(load_config(str(tmp_path / "c.toml")), verbose=False,
                         device="cpu")
