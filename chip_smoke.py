@@ -46,7 +46,24 @@ seeded random weights):
   the card beside the CPU's (``contrastive_train``); and joint BoBW
   (``contrastiveblindqrcan``, ``combined_loss_mode`` "supmoco" at batch 16
   and 64, then "moco"), its trainable encoder loaded from that run, 200
-  forward and 200 backward RCAB launches a step (``bobw_joint``).
+  forward and 200 backward RCAB launches a step (``bobw_joint``);
+* the metadata-conditioned family: examples/train_qrcan_meta_attention.toml
+  (QRCAN on the chain's sigma_x, sigma_y and kernel_type, on the RCAB
+  kernels) through ``cli.train_sisr`` and ``cli.eval_sisr
+  --metadata_file`` on eval pairs degraded on the card with a
+  degradation_metadata.csv written here, an EvalHub run with one fetch an
+  image under sync debug mode "error", and the trainer's metadata matrix
+  against the CSV's (``meta_attention``); contrastiveblindqedsr,
+  contrastiveblindqrcan in srmd_mode (on the kernels) and in sft_mode (the
+  plain route), and the softmax and extended_attention QRCAN styles beside
+  max_concat (``bobw_family``); SRMD, EDSRMD and SFTMD on PCA blur-kernel
+  metadata of srmdgaussianblur through both CLIs (``metadata_maps``); a
+  measurement of the bf16 backward's sums over an image against f32 at the
+  train shape and at 1x339x510 (``rcab_bwd_f32_sums``, no gate);
+* every RCAB kernel launch of the run, recorded by shape, dtype, direction
+  and which gate inputs are per image: each one that no phase held against
+  the plain version is held after the paths, in the directions launched,
+  and the script fails on any still not held (``launch_coverage``).
 
 It checks that every RCAB forward and backward and every patch selection
 went through the kernels (launch counts set to 0 before a path and read
@@ -128,11 +145,27 @@ RCAN_FULL = dict(scale=4, n_feats=64, n_resgroups=10, n_resblocks=20,
 # RCAB's input in a train step: batch 16 of 48x48 LR crops.
 TRAIN_BATCH, TRAIN_CROP = 16, 48
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, RCAN_FULL["n_feats"])
-# The evaluation path's RCAB shapes, unpadded (RCAN's size_multiple is 1):
-# one DIV2K x4 LR image, 172,890 pixels; a validation chunk of four of them;
-# the odd Set5 LR shape.
+# Eval pairs: four at the DIV2K x4 sizes (339x510, 172,890 pixels) and one
+# at each Set5 x4 LR shape. eval_sisr runs each image alone; validation
+# buckets them by shape, chunks of up to VAL_CHUNK: one forward for the four
+# DIV2K images and one for each Set5 image.
 DIV2K_LR = (339, 510)
-EVAL_SHAPES = [(1, *DIV2K_LR, 64), (4, *DIV2K_LR, 64), (1, 86, 57, 64)]
+EVAL_DIV2K, VAL_CHUNK = 4, 8
+EVAL_LR_SHAPES = [DIV2K_LR] * EVAL_DIV2K + SET5_X4_LR
+
+
+def eval_path_shapes():
+    """RCAB's input shapes on the evaluation path, unpadded (RCAN's and
+    QRCAN's size_multiple is 1): every (N, H, W) that eval_sisr (N = 1) and
+    validation's chunks launch, in EVAL_LR_SHAPES' order."""
+    shapes = []
+    for (h, w), k in collections.Counter(EVAL_LR_SHAPES).items():
+        chunks = {min(VAL_CHUNK, k - i) for i in range(0, k, VAL_CHUNK)}
+        shapes += [(n, h, w, RCAN_FULL["n_feats"]) for n in sorted(chunks | {1})]
+    return shapes
+
+
+EVAL_SHAPES = eval_path_shapes()
 # Kernel shapes beside the serving path's: the train step's, the eval
 # path's, and other channel counts, one of them (C=24) on the CUDA-core pass
 # in bf16.
@@ -265,7 +298,7 @@ def kernel_phase(rcab):
     main_shapes = main_path_shapes()
     main_shape = max(main_shapes, key=lambda s: s[1] * s[2])
     rows, main, train, evals = [], None, None, []
-    for i, shape in enumerate(main_shapes + EXTRA_SHAPES):
+    for i, shape in enumerate(dict.fromkeys(main_shapes + EXTRA_SHAPES)):
         for dtype in (torch.float32, torch.bfloat16):
             args = rcab_inputs(shape, dtype, seed=i)
             for res_scale in (1.0, 0.5):
@@ -308,6 +341,7 @@ def kernel_phase(rcab):
                         and (shape in main_shapes or shape == TRAIN_SHAPE)
                         and plan["blocks"] < plan["sms"]):
                     raise AssertionError(f"rcab_fused's conv passes do not fill the SMs: {row}")
+                CHECKED["forward"].add(launch_key(args[0], args[6], args[8], None))
                 rows.append(row)
                 if dtype == torch.bfloat16 and res_scale == 1.0:
                     if shape == main_shape:
@@ -317,6 +351,71 @@ def kernel_phase(rcab):
                     if shape in EVAL_SHAPES:
                         evals.append(row)
     return main, train, evals, max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+
+
+# Every RCAB kernel launch of the run by direction and launch_key, and the
+# keys that a comparison phase held against the plain version. The script
+# fails if a launch's key was never held (launch_coverage).
+LAUNCHED = {"forward": set(), "backward": set()}
+CHECKED = {"forward": set(), "backward": set()}
+RECORDING = [True]
+
+
+def launch_key(x, bd, bu, scale):
+    """A launch's shape, dtype and form: whether bd, bu and the scale are
+    per image."""
+    return (tuple(x.shape), str(x.dtype).split(".")[-1], bd.dim() == 2, bu.dim() == 2,
+            scale is not None)
+
+
+def record_launches(rcab):
+    """Wraps the wrapper's two launch functions to add each launch's key to
+    LAUNCHED; the launch counts stay the wrapper's own."""
+    fwd, bwd = rcab._forward, rcab._backward
+
+    def forward(x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale):
+        if RECORDING[0]:
+            LAUNCHED["forward"].add(launch_key(x, bd, bu, scale))
+        return fwd(x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale)
+
+    def backward(dout, x, workspace, kargs, res_scale, keep=None):
+        if RECORDING[0]:
+            LAUNCHED["backward"].add(launch_key(x, kargs[5], kargs[7], kargs[8]))
+        return bwd(dout, x, workspace, kargs, res_scale, keep)
+
+    rcab._forward, rcab._backward = forward, backward
+
+
+@contextlib.contextmanager
+def unrecorded():
+    """Launches of a check that holds only part of a result (the
+    gradients held against f32) are no launched shape of a path."""
+    RECORDING[0] = False
+    try:
+        yield
+    finally:
+        RECORDING[0] = True
+
+
+def launch_coverage_phase(rcab):
+    """Holds each shape, dtype and form that the run launched and no phase
+    held (qrcab_check, in the directions that were launched: the paths'
+    own shapes and the forwards under rcab_bwd_phase's backwards), then
+    fails where any launch's key is still not held. Returns the added
+    rows."""
+    todo = sorted({k for d in LAUNCHED for k in LAUNCHED[d] - CHECKED[d]})
+    rows = [qrcab_check(rcab, shape, getattr(torch, dtype), 450 + i, tuple(form),
+                        backward=(shape, dtype, *form) in LAUNCHED["backward"],
+                        phase="launch_coverage_check")
+            for i, (shape, dtype, *form) in enumerate(todo)]
+    unchecked = {d: sorted(LAUNCHED[d] - CHECKED[d]) for d in LAUNCHED}
+    print(json.dumps({"phase": "launch_coverage", "held_after_the_paths": todo,
+                      "launched": {d: sorted(v) for d, v in LAUNCHED.items()},
+                      "unchecked": unchecked}), flush=True)
+    if any(unchecked.values()):
+        raise AssertionError(f"rcab kernels launched at shapes never held against "
+                             f"their plain versions: {unchecked}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -744,6 +843,7 @@ def rcab_bwd_phase(rcab):
                     raise AssertionError(
                         f"rcab backward on the tensor cores is no faster than its plain "
                         f"version at {shape}: {row['ms']} ms against {row['plain_ms']} ms")
+                CHECKED["backward"].add(launch_key(args[0], args[6], args[8], None))
     return main
 
 
@@ -756,16 +856,20 @@ C128_FACTOR = 2.0
 F32_UNIT = 2.0 ** -24
 
 
-def c128_f32_dw1(args, dout, scale, mask=None):
-    """dw1 of the block in float32 from the bf16-valued ``args`` (h1 not
-    rounded), with the ReLU's derivative taken from ``mask`` (N, C, H, W)
-    where given, else from the sign of conv1's float32 output; and that
-    output."""
+GRADS_VS_F32 = (("dw1", 1), ("db1", 2), ("dw2", 3))  # name, index in the kernel's tuple
+
+
+def f32_grads(args, dout, scale, mask=None):
+    """dw1, db1 and dw2 of the block in float32 from the bf16-valued
+    ``args`` (h1 not rounded), with the ReLU's derivative taken from
+    ``mask`` (N, C, H, W) where given, else from the sign of conv1's
+    float32 output; and that output."""
     import torch.nn.functional as F
     x, w1, b1, w2, b2, wd, bd, wu, bu = [a.detach().float() for a in args]
     c = x.shape[-1]
     with torch.enable_grad():
-        w1.requires_grad_(True)
+        for t in (w1, b1, w2):
+            t.requires_grad_(True)
         k1 = w1.reshape(3, 3, c, c).permute(3, 2, 0, 1)
         xc = x.permute(0, 3, 1, 2)
         pre = F.conv2d(xc, k1, padding=1) + b1[:, None, None]
@@ -776,29 +880,104 @@ def c128_f32_dw1(args, dout, scale, mask=None):
         u = torch.sigmoid(torch.relu(gap @ wd + bd) @ wu + bu)
         s = scale.float()[:, :, None, None] if torch.is_tensor(scale) else scale
         y = h2 * u[:, :, None, None] * s + xc
-        dw1, = torch.autograd.grad(y, [w1], dout.float().permute(0, 3, 1, 2))
-    return dw1, pre.detach()
+        grads = torch.autograd.grad(y, [w1, b1, w2], dout.float().permute(0, 3, 1, 2))
+    return dict(zip(("dw1", "db1", "dw2"), grads)), pre.detach()
+
+
+def emulated_sums(args, dout, scale, split):
+    """db1 and dw2 as the bf16 backward kernel forms them, in plain float32
+    ops: dh2 = dout * u * s + dgap / HW rounded to bf16 before conv2's
+    transposed conv and dw2, and dh1 rounded after the ReLU mask. With
+    ``split`` only dout * u * s is rounded and the constant dgap / HW
+    enters both products exactly: the repair that ROADMAP.md section 3
+    queues."""
+    import torch.nn.functional as F
+    x, w1, b1, w2, b2, wd, bd, wu, bu = [a.detach().float() for a in args]
+    c = x.shape[-1]
+    pre = F.conv2d(x.permute(0, 3, 1, 2), w1.reshape(3, 3, c, c).permute(3, 2, 0, 1),
+                   padding=1) + b1[:, None, None]
+    mask = (pre > 0).float()
+    with torch.enable_grad():
+        h1 = (pre * mask).bfloat16().float().requires_grad_(True)
+        k2 = w2.reshape(3, 3, c, c).permute(3, 2, 0, 1).requires_grad_(True)
+        h2 = F.conv2d(h1, k2, padding=1) + b2[:, None, None]
+        u = torch.sigmoid(torch.relu(h2.mean(dim=(2, 3)) @ wd + bd) @ wu + bu)
+        g = dout.float().permute(0, 3, 1, 2) * (u * scale.float())[:, :, None, None]
+        dh2, = torch.autograd.grad(h2 * (u * scale.float())[:, :, None, None], [h2],
+                                   dout.float().permute(0, 3, 1, 2), retain_graph=True)
+        dh2 = dh2.detach()
+        if split:
+            fed, exact = g.detach().bfloat16().float(), dh2 - g.detach()
+        else:
+            fed, exact = dh2.bfloat16().float(), None
+        dh1, dw2 = torch.autograd.grad(h2, [h1, k2], fed, retain_graph=exact is not None)
+        if exact is not None:
+            e1, e2 = torch.autograd.grad(h2, [h1, k2], exact)
+            dh1, dw2 = dh1 + e1, dw2 + e2
+    db1 = (dh1 * mask).bfloat16().float().sum(dim=(0, 2, 3))
+    return {"db1": db1, "dw2": dw2.permute(2, 3, 1, 0).reshape(9, c, c)}
+
+
+def bwd_against_f32(rcab, args, scale, dout):
+    """One bf16 backward of the kernel and of the plain version, each
+    against the f32 gradient of the same bf16-valued inputs (h1
+    unrounded), for dw1, db1 and dw2, relative to the f32 gradient's
+    largest entry. A ReLU tie, an h1 pre-activation whose float64 value
+    lies within the float32 rounding bound of its 9C + 1 terms (gamma *
+    sum |terms|) of zero, may fall either way: two sum orders put it on
+    different sides, and its whole gradient then enters the sums or not.
+    So each version is held against the f32 gradient with its own ReLU
+    mask (the kernel's from its own h1: ``rel_err``); ``rel_err_vs_f32_mask``
+    holds the kernel to f32's mask. Also the kernel's mask bits that differ
+    from float64's sign, and how many of them are ties."""
+    import torch.nn.functional as F
+    c = args[0].shape[3]
+    gamma = (9 * c + 1) * F32_UNIT / (1 - (9 * c + 1) * F32_UNIT)
+    res = 1.0 if scale is None else scale
+    _, workspace, kargs = rcab._forward(*args, scale, 1.0)
+    keep = {}
+    kernel = rcab._backward(dout, args[0], workspace, kargs, 1.0, keep=keep)
+    plain = rcab.rcab_backward_reference(dout, *args, res_scale=res)
+    ref, pre32 = f32_grads(args, dout, res)
+    mask_k = keep["h1"].permute(0, 3, 1, 2).float() > 0
+    ref_k, _ = f32_grads(args, dout, res, mask_k)
+    x64 = args[0].double().permute(0, 3, 1, 2)
+    k64 = args[1].double().reshape(3, 3, c, c).permute(3, 2, 0, 1)
+    pre64 = F.conv2d(x64, k64, padding=1) + args[2].double()[:, None, None]
+    bound = gamma * (F.conv2d(x64.abs(), k64.abs(), padding=1)
+                     + args[2].double().abs()[:, None, None])
+    flips = mask_k != (pre64 > 0)
+    ties = flips & (pre64.abs() <= bound)
+    err, raw = {}, {}
+    for name, i in GRADS_VS_F32:
+        ref_max = ref[name].abs().max().item()
+        plain_err = (plain[i].float() - ref[name]).abs().max().item() / ref_max
+        err[name] = {"kernel": (kernel[i].float() - ref_k[name]).abs().max().item() / ref_max,
+                     "plain_bf16": plain_err}
+        raw[name] = {"kernel": (kernel[i].float() - ref[name]).abs().max().item() / ref_max,
+                     "plain_bf16": plain_err}
+    at = torch.nonzero(flips)[:4].tolist()
+    return {"rel_err": err, "rel_err_vs_f32_mask": raw,
+            "kernel_mask_flips": int(flips.sum().item()),
+            "of_them_ties": int(ties.sum().item()),
+            "f32_mask_flips": int(((pre32 > 0) != (pre64 > 0)).sum().item()),
+            "flips_at": [{"nchw": i, "pre_f64": pre64[tuple(i)].item(),
+                          "tie_bound": bound[tuple(i)].item()} for i in at]}
+
+
+def ratio(r, name):
+    e = r["rel_err"][name]
+    return e["kernel"] / max(e["plain_bf16"], 1e-30)
 
 
 def rcab_bwd_c128_phase(rcab):
-    """The bf16 backward at C = 128 against an f32 gradient: for
-    C128_DRAWS input draws, in the shared and the per-image form, dw1 from
-    the kernel and from the bf16 plain version, each against the f32
-    gradient of the same bf16-valued inputs (h1 unrounded). A ReLU tie, an
-    h1 pre-activation whose float64 value lies within the float32 rounding
-    bound of its 9C + 1 terms (gamma * sum |terms|) of zero, may fall
-    either way: two sum orders put it on different sides, and its whole
-    gradient then enters dw1 or not. So each version is held against the
-    f32 gradient with its own ReLU mask (the kernel's from its own h1); a
-    mask bit of the kernel that differs from float64's sign anywhere but
-    at a tie fails, and so does a kernel that stands more than C128_FACTOR
-    times as far off as the plain version. Prints, per draw, both errors
-    against the ReLU-tie-aware references and against the plain f32
-    gradient, and the ties. Returns the rows."""
-    import torch.nn.functional as F
+    """The bf16 backward at C = 128 against an f32 gradient
+    (bwd_against_f32): for C128_DRAWS input draws, in the shared and the
+    per-image form. Fails where a mask bit of the kernel differs from
+    float64's sign anywhere but at a tie, or where the kernel's dw1 stands
+    more than C128_FACTOR times as far off as the plain version's. Returns
+    the rows."""
     rows = []
-    c = C128_SHAPE[3]
-    gamma = (9 * c + 1) * F32_UNIT / (1 - (9 * c + 1) * F32_UNIT)
     for form in ("shared", "per_image"):
         for draw in range(C128_DRAWS):
             seed = 700 + draw
@@ -808,40 +987,11 @@ def rcab_bwd_c128_phase(rcab):
                 args, scale = qrcab_inputs(C128_SHAPE, torch.bfloat16, seed)
             g = torch.Generator().manual_seed(seed + 50)
             dout = torch.randn(*C128_SHAPE, generator=g).cuda().to(torch.bfloat16)
-            _, workspace, kargs = rcab._forward(*args, scale, 1.0)
-            keep = {}
-            kernel = rcab._backward(dout, args[0], workspace, kargs, 1.0, keep=keep)[1]
-            plain = rcab.rcab_backward_reference(
-                dout, *args, res_scale=1.0 if scale is None else scale)[1]
-            ref, pre32 = c128_f32_dw1(args, dout, 1.0 if scale is None else scale)
-            mask_k = keep["h1"].permute(0, 3, 1, 2).float() > 0
-            ref_k, _ = c128_f32_dw1(args, dout, 1.0 if scale is None else scale, mask_k)
-            x64 = args[0].double().permute(0, 3, 1, 2)
-            k64 = args[1].double().reshape(3, 3, c, c).permute(3, 2, 0, 1)
-            pre64 = F.conv2d(x64, k64, padding=1) + args[2].double()[:, None, None]
-            bound = gamma * (F.conv2d(x64.abs(), k64.abs(), padding=1)
-                             + args[2].double().abs()[:, None, None])
-            flips = mask_k != (pre64 > 0)
-            ties = flips & (pre64.abs() <= bound)
-            ref_max = ref.abs().max().item()
-            err = {"kernel": (kernel.float() - ref_k).abs().max().item() / ref_max,
-                   "plain_bf16": (plain.float() - ref).abs().max().item() / ref_max}
-            raw = {"kernel": (kernel.float() - ref).abs().max().item() / ref_max,
-                   "plain_bf16": err["plain_bf16"]}
-            at = torch.nonzero(flips)[:4].tolist()
+            r = bwd_against_f32(rcab, args, scale, dout)
             row = {"phase": "rcab_bwd_c128", "shape": C128_SHAPE, "form": form,
-                   "draw": draw, "dw1_rel_err": err,
-                   "ratio": err["kernel"] / max(err["plain_bf16"], 1e-30),
-                   "factor": C128_FACTOR, "dw1_rel_err_vs_f32_mask": raw,
-                   "ratio_vs_f32_mask": raw["kernel"] / max(raw["plain_bf16"], 1e-30),
-                   "kernel_mask_flips": int(flips.sum().item()),
-                   "of_them_ties": int(ties.sum().item()),
-                   "f32_mask_flips": int(((pre32 > 0) != (pre64 > 0)).sum().item()),
-                   "flips_at": [{"nchw": i, "pre_f64": pre64[tuple(i)].item(),
-                                 "tie_bound": bound[tuple(i)].item()} for i in at]}
+                   "draw": draw, "ratio": ratio(r, "dw1"), "factor": C128_FACTOR, **r}
             print(json.dumps(row), flush=True)
             rows.append(row)
-            del workspace, kargs, keep
     torch.cuda.empty_cache()
     faults = [r for r in rows if r["kernel_mask_flips"] != r["of_them_ties"]]
     if faults:
@@ -851,6 +1001,50 @@ def rcab_bwd_c128_phase(rcab):
     if worst["ratio"] > C128_FACTOR:
         raise AssertionError(f"rcab backward: dw1 at C = 128 stands {worst['ratio']} times as "
                              f"far from f32 as the bf16 plain version: {worst}")
+    return rows
+
+
+# The bf16 backward's sums over an image against f32: at the train shape
+# (2,304 pixels an image) and at a DIV2K x4 image's 172,890 pixels, where no
+# path runs the backward. bd and the scale per image with bu shared
+# (max_concat with q-layers) and all three per image; qrcab_check's seeds
+# from 455 on (455 with the first form: db1 at 0.0200 of its largest entry
+# from the plain version's at 1x339x510, tolerance 2**-6).
+F32_SUM_SHAPES = (TRAIN_SHAPE, (1, *DIV2K_LR, 64))
+F32_SUM_SEEDS = (455, 456, 457)
+MAX_CONCAT_Q = (True, False, True)
+
+
+def rcab_bwd_f32_sums_phase(rcab):
+    """A measurement, no gate: dw1, db1 and dw2 of the bf16 backward
+    kernel and of the bf16 plain version against an f32 gradient
+    (bwd_against_f32) at F32_SUM_SHAPES, the F32_SUM_SEEDS draws of
+    qrcab_check in two forms. The kernel rounds dh2 = dout * u * s +
+    dgap / HW to bf16 before conv2's transposed conv and dw2; the constant
+    dgap / HW falls below half a bf16 ulp of dout * u * s as HW grows, so
+    its share of db1 and dw2 is lost (ROADMAP.md section 3). Beside them,
+    emulated_sums' errors: rounded as the kernel rounds, and split. Returns
+    the rows."""
+    rows = []
+    for shape in F32_SUM_SHAPES:
+        for form in (MAX_CONCAT_Q, ALL_PER_IMAGE):
+            for seed in F32_SUM_SEEDS:
+                args, scale = qrcab_inputs(shape, torch.bfloat16, seed, form)
+                dout = torch.randn(*shape, generator=torch.Generator().manual_seed(
+                    seed + 100)).cuda().to(torch.bfloat16)
+                r = bwd_against_f32(rcab, args, scale, dout)
+                ref, _ = f32_grads(args, dout, scale)
+                r["emulated_rel_err"] = {
+                    mode: {n: ((v - ref[n]).abs().max() / ref[n].abs().max()).item()
+                           for n, v in emulated_sums(args, dout, scale, mode == "split").items()}
+                    for mode in ("rounded", "split")}
+                row = {"phase": "rcab_bwd_f32_sums", "shape": shape,
+                       "per_image": [k for k, on in zip(("bd", "bu", "scale"), form) if on],
+                       "seed": seed, "ratios": {n: ratio(r, n) for n, _ in GRADS_VS_F32},
+                       **r}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -1187,12 +1381,8 @@ BENCH_KEYS = [
 EXAMPLE_CONFIG = os.path.join("examples", "train_rcan_blind_x4.toml")
 DEGRADE_STEPS, DEGRADE_SETS = 4, 4
 BLIND_EXP = "rcan_x4_blind"
-# Eval pairs: four at the DIV2K x4 sizes and one at each Set5 x4 LR shape.
-# Validation buckets them by shape, chunks of up to 8: one forward for the
-# four DIV2K images and one for each Set5 image.
-EVAL_DIV2K = 4
-EVAL_LR_SHAPES = [DIV2K_LR] * EVAL_DIV2K + SET5_X4_LR
-VALIDATION_FORWARDS = sum(-(-n // 8) for n in collections.Counter(EVAL_LR_SHAPES).values())
+VALIDATION_FORWARDS = sum(-(-n // VAL_CHUNK)
+                          for n in collections.Counter(EVAL_LR_SHAPES).values())
 
 
 def card_generator(seed: int) -> torch.Generator:
@@ -1873,55 +2063,94 @@ QRCAB_SHAPES = [((BOBW_BENCH_BATCH, TRAIN_CROP, TRAIN_CROP, 64), torch.bfloat16)
                 (TRAIN_SHAPE, torch.float32)]
 QRCAB_SHAPES += [((n, TRAIN_CROP, TRAIN_CROP, 64), torch.bfloat16) for n in JOINT_BATCHES
                  if (n, TRAIN_CROP, TRAIN_CROP, 64) not in [sh for sh, _ in QRCAB_SHAPES]]
+# the per-image form's other eval shapes (meta-attention and BoBW runs):
+# validation's chunk of four DIV2K images and each Set5 image
+QRCAB_SHAPES += [(s, torch.bfloat16) for s in EVAL_SHAPES
+                 if (s, torch.bfloat16) not in QRCAB_SHAPES]
 QRCAB_GRAD_NAMES = GRAD_NAMES + ["dscale"]
 
 
-def qrcab_inputs(shape, dtype, seed):
-    """rcab_inputs with a QRCAB's per-image gate inputs: bd (N, R) as
-    max_concat makes it, bu (N, C) as mini_concat does, and a q-layer's
-    sigmoid gate (N, C) in (0, 1) as the scale."""
+# A launch's per-image gate inputs (bd, bu, scale): all three here; the
+# styles launch others (max_concat with a q-layer: bd and the scale;
+# mini_concat: bu; modulate: the scale), which launch_coverage_phase holds
+# where a path launched them.
+ALL_PER_IMAGE = (True, True, True)
+
+
+def qrcab_inputs(shape, dtype, seed, form=ALL_PER_IMAGE):
+    """rcab_inputs with a QRCAB's per-image gate inputs where ``form``
+    says: bd (N, R) as max_concat makes it, bu (N, C) as mini_concat does,
+    and a q-layer's sigmoid gate (N, C) in (0, 1) as the scale (else
+    None)."""
     n, _, _, c = shape
     args = rcab_inputs(shape, dtype, seed)
     r = args[5].shape[1]
     g = torch.Generator().manual_seed(seed + 1)
-    args[6] = (args[6].cpu() + 0.3 * torch.randn(n, r, generator=g)).cuda()
-    args[8] = (args[8].cpu() + 0.3 * torch.randn(n, c, generator=g)).cuda()
+    bd = (args[6].cpu() + 0.3 * torch.randn(n, r, generator=g)).cuda()
+    bu = (args[8].cpu() + 0.3 * torch.randn(n, c, generator=g)).cuda()
     scale = torch.sigmoid(torch.randn(n, c, generator=g)).cuda()
-    return args, scale
+    if form[0]:
+        args[6] = bd
+    if form[1]:
+        args[8] = bu
+    return args, (scale if form[2] else None)
 
 
-def qrcab_kernel_phase(rcab):
-    """The forward and backward kernels with per-image bd, bu and scale at
-    QRCAB_SHAPES against their plain versions, two runs bit for bit, and the
-    ms of a call beside the shared form's at the same shape and the bound.
-    Returns the rows."""
-    rows = []
-    for i, (shape, dtype) in enumerate(QRCAB_SHAPES):
-        args, scale = qrcab_inputs(shape, dtype, seed=400 + i)
-        ref = rcab.rcab_reference(*args, res_scale=scale)
-        got = rcab.rcab_fused(*args, res_scale=scale)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs().max().item()
-        tol = (F32_ATOL if dtype == torch.float32
-               else BF16_REL_ULP * ref.float().abs().max().item())
-        runs = [rcab._forward(*args, scale, 1.0)[:2] for _ in range(2)]
-        fwd_identical = all(torch.equal(a, b) for a, b in zip(*runs))
-        del runs, ref, got
+def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
+                phase="qrcab_kernel"):
+    """The forward kernel, and with ``backward`` the backward kernel, with
+    the gate inputs of ``form`` (per image or shared) at one shape against
+    their plain versions, two runs bit for bit, and the ms of a call beside the shared
+    form's at the same shape and the bound. Marks the shape, dtype and form
+    held in those directions. Returns the row (backward numbers None
+    without ``backward``)."""
+    args, scale = qrcab_inputs(shape, dtype, seed, form)
+    res = 1.0 if scale is None else scale
+    ref = rcab.rcab_reference(*args, res_scale=res)
+    got = rcab.rcab_fused(*args, res_scale=res)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = (F32_ATOL if dtype == torch.float32
+           else BF16_REL_ULP * ref.float().abs().max().item())
+    runs = [rcab._forward(*args, scale, 1.0)[:2] for _ in range(2)]
+    identical = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs, ref, got
+    bound, bound_by = rcab_bound_ms(shape, dtype)
+    iters = 5 if shape[0] * shape[1] * shape[2] > 100_000 else 20
+    rel_tol = BWD_F32_REL if dtype == torch.float32 else BWD_BF16_REL
+    row = {
+        "phase": phase, "shape": shape, "dtype": str(dtype).split(".")[-1],
+        "per_image": [k for k, on in zip(("bd", "bu", "scale"), form) if on],
+        "max_abs_err": err, "tol": tol,
+        "bwd_worst_rel_err": None, "bwd_rel_tol": rel_tol if backward else None,
+        "grads": None,
+        "ms": cuda_ms(lambda: rcab.rcab_fused(*args, res_scale=res), iters),
+        "plain_ms": cuda_ms(lambda: rcab.rcab_reference(*args, res_scale=res), iters),
+        "bound_ms": bound, "bound_by": bound_by,
+        "backward_ms": None, "backward_plain_ms": None,
+        "backward_bound_ms": None, "backward_bound_by": None,
+        "library_conv_ms": library_conv_ms(shape) if dtype == torch.bfloat16 else None}
+    shared = rcab_inputs(shape, dtype, seed=seed)
+    with unrecorded():  # a yardstick: the shared form at this shape
+        row["shared_form_ms"] = cuda_ms(lambda: rcab.rcab_fused(*shared), iters)
+    row["shared_form_backward_ms"] = None
 
-        rel_tol = BWD_F32_REL if dtype == torch.float32 else BWD_BF16_REL
+    if backward:
         leaves = [a.clone().requires_grad_(True) for a in args]
-        s_leaf = scale.clone().requires_grad_(True)
-        dout = torch.randn(*shape, generator=torch.Generator().manual_seed(500 + i)).cuda().to(dtype)
+        s_leaf = None if scale is None else scale.clone().requires_grad_(True)
+        s_arg = 1.0 if s_leaf is None else s_leaf
+        dout = torch.randn(*shape, generator=torch.Generator().manual_seed(
+            seed + 100)).cuda().to(dtype)
         before = rcab.backward_launches
-        out = rcab.rcab_fused(*leaves, res_scale=s_leaf)
-        tensors = leaves + [s_leaf]
+        out = rcab.rcab_fused(*leaves, res_scale=s_arg)
+        tensors = leaves if s_leaf is None else leaves + [s_leaf]
         grads = torch.autograd.grad(out, tensors, dout, retain_graph=True)
         again = torch.autograd.grad(out, tensors, dout, retain_graph=True)
         torch.cuda.synchronize()
         if rcab.backward_launches != before + 2:
             raise AssertionError("the backward kernel was not launched")
-        bwd_identical = all(torch.equal(a, b) for a, b in zip(grads, again))
-        want = rcab.rcab_backward_reference(dout, *args, res_scale=scale)
+        identical = identical and all(torch.equal(a, b) for a, b in zip(grads, again))
+        want = rcab.rcab_backward_reference(dout, *args, res_scale=res)
         errs, worst = {}, 0.0
         for name, a, b in zip(QRCAB_GRAD_NAMES, grads, want):
             ref_max = b.float().abs().max().item()
@@ -1929,43 +2158,41 @@ def qrcab_kernel_phase(rcab):
             errs[name] = {"max_abs_err": e, "ref_abs_max": ref_max}
             worst = max(worst, e / max(ref_max, 1e-30))
             if a.shape != b.shape or not e <= rel_tol * ref_max:
-                raise AssertionError(f"qrcab backward: {name} disagrees at {shape} {dtype}: "
-                                     f"{errs[name]}, rel tol {rel_tol}")
+                raise AssertionError(f"qrcab backward: {name} disagrees at {shape} {dtype} "
+                                     f"{form}: {errs[name]}, rel tol {rel_tol}")
         del again, want
-
-        shared = rcab_inputs(shape, dtype, seed=400 + i)
-        ref_out = rcab.rcab_reference(*leaves, res_scale=s_leaf)
+        ref_out = rcab.rcab_reference(*leaves, res_scale=s_arg)
         shared_leaves = [a.clone().requires_grad_(True) for a in shared]
-        shared_out = rcab.rcab_fused(*shared_leaves)
-        bound, bound_by = rcab_bound_ms(shape, dtype)
-        bwd_bound, bwd_bound_by = rcab_bwd_bound_ms(shape, dtype)
-        iters = 5 if shape[0] * shape[1] * shape[2] > 100_000 else 20
-        row = {
-            "phase": "qrcab_kernel", "shape": shape, "dtype": str(dtype).split(".")[-1],
-            "per_image": ["bd", "bu", "scale"], "max_abs_err": err, "tol": tol,
-            "bwd_worst_rel_err": worst, "bwd_rel_tol": rel_tol, "grads": errs,
-            "bit_identical_runs": fwd_identical and bwd_identical,
-            "ms": cuda_ms(lambda: rcab.rcab_fused(*args, res_scale=scale), iters),
-            "shared_form_ms": cuda_ms(lambda: rcab.rcab_fused(*shared), iters),
-            "plain_ms": cuda_ms(lambda: rcab.rcab_reference(*args, res_scale=scale), iters),
-            "bound_ms": bound, "bound_by": bound_by,
-            "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+        row["backward_bound_ms"], row["backward_bound_by"] = rcab_bwd_bound_ms(shape, dtype)
+        row.update(
+            bwd_worst_rel_err=worst, grads=errs,
+            backward_ms=cuda_ms(lambda: torch.autograd.grad(
                 out, tensors, dout, retain_graph=True), iters),
-            "shared_form_backward_ms": cuda_ms(lambda: torch.autograd.grad(
-                shared_out, shared_leaves, dout, retain_graph=True), iters),
-            "backward_plain_ms": cuda_ms(lambda: torch.autograd.grad(
-                ref_out, tensors, dout, retain_graph=True), iters),
-            "backward_bound_ms": bwd_bound, "backward_bound_by": bwd_bound_by,
-            "library_conv_ms": library_conv_ms(shape) if dtype == torch.bfloat16 else None}
-        print(json.dumps(row), flush=True)
-        if not err <= tol:
-            raise AssertionError(f"qrcab forward disagrees with rcab_reference: {row}")
-        if not row["bit_identical_runs"]:
-            raise AssertionError(f"qrcab kernels: two runs differ at {shape} {dtype}")
-        rows.append(row)
-        del leaves, s_leaf, out, grads, ref_out, shared_out, shared_leaves, args, shared
-        torch.cuda.empty_cache()
-    return rows
+            backward_plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                ref_out, tensors, dout, retain_graph=True), iters))
+        with unrecorded():
+            shared_out = rcab.rcab_fused(*shared_leaves)
+            row["shared_form_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                shared_out, shared_leaves, dout, retain_graph=True), iters)
+        del leaves, s_leaf, out, grads, ref_out, shared_out, shared_leaves
+    row["bit_identical_runs"] = identical
+    print(json.dumps(row), flush=True)
+    if not err <= tol:
+        raise AssertionError(f"qrcab forward disagrees with rcab_reference: {row}")
+    if not identical:
+        raise AssertionError(f"qrcab kernels: two runs differ at {shape} {dtype} {form}")
+    for direction in ("forward", "backward") if backward else ("forward",):
+        CHECKED[direction].add(launch_key(args[0], args[6], args[8], scale))
+    del args, shared
+    torch.cuda.empty_cache()
+    return row
+
+
+def qrcab_kernel_phase(rcab):
+    """qrcab_check with bd, bu and the scale per image at QRCAB_SHAPES.
+    Returns the rows."""
+    return [qrcab_check(rcab, shape, dtype, 400 + i)
+            for i, (shape, dtype) in enumerate(QRCAB_SHAPES)]
 
 
 BOBW_CONFIG = os.path.join("examples", "train_bobw_rcan_supmoco.toml")
@@ -2627,6 +2854,407 @@ def bobw_joint_phase(rcab, card, predictor_dir):
     return {"phase": "bobw_joint_total", "launches": launches, "rows": rows}
 
 
+META_CONFIG = os.path.join("examples", "train_qrcan_meta_attention.toml")
+META_EXP = "qrcan_x4_bobw"  # the example's experiment name
+META_FULL = dict(scale=4, style="max_concat", include_q_layer=True, dtype="bf16",
+                 metadata=["sigma_x", "sigma_y", "kernel_type"])
+
+
+def degrade_eval_set(root, table, card_seed, rng):
+    """Eval pairs at EVAL_LR_SHAPES as the JAX package's offline pipeline
+    lays them out: HR .npy files, their LR made on the card by the chain in
+    ``table`` one image at a time (each its own draws), quantised to uint8,
+    and degradation_metadata.csv (image, then each step's metadata keys in
+    step order; a list value as JSON), written with the csv module.
+    Returns (lr_dir, hr_dir, {key: the images' values stacked})."""
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    lr_dir, hr_dir = write_eval_pairs(root, rng)
+    pipe = ImagePipeline(table["pipeline"], deg_configs=table["deg_configs"], scale=TRAIN_SCALE)
+    g = card_generator(card_seed)
+    names = sorted(os.listdir(hr_dir))
+    metas = []
+    for name in names:
+        hr = torch.from_numpy(np.load(os.path.join(hr_dir, name)).astype(np.float32) / 255.0)
+        with torch.no_grad():
+            lr, meta = pipe.degrade_batch(g, hr[None].cuda())
+        np.save(os.path.join(lr_dir, name),
+                (lr[0].clamp(0, 1) * 255.0).round().to(torch.uint8).cpu().numpy())
+        metas.append(meta)
+    keys = list(metas[0])
+    with open(os.path.join(lr_dir, "degradation_metadata.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["image"] + keys)
+        for name, meta in zip(names, metas):
+            w.writerow([name] + [json.dumps(meta[k][0].tolist()) if meta[k].dim() > 1
+                                 else repr(float(meta[k][0])) for k in keys])
+    return lr_dir, hr_dir, {k: torch.cat([m[k] for m in metas]) for k in keys}
+
+
+def fixed_hr_batch(hr_dir, batch):
+    """Centre crops of HR_SIDE of the HR images, on the card."""
+    names = sorted(os.listdir(hr_dir))
+    crops = []
+    for name in (names * batch)[:batch]:
+        hr = np.load(os.path.join(hr_dir, name))
+        top, left = (hr.shape[0] - HR_SIDE) // 2, (hr.shape[1] - HR_SIDE) // 2
+        crops.append(hr[top:top + HR_SIDE, left:left + HR_SIDE])
+    return torch.from_numpy(np.stack(crops).astype(np.float32) / 255.0).cuda()
+
+
+def step_row(rcab, handler, state, batch, name, steps=2):
+    """One warm-up and ``steps`` timed train steps of ``handler`` on
+    ``batch`` (its input pipeline on), then one counted step: step ms,
+    HR-MP/s, peak memory, RCAB launches and conv2d calls a step, losses."""
+    losses = []
+
+    def step():
+        _, l = handler.train_batch(state, batch)
+        losses.append(l["train-loss"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, steps, warmup=1, backlog_s=0)
+    peak = torch.cuda.max_memory_allocated()
+    rcab.launches = rcab.backward_launches = 0
+    convs = conv_calls(step)
+    torch.cuda.synchronize()
+    n = batch["hr"].shape[0]
+    row = {"model": name, "batch": n, "step_ms": ms,
+           "hr_megapixels_per_s": n * HR_SIDE ** 2 / 1e6 / (ms / 1e3),
+           "peak_memory_bytes": peak,
+           "launches_a_step": {"rcab_fused": rcab.launches,
+                               "rcab_fused_backward": rcab.backward_launches},
+           "conv2d_calls_a_step": sum(convs.values()),
+           "losses": [float(x) for x in losses]}
+    if not np.isfinite(row["losses"]).all():
+        raise AssertionError(f"{name}: losses {row['losses']}")
+    return row
+
+
+def meta_attention_phase(rcab, card):
+    """The paper's non-blind meta-attention setting at full width: a copy of
+    examples/train_qrcan_meta_attention.toml (QRCAN 10x20x64, max_concat
+    with q-layers, bf16, on the chain's sigma_x, sigma_y and kernel_type)
+    through cli.train_sisr, 2 epochs of 2 steps on HR-only .npy files,
+    validating each epoch on eval pairs whose LR the example's chain makes
+    on the card and whose degradation_metadata.csv is written here; then
+    cli.eval_sisr --metadata_file on the run, an EvalHub run that waits for
+    the card only where it fetches an image's metrics, the trainer's
+    metadata matrix against the CSV's for the same images and draws, and
+    steady steps at batch 16. Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.data.datasets import SuperResImages
+    from rumpy_tpu_torch.evaluation.eval_hub import EvalHub
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.training.trainer import TrainingHandler
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_meta")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(40))
+    cfg = load_config(os.path.join(ROOT, META_CONFIG)).as_plain()
+    internal = cfg["model"]["internal_params"]
+    if ({k: internal[k] for k in META_FULL} != META_FULL or any(
+            k in internal for k in ("n_feats", "n_resgroups", "n_resblocks"))
+            or cfg["training"]["batch_size"] != TRAIN_BATCH):
+        raise AssertionError(f"{META_CONFIG} is not full-width QRCAN max_concat bf16 at "
+                             f"batch 16: {internal}")
+    table = cfg["data"]["online_degradations"]
+    eval_lr, eval_hr, eval_meta = degrade_eval_set(os.path.join(root, "eval_data"), table, 41,
+                                                   np.random.default_rng(42))
+    exp_root = os.path.join(root, "experiments")
+    cfg["experiment_save_loc"] = exp_root
+    cfg["data"]["training_sets"] = {f"data_{i}": {"hr_dir": hr_dir} for i in range(DEGRADE_SETS)}
+    cfg["data"]["eval_sets"] = {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr,
+                                           "metadata_file": "on_site"}}
+    cfg["training"].update(num_epochs=2)
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    train_launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    want = {"rcab_fused": 200 * (DEGRADE_STEPS + len(forwards)),
+            "rcab_fused_backward": 200 * DEGRADE_STEPS}
+    if train_launches != want or len(forwards) != 2 * VALIDATION_FORWARDS:
+        raise AssertionError(f"kernel launches in the meta-attention run {train_launches}, "
+                             f"expected {want} ({len(forwards)} validation forwards, "
+                             f"expected {2 * VALIDATION_FORWARDS})")
+    train_launches["rcab_fused_validation"] = 200 * len(forwards)
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    val = {k: [stats[e].get(k) for e in sorted(stats)] for k in ("val-PSNR", "val-SSIM")}
+    if len(losses) != 2 or not np.isfinite(losses + val["val-PSNR"] + val["val-SSIM"]).all():
+        raise AssertionError(f"meta-attention run: losses {losses}, validation {val}")
+
+    # the run through cli.eval_sisr, the CSV given by --metadata_file
+    out = os.path.join(root, "eval")
+    images = len(EVAL_LR_SHAPES)
+    rcab.launches = 0
+    with watched(SISRInterface, "net_run") as eval_forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        eval_lr, "--hr_dir", eval_hr, "--metadata_file",
+                        os.path.join(eval_lr, "degradation_metadata.csv"), "-m", "PSNR",
+                        "-m", "SSIM", "--time_models", "-me", META_EXP, "best",
+                        "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    eval_launches = rcab.launches
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    want_columns = [(m, k) for m, k in EVAL_COLUMNS if m == "bicubic"] + [
+        (META_EXP, k) for m, k in EVAL_COLUMNS if m == BLIND_EXP]
+    if columns != want_columns or len(values) != images or not np.isfinite(
+            list(values.values())).all():
+        raise AssertionError(f"eval_sisr of the meta-attention run: columns {columns}, "
+                             f"{len(values)} rows")
+    want_forwards = images + len(set(EVAL_LR_SHAPES))  # a warm-up a shape
+    if len(eval_forwards) != want_forwards or eval_launches != 200 * want_forwards:
+        raise AssertionError(f"eval_sisr: {len(eval_forwards)} forwards, {eval_launches} "
+                             f"launches (expected {want_forwards} and 200 each)")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+    hub = EvalHub(models=[{"experiment": META_EXP, "epoch": "best"}], model_loc=exp_root,
+                  data_cfg={"lr_dir": eval_lr, "hr_dir": eval_hr, "metadata_file": "on_site"},
+                  out_loc=os.path.join(out, "hub"), scale=TRAIN_SCALE, device="cuda")
+    hub.full_image_protocol()  # warm
+    rcab.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    _, fetches, hub_seconds = fetch_only_at_batches(hub.full_image_protocol)
+    eval_launches += rcab.launches
+    peak_eval = torch.cuda.max_memory_allocated()
+    if fetches != images or rcab.launches != 200 * images:
+        raise AssertionError(f"EvalHub with metadata: {fetches} fetches, {rcab.launches} "
+                             f"launches for {images} images")
+    del hub
+
+    # the matrix the model trains on against the one it is scored on, for
+    # the eval images and their draws: the trainer's own input function
+    # (its chain's output replaced by the eval set's) against the CSV read
+    # by SuperResImages and narrowed by the handler
+    trainer = TrainingHandler(dict(load_config(cfg_path), no_directories=True), verbose=False)
+    handler, state = trainer.model.model, trainer.model.state
+    trainer.online_pipeline.degrade_batch = lambda g, hr, views=1: (hr, eval_meta)
+    train_mat = handler.input_fn(handler.rng, {"hr": torch.zeros(images, 8, 8, 3,
+                                                                 device="cuda")})["metadata"]
+    del trainer.online_pipeline.degrade_batch
+    train_mat = train_mat.cpu().numpy()
+    ds = SuperResImages(lr_dir=eval_lr, hr_dir=eval_hr, scale=TRAIN_SCALE,
+                        metadata_file="on_site")
+    eval_mat = handler.select_metadata(np.stack([ds[i]["metadata"] for i in range(images)]),
+                                       keys=ds.metadata_keys)
+    lo, hi = train_mat.min(0), train_mat.max(0)
+    csv_keys = [k for k in ds.metadata_keys if any(
+        k == r or k.endswith(f"-{r}") for r in handler.metadata_keys)]
+    comparison = {
+        "train_columns": handler.metadata_keys, "eval_columns": csv_keys,
+        "max_abs_diff_by_column": np.abs(eval_mat - train_mat).max(0).tolist(),
+        "train_range_by_column": [lo.tolist(), hi.tolist()],
+        "eval_is_train_min_max_normalised": bool(np.allclose(
+            eval_mat, (train_mat - lo) / np.where(hi > lo, hi - lo, 1.0), atol=1e-6))}
+
+    # steady steps at batch 16: the trainer's input pipeline (chain and
+    # metadata columns) on a fixed HR batch
+    hr16 = fixed_hr_batch(hr_dir, TRAIN_BATCH)
+    steps = step_row(rcab, handler, state, {"hr": hr16},
+                     "qrcan x4 10x20x64 max_concat q-layer bf16")
+    if steps["launches_a_step"] != {"rcab_fused": 200, "rcab_fused_backward": 200}:
+        raise AssertionError(f"a meta-attention step launched {steps['launches_a_step']}")
+    trace = traced(lambda: handler.train_batch(state, {"hr": hr16}),
+                   "meta_attention_step_trace", 1)
+    del trainer, handler, state
+    row = {"phase": "meta_attention", "model": "qrcan x4 10x20x64 max_concat q-layer bf16",
+           "card": card, "config": META_CONFIG, "steps": DEGRADE_STEPS, "batch": TRAIN_BATCH,
+           "crop": TRAIN_CROP, "launches": train_launches, "epoch_train_loss": losses,
+           **val, "run_experiment_s": seconds, "peak_memory_bytes_run": peak_run,
+           "compute_efficiency": [stats[e]["compute_efficiency"] for e in sorted(stats)],
+           "eval_sisr_s": cli_seconds, "eval_mean": mean, "eval_rcab_launches": eval_launches,
+           "eval_images_per_s": images / hub_seconds, "eval_seconds": hub_seconds,
+           "metadata_fetches_under_sync_debug": fetches, "peak_memory_bytes_eval": peak_eval,
+           "train_vs_eval_metadata": comparison, "fixed_batch": steps,
+           "step_busy_ms": trace["busy_us"] / 1e3, "step_idle_share": trace["idle_share"],
+           "kernels_a_step": trace["kernels_per_call"]}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
+STYLE_SHAPES = [(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP), (1, *DIV2K_LR)]
+
+
+def bobw_family_phase(rcab, card):
+    """The rest of the BoBW family at full width, bf16, batch 16, crop 48,
+    bench.py's chain in the step: contrastiveblindqedsr (QEDSR 16x64 with
+    q-layers) on the packaged frozen encoder, contrastiveblindqrcan in
+    srmd_mode (the 256-wide embedding tiled and concatenated to the input;
+    its QRCABs stay on the kernel) and in sft_mode (an SFT layer in every
+    QRCAB: the plain route). One warm-up and one timed step each, then one
+    counted step. Then one forward of QRCAN 10x20x64 (256 metadata values,
+    q-layers) in the softmax and extended_attention styles (plain route)
+    beside max_concat (the kernel) at 16x48x48 and 1x339x510. Returns the
+    rows."""
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.registry import get_model
+
+    bench_pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+
+    def input_fn(generator, b):
+        lr, _meta = bench_pipe.degrade_batch(generator, b["hr"])
+        return {"lr": lr, "hr": b["hr"]}
+
+    g = card_generator(50)
+    hr = torch.rand(TRAIN_BATCH, HR_SIDE, HR_SIDE, 3, device=g.device, generator=g)
+    cases = [("contrastiveblindqedsr", "qedsr x4 16x64 q-layers, frozen packaged encoder",
+              dict(pre_trained_encoder_weights=PACKAGED_ENCODER), 0),
+             ("contrastiveblindqrcan", "qrcan x4 10x20x64 srmd_mode",
+              dict(srmd_mode=True, block_encoder_loading=True, **BOBW_FULL), 200),
+             ("contrastiveblindqrcan", "qrcan x4 10x20x64 sft_mode",
+              dict(sft_mode=True, block_encoder_loading=True, **BOBW_FULL), 0)]
+    rows = []
+    for name, label, kw, launches in cases:
+        handler = get_model(name)(device="cuda", dtype="bf16", lr=1e-4, **kw)
+        handler.set_input_pipeline(input_fn)
+        row = step_row(rcab, handler, handler.init_state(), {"hr": hr}, label, steps=1)
+        rows.append(row)
+        print(json.dumps({"phase": "bobw_family", "card": card, **row}), flush=True)
+        if row["launches_a_step"] != {"rcab_fused": launches, "rcab_fused_backward": launches}:
+            raise AssertionError(f"{label}: {row['launches_a_step']}, expected {launches} each")
+        del handler
+        torch.cuda.empty_cache()
+
+    forwards = []
+    for style in ("max_concat", "softmax", "extended_attention"):
+        handler = get_model("qrcan")(device="cuda", dtype="bf16", style=style,
+                                     metadata_bypass_len=256, include_q_layer=True)
+        state = handler.init_state()
+        for n, h, w in STYLE_SHAPES:
+            x = torch.rand(n, h, w, 3, device="cuda")
+            meta = torch.rand(n, 256, device="cuda")
+            fwd = lambda: handler.run_eval(state, {"lr": x, "metadata": meta})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rcab.launches = 0
+            fwd()
+            torch.cuda.synchronize()
+            counted, peak = rcab.launches, torch.cuda.max_memory_allocated()
+            ms = cuda_ms(fwd, 1, warmup=0, backlog_s=0)  # warmed by the counted call
+            trace = traced(fwd, f"qrcan_{style}_{n}x{h}x{w}_forward_trace", 1)
+            forwards.append({"style": style, "shape": [n, h, w, 64], "wall_ms": ms,
+                             "busy_ms": trace["busy_us"] / 1e3,
+                             "kernels": trace["kernels_per_call"], "rcab_launches": counted,
+                             "peak_memory_bytes": peak})
+            want = 200 if style == "max_concat" else 0
+            if counted != want:
+                raise AssertionError(f"a {style} QRCAN forward launched {counted}, not {want}")
+        del handler, state
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "bobw_family_forwards", "card": card, "forwards": forwards}),
+          flush=True)
+    return {"phase": "bobw_family", "rows": rows, "forwards": forwards,
+            "launches": sum(r["launches_a_step"]["rcab_fused"] for r in rows)
+            + sum(f["rcab_launches"] for f in forwards),
+            "backward_launches": sum(r["launches_a_step"]["rcab_fused_backward"] for r in rows)}
+
+
+MAPS_CHAIN = {"pipeline": [["srmdgaussianblur", "b"], ["downsample", "d"]],
+              "deg_configs": {"b": {"random": True, "rate_iso": 0.5,
+                                    "request_pca_kernels": True,
+                                    "load_pca_matrix": "standard"},
+                              "d": {"scale": TRAIN_SCALE}}}
+MAPS_MODELS = ("srmd", "edsrmd", "sftmd")  # full width: 12x128; 16x64; 16x64 standard
+
+
+def metadata_maps_phase(rcab, card):
+    """SRMD, EDSRMD and SFTMD at full width, bf16, on the 10-value PCA
+    blur-kernel metadata (the packaged ``standard`` matrix) of
+    srmdgaussianblur (iso and aniso) then x4: each through cli.train_sisr,
+    one epoch of 2 steps at batch 16, crop 48 (DEGRADE_SETS copies of the
+    eight HR images); then the three scored
+    together by cli.eval_sisr --metadata_file on eval pairs whose LR the
+    chain makes on the card (the CSV's blur_kernel column a JSON list, as
+    the JAX offline pipeline writes it); then steady steps of each. No
+    RCAB kernel runs here. Returns the rows."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.training.trainer import TrainingHandler
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_maps")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(60))
+    eval_lr, eval_hr, _ = degrade_eval_set(os.path.join(root, "eval_data"), MAPS_CHAIN, 61,
+                                           np.random.default_rng(62))
+    exp_root = os.path.join(root, "experiments")
+    hr16 = fixed_hr_batch(hr_dir, TRAIN_BATCH)
+    rows = []
+    rcab.launches = rcab.backward_launches = 0
+    for name in MAPS_MODELS:
+        cfg = {"experiment": name, "experiment_save_loc": exp_root,
+               "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "dataloader_threads": 4,
+                        "metadata": ["blur_kernel"], "online_degradations": MAPS_CHAIN,
+                        "training_sets": {f"data_{i}": {"hr_dir": hr_dir}
+                                          for i in range(DEGRADE_SETS)}},
+               "model": {"name": name, "internal_params": {
+                   "scale": TRAIN_SCALE, "lr": 1e-4, "dtype": "bf16",
+                   "metadata": ["blur_kernel"]}},
+               "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": 0}}
+        cfg_path = os.path.join(root, f"{name}.toml")
+        dump_toml(cfg, cfg_path)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = train_sisr.main(["-p", cfg_path])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak_run = torch.cuda.max_memory_allocated()
+        trainer = TrainingHandler(dict(load_config(cfg_path), no_directories=True),
+                                  verbose=False)
+        handler = trainer.model.model
+        if handler.num_metadata != 10:
+            raise AssertionError(f"{name} takes {handler.num_metadata} metadata values, not 10")
+        row = step_row(rcab, handler, trainer.model.state, {"hr": hr16}, name)
+        row.update(train_loss=stats[0]["train-loss"], run_experiment_s=seconds,
+                   peak_memory_bytes_run=peak_run,
+                   parameters=sum(p.numel() for p in handler.module.parameters()))
+        rows.append(row)
+        print(json.dumps({"phase": "metadata_maps", "card": card, **row}), flush=True)
+        if not np.isfinite(row["train_loss"]):
+            raise AssertionError(f"{name}: train loss {row['train_loss']}")
+        del trainer, handler
+        torch.cuda.empty_cache()
+    out = os.path.join(root, "eval")
+    flags = ["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir", eval_lr,
+             "--hr_dir", eval_hr, "--metadata_file", "on_site", "-m", "PSNR", "-m", "SSIM",
+             "--out_loc", out]
+    for name in MAPS_MODELS:
+        flags += ["-me", name, "last"]
+    t0 = time.perf_counter()
+    eval_sisr.main(flags)
+    cli_seconds = time.perf_counter() - t0
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    want = sorted([("bicubic", k) for k in ("PSNR", "SSIM", "runtime")]
+                  + [(m, k) for m in MAPS_MODELS for k in ("PSNR", "SSIM")])
+    if columns != want or len(values) != len(EVAL_LR_SHAPES) or not np.isfinite(
+            list(values.values())).all():
+        raise AssertionError(f"eval_sisr of the metadata-map models: {columns}, "
+                             f"{len(values)} rows")
+    if rcab.launches or rcab.backward_launches:
+        raise AssertionError("an RCAB kernel ran in the metadata-map models")
+    summary = {"phase": "metadata_maps", "card": card, "chain": MAPS_CHAIN,
+               "eval_sisr_s": cli_seconds,
+               "eval_mean": dict(zip([f"{m}>{k}" for m, k in columns],
+                                     np.mean(list(values.values()), axis=0).tolist()))}
+    print(json.dumps(summary), flush=True)
+    shutil.rmtree(root)
+    return {**summary, "rows": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2648,6 +3276,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.build_all(["rcab_fused", "rcab_fused_bwd", "local_entropy", "window_sum"])
+    record_launches(rcab)
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "nvcc_seconds": build.build_seconds}), flush=True)
 
@@ -2667,14 +3296,21 @@ def main() -> int:
     bobw_row, bobw_dirs = bobw_train_phase(rcab, card)
     bobw_eval_row = bobw_eval_phase(rcab, card, *bobw_dirs)
     bobw_launches = bobw_row["launches"]
-    rcab_bwd_c128_phase(rcab)
+    with unrecorded():
+        rcab_bwd_c128_phase(rcab)
+        rcab_bwd_f32_sums_phase(rcab)
     _, predictor_dir = contrastive_train_phase(card)
     joint = bobw_joint_phase(rcab, card, predictor_dir)
     print(json.dumps(joint), flush=True)
     shutil.rmtree(os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_contrastive"))
     joint_launches = joint["launches"]
+    meta_row = meta_attention_phase(rcab, card)
+    meta_launches = meta_row["launches"]
+    family = bobw_family_phase(rcab, card)
+    metadata_maps_phase(rcab, card)
+    qrcab_rows += [r for r in launch_coverage_phase(rcab) if r["per_image"]]
     per_image = [{k: r[k] for k in (
-        "shape", "dtype", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",
+        "shape", "dtype", "per_image", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",
         "backward_ms", "shared_form_backward_ms", "backward_plain_ms", "backward_bound_ms",
         "bwd_worst_rel_err")} for r in qrcab_rows]
 
@@ -2685,7 +3321,8 @@ def main() -> int:
         "launches": (serve_launches + train_launches["rcab_fused"]
                      + blind_launches["rcab_fused"] + eval_row["rcab_launches"]
                      + bobw_launches["rcab_fused"] + bobw_eval_row["rcab_launches"]
-                     + joint_launches["rcab_fused"]),
+                     + joint_launches["rcab_fused"] + meta_launches["rcab_fused"]
+                     + meta_row["eval_rcab_launches"] + family["launches"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
@@ -2695,6 +3332,10 @@ def main() -> int:
         "launches_bobw_validation": bobw_launches["rcab_fused_validation"],
         "launches_bobw_eval_path": bobw_eval_row["rcab_launches"],
         "launches_bobw_joint_path": joint_launches["rcab_fused"],
+        "launches_meta_attention_training_path": meta_launches["rcab_fused"],
+        "launches_meta_attention_validation": meta_launches["rcab_fused_validation"],
+        "launches_meta_attention_eval_path": meta_row["eval_rcab_launches"],
+        "launches_bobw_family_path": family["launches"],
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -2719,11 +3360,14 @@ def main() -> int:
         "launches": (train_launches["rcab_fused_backward"]
                      + blind_launches["rcab_fused_backward"]
                      + bobw_launches["rcab_fused_backward"]
-                     + joint_launches["rcab_fused_backward"]),
+                     + joint_launches["rcab_fused_backward"]
+                     + meta_launches["rcab_fused_backward"] + family["backward_launches"]),
         "launches_training_path": train_launches["rcab_fused_backward"],
         "launches_blind_training_path": blind_launches["rcab_fused_backward"],
         "launches_bobw_training_path": bobw_launches["rcab_fused_backward"],
         "launches_bobw_joint_path": joint_launches["rcab_fused_backward"],
+        "launches_meta_attention_training_path": meta_launches["rcab_fused_backward"],
+        "launches_bobw_family_path": family["backward_launches"],
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

@@ -15,9 +15,11 @@ Config schema:
                     (or models = [names] with a parallel load_epochs list)
   out_loc, model_loc, metrics = ["PSNR", "SSIM"], save_im, time_models ...
 
-Options of later slices raise ``NotImplementedError``: ``--metadata_file``
-(ROADMAP queue 1 item 8), ``--lpips_weights`` (item 9), ``--gallery`` and
-the ``--fr_*`` face-recognition options (item 10).
+``--metadata_file`` (or ``metadata_file`` in ``[data]``) gives the images
+their degradation metadata from a CSV (``on_site``: the LR folder's
+``degradation_metadata.csv``). Options of later slices raise
+``NotImplementedError``: ``--lpips_weights`` (ROADMAP queue 1 item 9),
+``--gallery`` and the ``--fr_*`` face-recognition options (item 10).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Optional, Sequence
 from rumpy_tpu_torch.config.loader import load_config, merge_overrides
 
 # option -> ROADMAP queue 1 item that ports it
-_LATER = {"metadata_file": "8", "lpips_weights": "9", "gallery": "10",
+_LATER = {"lpips_weights": "9", "gallery": "10",
           "fr_gallery": "10", "fr_extractor": "10", "fr_extractor_weights": "10"}
 
 
@@ -43,7 +45,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--hr_dir", default=None, help="HR image directory.")
     p.add_argument("--lr_dir", default=None, help="LR image directory.")
     p.add_argument("--metadata_file", default=None,
-                   help="Degradation-metadata CSV (not ported yet).")
+                   help="Degradation-metadata CSV ('on_site' resolves to "
+                        "<lr_dir>/degradation_metadata.csv).")
     p.add_argument("--dataset_name", default=None, help="Named dataset (its eval split).")
     p.add_argument("--data_split", default=None, help="Split name within --dataset_name.")
     p.add_argument("--group_select", action="append", type=int, default=None,
@@ -100,7 +103,7 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.recursive:
         data["recursive_search"] = True
     for key, item in _LATER.items():
-        if (data if key == "metadata_file" else cfg).get(key):
+        if cfg.get(key):
             raise NotImplementedError(f"--{key} is not ported yet: it comes with "
                                       f"ROADMAP queue 1 item {item}")
 

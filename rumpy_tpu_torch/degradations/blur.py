@@ -1,35 +1,74 @@
 """Blur degradation ops.
 
-Port of ``rumpy_tpu/degradations/blur.py``: ``RealESRGANBlur``'s device
-path, with random or fixed-parameter kernels, kernel metadata (sigmas
-normalized by their ranges, sinc rows at 0) and full kernels on request.
-Kernel math in ``ops/blur_kernels.py``, application in ``ops/blur.py``.
-PCA-encoded kernels, ``SRMDGaussianBlur`` and ``BSRGANBlur`` come with
-``degradations/pca.py`` and raise until then.
+Port of ``rumpy_tpu/degradations/blur.py``, device paths:
+``RealESRGANBlur`` with random or fixed-parameter kernels, kernel
+metadata (sigmas normalized by their ranges, sinc rows at 0);
+``SRMDGaussianBlur`` (SRMD/IKC iso/aniso Gaussians) and ``BSRGANBlur``
+(the same family with BSRGAN's wider defaults). Each gives full kernels
+(``unmodified_blur_kernel``) and PCA-encoded ones (``blur_kernel``,
+``degradations/pca.py``: a packaged or given matrix, or one fit at
+construction to ``pca_batch_len`` kernels of the op's own family) on
+request. Kernel math in ``ops/blur_kernels.py``, application in
+``ops/blur.py``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from rumpy_tpu_torch.config.constants import blur_kernel_codes
+from rumpy_tpu_torch.degradations import pca as pca_mod
 from rumpy_tpu_torch.degradations.base import DegradationOp, normalize, per_view
 from rumpy_tpu_torch.ops import blur as blur_ops
 from rumpy_tpu_torch.ops import blur_kernels as bk
 from rumpy_tpu_torch.registry import register_tool
 
 
-def pca_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with degradations/pca.py in the "
-        "iterative blind-SR slice (SRMD, IKC, DAN)")
+class _BlurBase(DegradationOp):
+    """Full-kernel and PCA-kernel metadata shared by the blur ops."""
+
+    def __init__(self, kernel_size=21, request_full_kernels=False,
+                 normalize_metadata=True, request_pca_kernels=False,
+                 load_pca_matrix=None, pca_batch_len=30000, pca_length=10,
+                 request_kernel_metadata=False, pca_seed=0):
+        self.kernel_size = kernel_size
+        self.request_full_kernels = request_full_kernels
+        self.normalize_metadata = normalize_metadata
+        self.request_kernel_metadata = request_kernel_metadata
+        self.pca_encoder: Optional[pca_mod.PCAEncoder] = None
+        if request_pca_kernels:
+            if load_pca_matrix:
+                self.pca_encoder = pca_mod.read_pca_matrix(load_pca_matrix)
+            else:
+                self.pca_encoder = pca_mod.fit_kernel_pca(
+                    self._pca_sample_fn(), batch_len=pca_batch_len, k=pca_length,
+                    seed=pca_seed)
+
+    def _pca_sample_fn(self):
+        """``(generator, n) -> (n, k, k)`` kernels of this op's family."""
+        raise NotImplementedError
+
+    def _kernel_extras(self, kernels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Full-kernel and PCA-kernel metadata of a (B, k, k) batch."""
+        out: Dict[str, torch.Tensor] = {}
+        flat = kernels.reshape(kernels.shape[0], -1)
+        if self.request_full_kernels:
+            out["unmodified_blur_kernel"] = flat
+        if self.pca_encoder is not None:
+            out["blur_kernel"] = self.pca_encoder(flat)
+        return out
+
+
+_BASE_OPTIONS = ("request_full_kernels", "normalize_metadata", "request_pca_kernels",
+                 "load_pca_matrix", "pca_batch_len", "pca_length",
+                 "request_kernel_metadata", "pca_seed")
 
 
 @register_tool("realesrganblur")
-class RealESRGANBlur(DegradationOp):
+class RealESRGANBlur(_BlurBase):
     """Seven-family Real-ESRGAN blur."""
 
     def __init__(self, kernel_range=("iso",), kernel_probabilities=None,
@@ -38,18 +77,13 @@ class RealESRGANBlur(DegradationOp):
                  rotation_range=(-math.pi, math.pi), betag_range=(0.5, 8),
                  betap_range=(0.5, 8), noise_range=None,
                  random_selection=True, selected_kernel=None,
-                 use_kernel_code=True, seed=0, kernel_size=21,
-                 request_full_kernels=False, normalize_metadata=True,
-                 request_pca_kernels=False, request_kernel_metadata=False,
-                 **kwargs):
+                 use_kernel_code=True, seed=0, kernel_size=21, **kwargs):
         if random_selection and semi_random_selection:
             raise RuntimeError("Both random and semi random modes cannot be "
                                "on simultaneously.")
         if not random_selection and selected_kernel is None:
             raise RuntimeError("Need to specify requested kernel if not "
                                "using random selection.")
-        if request_pca_kernels:
-            raise pca_slice("request_pca_kernels")
         self.random_selection = random_selection
         self.selected_kernel = selected_kernel
         self.specific_params = {k: v for k, v in kwargs.items()
@@ -67,9 +101,11 @@ class RealESRGANBlur(DegradationOp):
             rotation_range=tuple(rotation_range),
             betag_range=tuple(betag_range), betap_range=tuple(betap_range),
             noise_range=tuple(noise_range) if noise_range else None)
-        self.request_full_kernels = request_full_kernels
-        self.normalize_metadata = normalize_metadata
-        self.request_kernel_metadata = request_kernel_metadata
+        super().__init__(kernel_size=kernel_size,
+                         **{k: v for k, v in kwargs.items() if k in _BASE_OPTIONS})
+
+    def _pca_sample_fn(self):
+        return lambda gen, n: bk.sample_kernels(gen, n, self.cfg)[0]
 
     def get_hyperparams(self) -> Dict[str, Any]:
         return {"blur_type": "real_esrgan",
@@ -133,19 +169,66 @@ class RealESRGANBlur(DegradationOp):
                     applies, normalize(meta["sigma_x"], *self.cfg.sigma_x_range), zeros)
                 meta_out["sigma_y"] = torch.where(
                     applies, normalize(meta["sigma_y"], *self.cfg.sigma_y_range), zeros)
-        if self.request_full_kernels:
-            meta_out["unmodified_blur_kernel"] = kernels.reshape(b, -1)
+        meta_out.update(self._kernel_extras(kernels))
         return out, meta_out
 
 
 @register_tool("srmdgaussianblur")
-class SRMDGaussianBlur(DegradationOp):
-    """SRMD/IKC Gaussian blur: not ported yet."""
+class SRMDGaussianBlur(_BlurBase):
+    """SRMD/IKC iso/aniso Gaussian blur (``ops/blur_kernels.py``'s
+    ``sample_srmd_kernels``). Its kernel metadata: ``isotropic_sigma``
+    alone when every kernel is isotropic, else the anisotropic fields
+    too; the sigmas are not normalized."""
 
-    def __init__(self, *args, **kwargs):
-        raise pca_slice(type(self).__name__)
+    def __init__(self, random=False, sig=2.6, sig_min=0.2, sig_max=4.0,
+                 rate_iso=1.0, scaling=3, seed=0, kernel_size=21, **kwargs):
+        self.random = random
+        self.sig = sig
+        self.sig_min = sig_min
+        self.sig_max = sig_max
+        self.rate_iso = rate_iso
+        self.scaling = scaling
+        super().__init__(kernel_size=kernel_size,
+                         **{k: v for k, v in kwargs.items() if k in _BASE_OPTIONS})
+
+    def _sample(self, generator, n: int, random: bool):
+        return bk.sample_srmd_kernels(generator, n, self.kernel_size, self.sig,
+                                      self.sig_min, self.sig_max, self.rate_iso,
+                                      self.scaling, random=random)
+
+    def _pca_sample_fn(self):
+        return lambda gen, n: self._sample(gen, n, random=True)[0]
+
+    def get_hyperparams(self) -> Dict[str, Any]:
+        sig_params = ({"random": "True", "max_sigma": self.sig_max,
+                       "min_sigma": self.sig_min} if self.random
+                      else {"random": "False", "sigma": self.sig})
+        return {**sig_params, "blur_type": "srmd", "kernel_size": self.kernel_size,
+                "isotropic_probability": self.rate_iso,
+                "anisotropic_scaling": self.scaling}
+
+    def batch_apply(self, generator, imgs, views: int = 1):
+        kernels, meta = self._sample(generator, imgs.shape[0] // views, self.random)
+        out = blur_ops.apply_kernels(imgs, per_view(kernels, views))
+        meta_out: Dict[str, torch.Tensor] = {}
+        if self.request_kernel_metadata:
+            meta_out = ({"isotropic_sigma": meta["isotropic_sigma"]}
+                        if self.rate_iso == 1.0 else dict(meta))
+        meta_out.update(self._kernel_extras(kernels))
+        return out, meta_out
 
 
 @register_tool("bsrganblur")
 class BSRGANBlur(SRMDGaussianBlur):
-    """BSRGAN-style Gaussian blur: not ported yet."""
+    """BSRGAN-style Gaussian blur: the iso/aniso Gaussian family with
+    BSRGAN's wider defaults."""
+
+    def __init__(self, random=True, sig_min=0.2, sig_max=4.0, rate_iso=0.5,
+                 scaling=3, **kwargs):
+        super().__init__(random=random, sig_min=sig_min, sig_max=sig_max,
+                         rate_iso=rate_iso, scaling=scaling, **kwargs)
+
+    def get_hyperparams(self) -> Dict[str, Any]:
+        p = super().get_hyperparams()
+        p["blur_type"] = "bsrgan"
+        return p

@@ -2,8 +2,14 @@
 
 Port of ``rumpy_tpu/degradations/noise.py``, device path. Metadata
 columns gaussian_noise_scale / poisson_noise_scale / gray_noise,
-normalized by their configured ranges when requested. The noise-image PCA
-option comes with ``degradations/pca.py`` and raises until then.
+normalized by their configured ranges when requested.
+
+``request_noise_image_pca`` builds ``pca_encoder`` at construction: a
+given matrix, or a basis fit to ``pca_batch_len`` generated noise fields
+(half Gaussian, half Poisson on a blank image, which is zero, as in the
+JAX package), each ``pca_patch_size`` square. As in the JAX package the
+device path gives no ``pca_noise`` column: the encoding is the host
+path's (``__call__``, the tools slice).
 """
 
 from __future__ import annotations
@@ -12,8 +18,8 @@ from typing import Any, Dict
 
 import torch
 
+from rumpy_tpu_torch.degradations import pca as pca_mod
 from rumpy_tpu_torch.degradations.base import DegradationOp, normalize, per_view
-from rumpy_tpu_torch.degradations.blur import pca_slice
 from rumpy_tpu_torch.ops import noise as noise_ops
 from rumpy_tpu_torch.registry import register_tool
 
@@ -31,8 +37,6 @@ class RealESRGANNoise(DegradationOp):
                  pca_batch_len=500,
                  load_pca_matrix=None,
                  **specific_noise_params):
-        if request_noise_image_pca:
-            raise pca_slice("request_noise_image_pca")
         self.normalize_metadata = normalize_metadata
         self.gaussian_poisson_ratio = gaussian_poisson_ratio
         self.poisson_noise_scale_range = tuple(poisson_noise_scale_range)
@@ -40,6 +44,29 @@ class RealESRGANNoise(DegradationOp):
         self.gray_noise_probability = gray_noise_probability
         self.random_noise = random_noise_generation
         self.specific = specific_noise_params
+        self.request_noise_image_pca = request_noise_image_pca
+        self.pca_patch_size = pca_patch_size
+        self.pca_encoder = None
+        if request_noise_image_pca:
+            if load_pca_matrix:
+                self.pca_encoder = pca_mod.read_pca_matrix(load_pca_matrix)
+            else:
+                self.pca_encoder = pca_mod.pca_from_samples(
+                    self.noise_samples(torch.Generator().manual_seed(seed), pca_batch_len),
+                    k=noise_image_pca_length)
+
+    def noise_samples(self, generator: torch.Generator, count: int) -> torch.Tensor:
+        """2 * (count // 2) noise fields (pca_patch_size square, RGB) on the
+        generator's device: Gaussian, then Poisson on a blank image."""
+        s = self.pca_patch_size
+        blank = torch.zeros((count // 2, s, s, 3), device=generator.device)
+        _, _, n_gauss = noise_ops.add_gaussian_noise(
+            generator, blank, self.gaussian_noise_sigma_range,
+            self.gray_noise_probability, return_noise=True)
+        _, _, n_poiss = noise_ops.add_poisson_noise(
+            generator, blank, self.poisson_noise_scale_range,
+            self.gray_noise_probability, return_noise=True)
+        return torch.cat([n_gauss, n_poiss])
 
     def get_hyperparams(self) -> Dict[str, Any]:
         return {"gaussian_poisson_ratio": self.gaussian_poisson_ratio,

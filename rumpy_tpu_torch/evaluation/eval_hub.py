@@ -3,7 +3,11 @@
 Port of ``rumpy_tpu/evaluation/eval_hub.py`` without pandas:
 
 * loads each (experiment, epoch) through ``SISRInterface`` (torch or flax
-  checkpoints);
+  checkpoints), and drops a model that needs metadata keys the set lacks
+  (a ``metadata_file`` CSV, or ``"on_site"``: the LR folder's
+  ``degradation_metadata.csv``);
+* gives each model its columns of an image's metadata row, narrowed by
+  its ``select_metadata``, uploaded with the image;
 * always computes the bicubic reference (and Lanczos with
   ``lanczos_upsample``) by ``ops/resize.py::pil_resize`` on the device,
   Pillow's arithmetic bit for bit, with its ``runtime`` (on the card its
@@ -16,11 +20,9 @@ Port of ``rumpy_tpu/evaluation/eval_hub.py`` without pandas:
   row) with the ``csv`` module in the layout pandas gives the JAX package,
   and per-model PNGs with ``save_im``.
 
-Not ported yet, and raising ``NotImplementedError``: degradation-metadata
-files and models that need metadata (``data/metadata.py``, ROADMAP queue 1
-item 8); comparison collages (``gallery``) and face recognition
-(``FR_rank``, ``fr_gallery``: item 10); LPIPS (item 9, raised by
-``utils/metrics.py``).
+Not ported yet, and raising ``NotImplementedError``: comparison collages
+(``gallery``) and face recognition (``FR_rank``, ``fr_gallery``: ROADMAP
+queue 1 item 10); LPIPS (item 9, raised by ``utils/metrics.py``).
 """
 
 from __future__ import annotations
@@ -127,8 +129,6 @@ class EvalHub:
             raise _later("comparison collages (gallery, matplotlib)", "10")
         if fr_gallery or "FR_rank" in metrics:
             raise _later("face recognition (FR_rank, fr_gallery)", "10")
-        if data_cfg.get("metadata_file"):
-            raise _later("degradation-metadata files (data/metadata.py)", "8")
         self.device = resolve_device(device)
         self.out_loc = out_loc
         self.scale = scale
@@ -148,6 +148,7 @@ class EvalHub:
                                  num_workers=2)
 
         self.models: Dict[str, SISRInterface] = {}
+        available = self.dataset.metadata_keys
         for spec in models:
             name = spec.get("label") or spec["experiment"]
             iface = SISRInterface(
@@ -155,8 +156,15 @@ class EvalHub:
                 mode="eval", load_epoch=spec.get("epoch", "best"),
                 scale=scale, no_directories=True,
                 new_params=spec.get("new_params") or {}, device=self.device)
-            if getattr(iface.model, "metadata_keys", None):
-                raise _later(f"{name}: models that take degradation metadata", "8")
+            required = getattr(iface.model, "metadata_keys", None)
+            if required:
+                # 'all' takes whatever the set has; a key matches exactly or
+                # as the suffix of a 'step-op-key' column
+                missing = [k for k in required if k != "all" and not any(
+                    a == k or a.endswith(f"-{k}") for a in available)]
+                if missing:
+                    print(f"dropping {name}: dataset lacks metadata {missing}")
+                    continue
             self.models[name] = iface
         self.metric_hub = metrics_mod.Metrics(metrics, lpips_weights=lpips_weights,
                                               hr_data_loc=self.dataset.hr_dir)
@@ -201,8 +209,10 @@ class EvalHub:
     def _y_channel(rgb: torch.Tensor) -> torch.Tensor:
         return rgb_to_ycbcr(rgb.clamp(0.0, 1.0), y_only=True, im_type="jpg")
 
-    def _model_output(self, name: str, iface: SISRInterface, inp: torch.Tensor):
-        """(SR image, seconds or None) of one model on one image."""
+    def _model_output(self, name: str, iface: SISRInterface, inp: torch.Tensor,
+                      meta: Optional[np.ndarray]):
+        """(SR image, seconds or None) of one model on one image and its
+        metadata row (1, M) or None."""
         if self.time_models:
             # a warm-up forward per shape (per bucket under pad_to_bucket),
             # so that runtime reports steady-state inference
@@ -211,11 +221,11 @@ class EvalHub:
                 b = self.pad_to_bucket
                 h, w = h + (-h) % b, w + (-w) % b
             if (name, (h, w)) not in self._timed_shapes:
-                iface.net_run(inp[None], pad_multiple=self.pad_to_bucket)
+                iface.net_run(inp[None], meta, pad_multiple=self.pad_to_bucket)
                 self._timed_shapes.add((name, (h, w)))
             _sync(self.device)
         t0 = time.perf_counter()
-        rgb, _ = iface.net_run(inp[None], pad_multiple=self.pad_to_bucket)
+        rgb, _ = iface.net_run(inp[None], meta, pad_multiple=self.pad_to_bucket)
         if not self.time_models:
             return rgb[0], None
         _sync(self.device)
@@ -228,6 +238,9 @@ class EvalHub:
             hr = to_device(batch["hr"][0], self.device, torch.float32)
             tag = batch["tag"][0]
             hr_y = self._y_channel(hr)
+            metas = batch.get("metadata")
+            meta = (np.asarray(metas[0])[None]
+                    if metas is not None and np.size(metas[0]) else None)
 
             outputs: Dict[str, torch.Tensor] = {}
             refs = self._reference_outputs(lr)
@@ -237,7 +250,12 @@ class EvalHub:
                 inp = (outputs["bicubic"]
                        if getattr(iface.model, "im_input", "unmodified") == "interp"
                        else lr)
-                outputs[name], elapsed = self._model_output(name, iface, inp)
+                # the model's columns of the set's row, on the host; the
+                # row goes up with the forward's other inputs
+                selector = getattr(iface.model, "select_metadata", None)
+                model_meta = (selector(meta, keys=self.dataset.metadata_keys)
+                              if meta is not None and selector is not None else meta)
+                outputs[name], elapsed = self._model_output(name, iface, inp, model_meta)
                 if elapsed is not None:
                     rows[tag][f"{name}>runtime"] = elapsed
 

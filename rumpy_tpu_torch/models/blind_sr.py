@@ -31,8 +31,13 @@ discards that pass's update), the optimizer step over G, E and the
 reducer, and the enqueue, with no host sync. As in the JAX package the key
 encoder is copied from E at initialisation, before a warm start loads E.
 
-The SFT/SRMD modes and generators other than QRCAN raise
-``NotImplementedError`` (ROADMAP queue 1 item 6c).
+Generators: QRCAN (``contrastiveblindqrcan``) and QEDSR
+(``contrastiveblindqedsr``). ``sft_mode`` tiles the embedding to
+(N, D, H, W) maps and feeds them to QRCAN's SFT layers; ``srmd_mode``
+concatenates the maps to the input instead (``in_feats`` 3 + D), so its
+QRCAN keeps ``max_concat`` and the fused kernel. The other generators of
+the JAX package (QHAN, QELAN, SAN, QRRDBNet, Metabed) come with their
+families and raise ``NotImplementedError`` (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -46,9 +51,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rumpy_tpu_torch.models.attention_manipulators import LATER, QRCAN
+from rumpy_tpu_torch.models.attention_manipulators import QEDSR, QRCAN
 from rumpy_tpu_torch.models.base import PIXEL_LOSSES, BaseHandler, TrainState
-from rumpy_tpu_torch.models.common import Linear
+from rumpy_tpu_torch.models.common import Linear, tile_maps
 from rumpy_tpu_torch.models.contrastive import (DASREncoder, _normalize, check_queue_batch,
                                                 device_batch, enqueue, moco_logits,
                                                 momentum_update, softmax_cross_entropy_first)
@@ -81,7 +86,8 @@ class BlindSRPipeline(nn.Module):
 
     def __init__(self, generator: nn.Module, encoder: nn.Module,
                  reducer: Optional[nn.Module] = None, embedding_type: str = "pre-q",
-                 frozen_encoder: bool = True):
+                 frozen_encoder: bool = True, sft_mode: bool = False,
+                 srmd_mode: bool = False):
         super().__init__()
         if embedding_type not in ("pre-q", "q", "q-dropdown"):
             raise RuntimeError("Incorrect type of embedding selected.")
@@ -90,6 +96,8 @@ class BlindSRPipeline(nn.Module):
         self.reducer = reducer
         self.embedding_type = embedding_type
         self.frozen_encoder = frozen_encoder
+        self.sft_mode = sft_mode
+        self.srmd_mode = srmd_mode
 
     def embed(self, x, train: bool = False):
         """The embedding of NCHW ``x``, and the encoder's outputs. A frozen
@@ -108,22 +116,41 @@ class BlindSRPipeline(nn.Module):
             emb = self.reducer(emb)
         return emb, outs
 
+    def generate(self, x, emb):
+        """G on NCHW ``x`` and the embedding (N, D): with ``sft_mode`` the
+        embedding also goes in as (N, D, H, W) maps, to the SFT layers or,
+        with ``srmd_mode``, concatenated to the input."""
+        if not self.sft_mode:
+            return self.generator(x, emb)
+        maps = tile_maps(emb, *x.shape[2:])
+        if self.srmd_mode:
+            return self.generator(torch.cat([x, maps.to(x.dtype)], dim=1), emb)
+        return self.generator(x, emb, maps)
+
     def forward(self, x, train: bool = False):
         emb, _ = self.embed(x, train=train)
-        return self.generator(x, emb)
+        return self.generate(x, emb)
 
 
 def _build_generator(name: str, scale: int, num_metadata: int, dtype,
-                     gen_kwargs: Dict[str, Any]) -> nn.Module:
+                     gen_kwargs: Dict[str, Any], sft_mode: bool,
+                     srmd_mode: bool) -> nn.Module:
     name = name.lower()
-    if name not in ("qrcan", "rcan"):
-        raise NotImplementedError(
-            f"BoBW generator {name!r} is not ported yet; only QRCAN is ({LATER})")
-    return QRCAN(scale=scale, num_metadata=num_metadata,
-                 include_q_layer=gen_kwargs.pop("include_q_layer", True),
-                 in_feats=gen_kwargs.pop("in_feats", 3),
-                 style=gen_kwargs.pop("style", "max_concat"),
-                 dtype=dtype, **gen_kwargs)
+    if name in ("qrcan", "rcan"):
+        return QRCAN(scale=scale, num_metadata=num_metadata,
+                     include_q_layer=gen_kwargs.pop("include_q_layer", True),
+                     include_sft_layer=sft_mode and not srmd_mode,
+                     in_feats=gen_kwargs.pop("in_feats", 3)
+                     + (num_metadata if srmd_mode else 0),
+                     style=gen_kwargs.pop("style", "max_concat"),
+                     dtype=dtype, **gen_kwargs)
+    if name in ("qedsr", "edsr"):
+        return QEDSR(scale=scale, input_para=num_metadata, dtype=dtype, **gen_kwargs)
+    if name in ("qhan", "han", "qelan", "elan", "qsan", "san", "qrealesrgan", "qrrdbnet",
+                "realesrgan", "metabed"):
+        raise NotImplementedError(f"BoBW generator {name!r} is not ported yet: it comes "
+                                  "with its family (ROADMAP queue 1 item 9)")
+    raise KeyError(f"Unknown generator {name}")
 
 
 class ContrastiveBlindSRHandler(BaseHandler):
@@ -143,8 +170,8 @@ class ContrastiveBlindSRHandler(BaseHandler):
                  contrastive_T=0.07, contrastive_m=0.999, contrastive_K=8192,
                  num_classes=0, l1_weight=1.0, contrastive_weight=1.0,
                  encoder_dim=256, **kwargs):
-        if sft_mode or srmd_mode:
-            raise NotImplementedError(f"the SFT/SRMD pipeline modes are not ported yet ({LATER})")
+        self.sft_mode = sft_mode or srmd_mode
+        self.srmd_mode = srmd_mode
         self.embedding_type = embedding_type
         self.encoder_freeze_mode = encoder_freeze_mode
         self.combined_loss_mode = combined_loss_mode
@@ -194,9 +221,11 @@ class ContrastiveBlindSRHandler(BaseHandler):
                                    dtype=self.dtype)
                    if self.reducer_layer_sizes else None)
         generator = _build_generator(self._generator, self.scale, self.emb_size,
-                                     self.dtype, dict(gen_kwargs))
+                                     self.dtype, dict(gen_kwargs), self.sft_mode,
+                                     self.srmd_mode)
         pipeline = BlindSRPipeline(generator, encoder, reducer, self.embedding_type,
-                                   frozen_encoder=self.frozen)
+                                   frozen_encoder=self.frozen, sft_mode=self.sft_mode,
+                                   srmd_mode=self.srmd_mode)
         if self.joint:
             pipeline.key_encoder = DASREncoder(
                 dropdown_q=self.encoder_dropdown, out_dim=self.encoder_dim,
@@ -319,7 +348,7 @@ class ContrastiveBlindSRHandler(BaseHandler):
         def loss_fn():
             x = batch["lr"].permute(0, 3, 1, 2)
             emb, outs = mod.embed(x, train=True)  # E's running statistics advance here only
-            sr = mod.generator(x, emb).permute(0, 2, 3, 1)
+            sr = mod.generate(x, emb).permute(0, 2, 3, 1)
             logits = moco_logits(_normalize(outs["q"]), kp, mod.queue, self.T, labels,
                                  getattr(mod, "queue_labels", None), max(self.num_classes, 1))
             ce = softmax_cross_entropy_first(logits)
@@ -354,3 +383,8 @@ class ContrastiveBlindSRHandler(BaseHandler):
 @register_model("contrastiveblindqrcan")
 class ContrastiveBlindQRCANHandler(ContrastiveBlindSRHandler):
     generator_name = "qrcan"
+
+
+@register_model("contrastiveblindqedsr")
+class ContrastiveBlindQEDSRHandler(ContrastiveBlindSRHandler):
+    generator_name = "qedsr"

@@ -34,6 +34,12 @@ def pixel_unshuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
     return F.pixel_unshuffle(x, scale)
 
 
+def tile_maps(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Per-image vectors (N, M) as (N, M, H, W) maps: a broadcast view, so a
+    consumer's concat makes the only copy."""
+    return v[:, :, None, None].expand(v.shape[0], v.shape[1], h, w)
+
+
 class Conv(nn.Module):
     """k x k conv with SAME padding: the zoo's default_conv. With
     ``stride`` 2 it pads k // 2 on every side, as the JAX package's explicit

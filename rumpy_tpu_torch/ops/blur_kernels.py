@@ -240,3 +240,69 @@ def sample_kernels(generator: torch.Generator, batch: int, cfg: BlurKernelConfig
     """A batch of blur kernels (B, k, k) and their metadata, drawn from
     ``generator`` on its device."""
     return kernels_from_draws(cfg, draw_kernel_params(generator, batch, cfg))
+
+
+@dataclasses.dataclass
+class SRMDDraws:
+    """The draws behind a batch of SRMD/IKC Gaussian kernels, each (B,):
+    ``is_iso`` (bool), the isotropic ``sigma``, and the anisotropic
+    ``rotation``, ``sigma_x`` and ``u_y`` (U(0, 1), scaled into sigma_y)."""
+    is_iso: torch.Tensor
+    sigma: torch.Tensor
+    rotation: torch.Tensor
+    sigma_x: torch.Tensor
+    u_y: torch.Tensor
+
+
+def draw_srmd_params(generator: torch.Generator, batch: int, sig_min: float = 0.2,
+                     sig_max: float = 4.0, rate_iso: float = 1.0) -> SRMDDraws:
+    """The draws of :func:`sample_srmd_kernels` with ``random``."""
+    dev = generator.device
+    return SRMDDraws(
+        is_iso=torch.rand(batch, generator=generator, device=dev) < rate_iso,
+        sigma=_uniform(generator, batch, (sig_min, sig_max)),
+        rotation=_uniform(generator, batch, (-math.pi, math.pi)),
+        sigma_x=_uniform(generator, batch, (sig_min, sig_max)),
+        u_y=torch.rand(batch, generator=generator, device=dev))
+
+
+def srmd_kernels_from_draws(kernel_size: int, d: SRMDDraws, sig_min: float = 0.2,
+                            sig_max: float = 4.0, scaling: float = 3.0
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Kernels (B, k, k) and metadata {isotropic_sigma, anisotropic_x,
+    anisotropic_y, anisotropic_pi} from ``d``: isotropic sigma, or an
+    anisotropic Gaussian with sigma_y = clip(u_y * scaling * sigma_x,
+    sig_min, sig_max) at the drawn rotation; a field reads 0 unless the
+    example's kind uses it."""
+    sig_y = torch.clamp(d.u_y * scaling * d.sigma_x, sig_min, sig_max)
+    zeros = torch.zeros_like(d.sigma)
+    sx = torch.where(d.is_iso, d.sigma, d.sigma_x)
+    sy = torch.where(d.is_iso, d.sigma, sig_y)
+    th = torch.where(d.is_iso, zeros, d.rotation)
+    kernels = gaussian_kernels(kernel_size, sx, sy, th)
+    return kernels, {
+        "isotropic_sigma": torch.where(d.is_iso, d.sigma, zeros),
+        "anisotropic_x": torch.where(d.is_iso, zeros, d.sigma_x),
+        "anisotropic_y": torch.where(d.is_iso, zeros, sig_y),
+        "anisotropic_pi": torch.where(d.is_iso, zeros, d.rotation),
+    }
+
+
+def sample_srmd_kernels(generator: torch.Generator, batch: int, kernel_size: int = 21,
+                        sig: float = 2.6, sig_min: float = 0.2, sig_max: float = 4.0,
+                        rate_iso: float = 1.0, scaling: float = 3.0, random: bool = True
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SRMD/IKC Gaussian kernels on the generator's device: isotropic with
+    probability ``rate_iso`` and sigma ~ U(sig_min, sig_max), else
+    anisotropic (rotation ~ U(-pi, pi), sigma_x ~ U(sig_min, sig_max),
+    sigma_y as :func:`srmd_kernels_from_draws` says). Without ``random``
+    every kernel is isotropic at ``sig``."""
+    if not random:
+        sigma = torch.full((batch,), float(sig), device=generator.device)
+        zeros = torch.zeros_like(sigma)
+        return gaussian_kernels(kernel_size, sigma, sigma, zeros), {
+            "isotropic_sigma": sigma, "anisotropic_x": zeros,
+            "anisotropic_y": zeros, "anisotropic_pi": zeros}
+    return srmd_kernels_from_draws(
+        kernel_size, draw_srmd_params(generator, batch, sig_min, sig_max, rate_iso),
+        sig_min, sig_max, scaling)

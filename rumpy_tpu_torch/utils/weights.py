@@ -11,10 +11,15 @@ HWIO -> OIHW (the 1x1 kernels ``(1,1,in,out)`` too); Dense kernels
 (in, out) -> ``Linear`` weights (out, in); a BatchNorm's ``scale`` and
 ``bias`` are params, its ``mean`` and ``var`` come from the
 ``batch_stats`` tree at the same path and become the running-stat buffers.
-Covered: RCAN, EDSR, QRCAN (``QResidualGroup_<i>``, ``QRCAB_<j>``,
-``QCALayer_0``, ``ParaCALayer_0``), the DASR encoder (``TConv_0..5``,
+Covered: RCAN, EDSR (and EDSRMD), QRCAN (``QResidualGroup_<i>``,
+``QRCAB_<j>``, ``QCALayer_0``, ``PALayer_0``, ``ParaCALayer_0``,
+``SFTLayer_0``), QEDSR (``ParamResBlock_<i>``), SRMD, SFTMD (its SFT
+layers and q-layers), the DASR encoder (``TConv_0..5``,
 ``BatchNorm_0..5``, ``TDense_<k>``) and the BoBW pipeline's
-``generator``/``encoder``/``reducer`` subtrees. Any unused or missing
+``generator``/``encoder``/``reducer`` subtrees. Flax names a compact
+module's children in the order they are constructed, and an outer conv
+is constructed before its inner one: an ``SFTLayer``'s ``TConv_0`` is
+its scale branch's second conv. Any unused or missing
 leaf, and any shape mismatch, raises. ``jax_tree_from_state_dict`` is the
 inverse, with flax's plain (not remat) names.
 """
@@ -28,13 +33,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from rumpy_tpu_torch.models.advanced import EDSR, RCAN, ResidualGroup
-from rumpy_tpu_torch.models.attention_manipulators import (QRCAB, QRCAN, ParaCALayer,
-                                                           QCALayer, QResidualGroup)
+from rumpy_tpu_torch.models.advanced import EDSR, RCAN, SRMD, ResidualGroup
+from rumpy_tpu_torch.models.attention_manipulators import (QEDSR, QRCAB, QRCAN, PALayer,
+                                                           ParaCALayer, ParamResBlock,
+                                                           QCALayer, QResidualGroup, SFTLayer)
 from rumpy_tpu_torch.models.blind_sr import BlindSRPipeline, EncodingReducer
 from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Linear,
                                            ResBlock, Upsampler)
 from rumpy_tpu_torch.models.contrastive import DASREncoder
+from rumpy_tpu_torch.models.sftmd_variants import SFTMD, SFTResidualBlock, SftConvs
 
 Path = Tuple[str, ...]
 LEAF_TYPES = (Conv, Linear, BatchNorm)
@@ -59,13 +66,45 @@ def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Pa
         yield from conv(module.body_tail, "body_tail", 1)
         yield from sub(module.upsampler, "upsampler", "Upsampler_0")
         yield from conv(module.tail, "tail", 2)
-    elif isinstance(module, EDSR):
+    elif isinstance(module, (EDSR, QEDSR)):
+        body, block = (("body", "ResBlock") if isinstance(module, EDSR)
+                       else ("blocks", "ParamResBlock"))
         yield from conv(module.head, "head", 0)
-        for i, b in enumerate(module.body):
-            yield from sub(b, f"body.{i}", f"ResBlock_{i}")
+        for i, b in enumerate(getattr(module, body)):
+            yield from sub(b, f"{body}.{i}", f"{block}_{i}")
         yield from conv(module.body_tail, "body_tail", 1)
         yield from sub(module.upsampler, "upsampler", "Upsampler_0")
         yield from conv(module.tail, "tail", 2)
+    elif isinstance(module, ParamResBlock):
+        yield from conv(module.conv1, "conv1", 0)
+        yield from conv(module.conv2, "conv2", 1)
+        if module.q is not None:
+            yield from sub(module.q, "q", "ParaCALayer_0")
+    elif isinstance(module, SRMD):
+        for i, c in enumerate(module.convs):
+            yield from conv(c, f"convs.{i}", i)
+    elif isinstance(module, SFTMD):
+        for i, c in enumerate(module.convs):
+            yield from conv(c, f"convs.{i}", i)
+        for i, b in enumerate(module.blocks):
+            yield from sub(b, f"blocks.{i}", f"SFTResidualBlock_{i}")
+        if module.final_sft is not None:
+            yield from sub(module.final_sft, "final_sft", f"{module.final_sft.flax_name}_0")
+        if module.final_q is not None:
+            yield from sub(module.final_q, "final_q", "ParaCALayer_0")
+        yield from sub(module.out, "out", "TConv_0")
+    elif isinstance(module, SFTResidualBlock):
+        for i, s in enumerate((module.sft1, module.sft2)):
+            if s is not None:
+                yield from sub(s, f"sft{i + 1}", f"{s.flax_name}_{i}")
+        yield from conv(module.conv1, "conv1", 0)
+        yield from conv(module.conv2, "conv2", 1)
+        for i, q in enumerate((module.q1, module.q2)):
+            if q is not None:
+                yield from sub(q, f"q{i + 1}", f"ParaCALayer_{i}")
+    elif isinstance(module, SftConvs):
+        for i, c in enumerate(module.convs):
+            yield from conv(c, f"convs.{i}", i)
     elif isinstance(module, (ResidualGroup, QResidualGroup)):
         block = "RCAB" if isinstance(module, ResidualGroup) else "QRCAB"
         for i, b in enumerate(module.blocks):
@@ -75,15 +114,26 @@ def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Pa
         yield from conv(module.conv1, "conv1", 0)
         yield from conv(module.conv2, "conv2", 1)
         yield from sub(module.ca, "ca", "QCALayer_0")
+        if module.pa is not None:
+            yield from sub(module.pa, "pa", "PALayer_0")
         if module.q is not None:
             yield from sub(module.q, "q", "ParaCALayer_0")
+        if module.sft is not None:
+            yield from sub(module.sft, "sft", "SFTLayer_0")
     elif isinstance(module, RCAB):
         yield from conv(module.conv1, "conv1", 0)
         yield from conv(module.conv2, "conv2", 1)
         yield from sub(module.ca, "ca", "CALayer_0")
-    elif isinstance(module, (CALayer, QCALayer)):
+    elif isinstance(module, QCALayer) and module.style == "extended_attention":
+        for i, c in enumerate(module.concat):
+            yield from sub(c, f"concat.{i}", f"TConv_{i}")
+        yield from sub(module.up, "up", f"TConv_{len(module.concat)}")
+    elif isinstance(module, (CALayer, QCALayer, PALayer)):
         yield from sub(module.down, "down", "TConv_0")
         yield from sub(module.up, "up", "TConv_1")
+    elif isinstance(module, SFTLayer):
+        for i, name in enumerate(("scale_out", "scale_in", "shift_out", "shift_in")):
+            yield from sub(getattr(module, name), name, f"TConv_{i}")
     elif isinstance(module, ParaCALayer):
         for i, c in enumerate(module.convs):
             yield from sub(c, f"convs.{i}", f"TConv_{i}")

@@ -239,11 +239,23 @@ def test_jax_bobw_checkpoint_loads_into_port(jax_bobw, tmp_path):
 
 
 def test_bobw_options_of_later_slices_raise():
-    for kw in (dict(sft_mode=True), dict(srmd_mode=True), dict(generator="qedsr")):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            torch_model("contrastiveblindqrcan")(device="cpu", **BOBW, **kw)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        torch_model("contrastiveblindqrcan")(device="cpu", **BOBW, style="softmax")
+    """The options that raised before they were ported (the SFT and SRMD
+    modes, a QEDSR generator, the softmax style) give the JAX pipeline's
+    outputs from its random-init state, running statistics included."""
+    x = np.random.default_rng(8).random((2, 12, 10, 3)).astype(np.float32)
+    for kw in (dict(BOBW, sft_mode=True), dict(BOBW, srmd_mode=True),
+               dict(scale=2, generator="qedsr", num_features=16, num_blocks=2),
+               dict(BOBW, style="softmax")):
+        jh = jax_model("contrastiveblindqrcan")(**kw)
+        js = jh.init_state()
+        th = torch_model("contrastiveblindqrcan")(device="cpu", **kw)
+        full = {**_np(js.params), "encoder": _np(js.extra["frozen_encoder"])}
+        th.module.load_state_dict(state_dict_from_jax(full, th.module,
+                                                      batch_stats=_np(js.extra["bstats"])))
+        want = np.asarray(jh.run_eval(js, {"lr": jnp.asarray(x)}))
+        got = th.run_eval(th._own_state(), {"lr": x}).numpy()
+        assert got.shape == want.shape == (2, 24, 20, 3)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=str(kw))
 
 
 def test_bobw_needs_cuda_unless_cpu_is_asked(monkeypatch):

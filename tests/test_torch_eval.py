@@ -280,8 +280,35 @@ def test_port_training_writes_validation(tmp_path, data):
     "cli_metadata_file", "cli_lpips_weights", "cli_gallery", "cli_fr_gallery",
     "cli_fr_extractor_weights", "resume_jax_optimizer"])
 def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
+    """Each option of a later slice raises. The metadata options, ported
+    since, score as the JAX package does instead: ``metadata_file`` =
+    "on_site" (the LR folder has no CSV) through EvalHub, and a CSV given
+    by ``--metadata_file`` through eval_sisr (RCAN takes none of its
+    columns, so it is read and not used)."""
     model_loc, _ = experiment
     lr_dir, hr_dir = data
+    if option == "metadata_file":
+        kwargs = dict(models=[{"experiment": EXP, "epoch": "last"}], model_loc=model_loc,
+                      data_cfg={"lr_dir": lr_dir, "hr_dir": hr_dir, "metadata_file": "on_site"},
+                      scale=SCALE, metrics=["PSNR", "SSIM"])
+        JaxEvalHub(out_loc=str(tmp_path / "jax"), **kwargs).full_image_protocol()
+        EvalHub(out_loc=str(tmp_path / "port"), device="cpu", **kwargs).full_image_protocol()
+        assert_same_metrics(str(tmp_path / "port"), str(tmp_path / "jax"), EXP, runtime=False)
+        return
+    if option == "cli_metadata_file":
+        csv_path = tmp_path / "m.csv"
+        with open(csv_path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["image", "0-realesrganblur-sigma_x", "0-realesrganblur-kernel_type"])
+            for k in range(len(LR_SHAPES)):
+                w.writerow([f"im{k}.png", 0.5 + k, k % 2])
+        flags = ["--model_loc", model_loc, "--scale", str(SCALE), "--lr_dir", lr_dir,
+                 "--hr_dir", hr_dir, "-me", EXP, "last", "--metadata_file", str(csv_path)]
+        r = CliRunner().invoke(jax_eval_main, flags + ["--out_loc", str(tmp_path / "jax")])
+        assert r.exit_code == 0, r.output + repr(r.exception)
+        eval_sisr.main(flags + ["--out_loc", str(tmp_path / "port"), "--device", "cpu"])
+        assert_same_metrics(str(tmp_path / "port"), str(tmp_path / "jax"), EXP, runtime=False)
+        return
     base = dict(models=[{"experiment": EXP, "epoch": "last"}], model_loc=model_loc,
                 data_cfg={"lr_dir": lr_dir, "hr_dir": hr_dir}, out_loc=str(tmp_path),
                 scale=SCALE, device="cpu")
@@ -292,9 +319,6 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
         "fr_gallery": lambda: EvalHub(fr_gallery=str(tmp_path), **base),
         "FR_rank": lambda: EvalHub(metrics=["PSNR", "FR_rank"], **base),
         "LPIPS": lambda: EvalHub(metrics=["PSNR", "LPIPS"], **base),
-        "metadata_file": lambda: EvalHub(**{**base, "data_cfg": {
-            **base["data_cfg"], "metadata_file": "on_site"}}),
-        "cli_metadata_file": lambda: eval_sisr.main(flags + ["--metadata_file", "m.csv"]),
         "cli_lpips_weights": lambda: eval_sisr.main(flags + ["--lpips_weights", "w.npz"]),
         "cli_gallery": lambda: eval_sisr.main(flags + ["--gallery"]),
         "cli_fr_gallery": lambda: eval_sisr.main(flags + ["--fr_gallery", "g"]),

@@ -1,7 +1,8 @@
 """The port's degradation pipeline (rumpy_tpu_torch.degradations) against
 the JAX package's, on the CPU: metadata keys, shapes, the sampled values
 in their configured and normalized ranges, the randomcompress columns,
-and the options that raise until a later slice."""
+the options that raise until a later slice, and the PCA options and
+SRMD/BSRGAN blurs that raised until this one."""
 
 import math
 
@@ -140,15 +141,63 @@ def test_host_paths_raise_naming_the_tools_slice(make):
         make()
 
 
-@pytest.mark.parametrize("make", [
-    lambda: get_tool("realesrganblur")(request_pca_kernels=True),
-    lambda: get_tool("realesrgannoise")(request_noise_image_pca=True),
-    lambda: get_tool("srmdgaussianblur")(),
-    lambda: get_tool("bsrganblur")(),
-], ids=["pca_kernels", "noise_pca", "srmd", "bsrgan"])
-def test_pca_options_raise_naming_their_slice(make):
-    with pytest.raises(NotImplementedError, match="degradations/pca.py"):
-        make()
+def _jax_srmd_draws(key, batch, sig_min, sig_max, rate_iso):
+    """The draws of the JAX package's sample_srmd_kernels, its key splits
+    written out (rumpy_tpu/ops/blur_kernels.py:136-176)."""
+    from rumpy_tpu_torch.ops.blur_kernels import SRMDDraws
+    k1, k2, k3, k4, k5 = jax.random.split(key, 5)
+    u = lambda k, lo=0.0, hi=1.0: torch.from_numpy(np.array(
+        jax.random.uniform(k, (batch,), minval=lo, maxval=hi)))
+    return SRMDDraws(is_iso=u(k1) < rate_iso, sigma=u(k2, sig_min, sig_max),
+                     rotation=u(k3, -math.pi, math.pi), sigma_x=u(k4, sig_min, sig_max),
+                     u_y=u(k5))
+
+
+@pytest.mark.parametrize("option", ["pca_kernels", "noise_pca", "srmd", "bsrgan"])
+def test_pca_options_raise_naming_their_slice(monkeypatch, option):
+    """The PCA options and the SRMD/BSRGAN blurs raised until
+    degradations/pca.py was ported; each now builds as the JAX package's
+    does: the packaged kernel basis and its encoding, the noise basis's
+    shape, and each blur's output and metadata from the same draws (the
+    default srmdgaussianblur draws nothing)."""
+    from rumpy_tpu.degradations import blur as jblur
+    from rumpy_tpu.degradations import noise as jnoise
+    from rumpy_tpu_torch.ops import blur_kernels as tbk
+    imgs = np.random.default_rng(3).random((2, 24, 22, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(4)
+    if option == "noise_pca":
+        kw = dict(request_noise_image_pca=True, pca_batch_len=16, noise_image_pca_length=4,
+                  pca_patch_size=8)
+        got = get_tool("realesrgannoise")(**kw).pca_encoder.matrix
+        want = jnoise.RealESRGANNoise(**kw).pca_encoder.matrix
+        assert tuple(got.shape) == tuple(want.shape) == (4, 192)
+        np.testing.assert_allclose(got.numpy() @ got.numpy().T, np.eye(4), atol=1e-5)
+        return
+    kw = dict(request_kernel_metadata=True, request_pca_kernels=True,
+              load_pca_matrix="standard")
+    name, jcls = {"pca_kernels": ("realesrganblur", jblur.RealESRGANBlur),
+                  "srmd": ("srmdgaussianblur", jblur.SRMDGaussianBlur),
+                  "bsrgan": ("bsrganblur", jblur.BSRGANBlur)}[option]
+    top, jop = get_tool(name)(**kw), jcls(**kw)
+    np.testing.assert_array_equal(top.pca_encoder.matrix.numpy(),
+                                  np.asarray(jop.pca_encoder.matrix))
+    assert top.get_hyperparams() == jop.get_hyperparams()
+    want, want_m = jop.batch_apply(key, jax.numpy.asarray(imgs))
+    if option == "bsrgan":  # random: the JAX side's draws
+        monkeypatch.setattr(tbk, "draw_srmd_params", lambda g, b, lo, hi, r: _jax_srmd_draws(
+            key, b, lo, hi, r))
+    if option == "pca_kernels":  # random families: hold the encoding of its own kernels
+        top.request_full_kernels = True
+        _, got_m = top.batch_apply(torch.Generator(), torch.from_numpy(imgs))
+        assert set(got_m) == set(want_m) | {"unmodified_blur_kernel"}
+        enc = got_m["unmodified_blur_kernel"].numpy() @ np.asarray(jop.pca_encoder.matrix).T
+        np.testing.assert_allclose(got_m["blur_kernel"].numpy(), enc, atol=1e-6, rtol=0)
+        return
+    got, got_m = top.batch_apply(torch.Generator(), torch.from_numpy(imgs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    assert sorted(got_m) == sorted(want_m)
+    for k, v in want_m.items():
+        np.testing.assert_allclose(got_m[k].numpy(), np.asarray(v), atol=1e-6, rtol=0)
 
 
 def test_random_scale_raises_on_the_device_path():

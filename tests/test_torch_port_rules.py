@@ -302,3 +302,94 @@ def test_predictor_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     dump_toml(cfg, str(tmp_path / "c.toml"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_sisr.main(["-p", str(tmp_path / "c.toml")])
+
+
+METADATA_MODULES = ("models/attention_manipulators.py", "models/blind_sr.py",
+                    "models/advanced.py", "models/sftmd_variants.py", "degradations/pca.py",
+                    "degradations/blur.py", "degradations/noise.py", "evaluation/eval_hub.py",
+                    "cli/eval_sisr.py", "utils/weights.py")
+METADATA_MODELS = ("qrcan", "qedsr", "contrastiveblindqedsr", "srmd", "edsrmd", "sftmd")
+
+
+def test_port_covers_the_metadata_conditioned_modules():
+    """The metadata slice's modules are in the package (so the import scans
+    above read them), the registries find its models and blur ops, and
+    none of its options raises as a later slice's would."""
+    from rumpy_tpu_torch.degradations.blur import RealESRGANBlur
+    from rumpy_tpu_torch.degradations.noise import RealESRGANNoise
+    from rumpy_tpu_torch.registry import available_models, available_tools, get_model
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    missing = [m for m in METADATA_MODULES if m not in names]
+    assert not missing, missing
+    assert set(METADATA_MODELS) <= set(available_models())
+    assert {"srmdgaussianblur", "bsrganblur"} <= set(available_tools())
+    small = dict(device="cpu", scale=2, n_feats=16, n_resgroups=1, n_resblocks=1, reduction=4)
+    for kw in (dict(style="softmax"), dict(style="extended_attention"),
+               dict(include_pixel_attention=True, include_sft_layer=True)):
+        get_model("qrcan")(**small, **kw)
+    for kw in (dict(sft_mode=True), dict(srmd_mode=True)):
+        get_model("contrastiveblindqrcan")(**small, **kw)
+    get_model("qedsr")(device="cpu", scale=2, num_features=16, num_blocks=1,
+                       selective_meta_blocks="front_only")
+    get_model("contrastiveblindqedsr")(device="cpu", scale=2, num_features=16, num_blocks=1)
+    for name in ("srmd", "edsrmd", "sftmd"):
+        get_model(name)(device="cpu", scale=2)
+    RealESRGANBlur(request_pca_kernels=True, load_pca_matrix="standard")
+    RealESRGANNoise(request_noise_image_pca=True, load_pca_matrix="standard")
+
+
+def test_metadata_models_raise_without_cuda(monkeypatch):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in METADATA_MODELS:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            get_model(name)()
+
+
+def test_pca_encoding_reads_nothing_back():
+    """The PCA encoder runs inside the chain of a train step."""
+    tree = ast.parse((ROOT / "rumpy_tpu_torch" / "degradations" / "pca.py").read_text())
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == "PCAEncoder")
+    call = next(n for n in cls.body if getattr(n, "name", "") == "__call__")
+    bad = [n.lineno for n in ast.walk(call) if isinstance(n, ast.Call)
+           and isinstance(n.func, ast.Attribute) and n.func.attr in SYNCING_CALLS]
+    assert not bad, bad
+
+
+def test_chip_smoke_drives_the_metadata_phases():
+    """chip_smoke.py keeps its earlier phases and drives the three of the
+    metadata slice from main()."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    called = {n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    for phase in ("meta_attention", "bobw_family", "metadata_maps", "bobw_joint",
+                  "contrastive_train", "bobw_train", "degrade_train", "eval"):
+        assert f"{phase}_phase" in called, phase
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in ("meta_attention", "bobw_family", "metadata_maps"):
+        assert f'"phase": "{phase}"' in text, phase
+
+
+def test_chip_smoke_holds_every_launched_shape():
+    """chip_smoke.py records each RCAB kernel launch's shape, dtype and form
+    and fails on one that no comparison held; and its comparisons cover,
+    in both forms, every shape that eval_sisr (one image a forward) and
+    validation (chunks of up to eight a shape) launch on its eval pairs."""
+    import collections
+    import importlib.util
+    import torch
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    called = {n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert {"record_launches", "launch_coverage_phase"} <= called
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = set()
+    for (h, w), k in collections.Counter(smoke.EVAL_LR_SHAPES).items():
+        want.add((1, h, w, 64))
+        want.update((len(range(i, min(i + 8, k))), h, w, 64) for i in range(0, k, 8))
+    assert want <= set(smoke.EXTRA_SHAPES)
+    assert want <= {s for s, dt in smoke.QRCAB_SHAPES if dt == torch.bfloat16}

@@ -188,12 +188,55 @@ UNFOLDABLE = [(dict(style="softmax"), dict(style="softmax")),
 @pytest.mark.parametrize("block_kw,net_kw", UNFOLDABLE,
                          ids=["softmax", "extended_attention", "pa", "sft_layer"])
 def test_unfoldable_options_raise(block_kw, net_kw):
-    """The options the fused kernel cannot absorb raise, naming their item."""
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        tam.QRCAB(C, R, **{"style": "max_concat", **block_kw}, num_metadata=5)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        tam.QRCAN(n_feats=C, n_resgroups=1, n_resblocks=1, reduction=R, num_metadata=5,
-                  include_q_layer=True, **{"style": "max_concat", **net_kw})
+    """The options the fused kernel cannot absorb, which raised before they
+    were ported, now build the plain route: a QRCAB with one of them (and
+    a q-layer) against flax's block, forward and every gradient, and a
+    QRCAN with it against flax's network."""
+    m = 5
+    kw = {"style": "max_concat", **block_kw}
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(SHAPE).astype(np.float32)
+    meta = rng.random((SHAPE[0], m)).astype(np.float32)
+    maps = np.broadcast_to(meta[:, None, None, :], SHAPE[:3] + (m,)).copy()
+    cot = rng.standard_normal(SHAPE).astype(np.float32)
+    jm = jam.QRCAB(C, R, q_layer=True, num_metadata=m, **kw)
+    args = (jnp.asarray(x), jnp.asarray(meta), jnp.asarray(maps))
+    params = _np(jm.init(jax.random.PRNGKey(7), *args)["params"])
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params)
+    tm = tam.QRCAB(C, R, q_layer=True, num_metadata=m, **kw)
+    assert not tm.fused
+    tm.load_state_dict(state_dict_from_jax(params, tm))
+    want = np.asarray(jm.apply({"params": params}, *args))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    out = tm(xt, torch.from_numpy(meta), torch.from_numpy(maps).permute(0, 3, 1, 2))
+    out = out.permute(0, 2, 3, 1)
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=F32_ATOL, rtol=0)
+    gp, gx = jax.grad(lambda p, xv: jnp.sum(jm.apply({"params": p}, xv, *args[1:]) * cot),
+                      argnums=(0, 1))(params, args[0])
+    (out * torch.from_numpy(cot)).sum().backward()
+    grads = jax_tree_from_state_dict({k: p.grad for k, p in tm.named_parameters()}, tm)
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(grads)[0])
+    pairs = [("x", xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(gx))]
+    pairs += [(jax.tree_util.keystr(k), flat_got[k], v)
+              for k, v in jax.tree_util.tree_flatten_with_path(_np(gp))[0]]
+    for name, got, w in pairs:
+        assert np.abs(got - w).max() <= F32_GRAD_REL * max(np.abs(w).max(), 1e-6), name
+
+    net = dict(n_feats=C, n_resgroups=1, n_resblocks=2, reduction=R, num_metadata=m,
+               include_q_layer=True, scale=2, **{"style": "max_concat", **net_kw})
+    jn = jam.QRCAN(**net)
+    xi = rng.random((2, 6, 7, 3)).astype(np.float32)
+    nmaps = np.broadcast_to(meta[:, None, None, :], (2, 6, 7, m)).copy()
+    nargs = (jnp.asarray(xi), jnp.asarray(meta), jnp.asarray(nmaps))
+    nparams = _np(jn.init(jax.random.PRNGKey(8), *nargs)["params"])
+    tn = tam.QRCAN(**net)
+    tn.load_state_dict(state_dict_from_jax(nparams, tn))
+    with torch.inference_mode():
+        got = tn(torch.from_numpy(xi).permute(0, 3, 1, 2), torch.from_numpy(meta),
+                 torch.from_numpy(nmaps).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, np.asarray(jn.apply({"params": nparams}, *nargs)),
+                               atol=F32_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("per_image", ["bd", "bu", "scale", "all"])

@@ -200,13 +200,24 @@ def test_options_of_later_slices_raise(tmp_path, dataset, monkeypatch):
     base = load_config(_write_config(tmp_path / "c.toml", dataset, tmp_path / "out"))
     for table, key, value in (
             ("training", "metrics", ["PSNR", "LPIPS"]),
-            ("data", "online_degradations", {"pipeline": [["srmdgaussianblur", "b"]],
-                                              "deg_configs": {"b": {}}}),
             ("training", "profile_steps", 2), ("training", "logging", "aim")):
         cfg = load_config(str(tmp_path / "c.toml"))
         cfg[table][key] = value
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TrainingHandler(cfg, verbose=False, device="cpu")
+    # srmdgaussianblur, which raised until its slice, builds the trainer's
+    # online chain and degrades as the JAX package's does (its default
+    # kernel is fixed: isotropic, sigma 2.6)
+    from rumpy_tpu.degradations.pipeline import ImagePipeline as JaxPipeline
+    chain = {"pipeline": [["srmdgaussianblur", "b"]], "deg_configs": {"b": {}}}
+    cfg = load_config(str(tmp_path / "c.toml"))
+    cfg["data"]["online_degradations"] = chain
+    h = TrainingHandler(cfg, verbose=False, device="cpu")
+    hr = np.random.default_rng(5).random((2, 30, 26, 3)).astype(np.float32)
+    got = h.model.model.input_fn(torch.Generator(), {"hr": torch.from_numpy(hr)})["lr"]
+    want, _ = JaxPipeline(chain["pipeline"], deg_configs=chain["deg_configs"]).degrade_batch(
+        jax.random.PRNGKey(0), jnp.asarray(hr))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     # task_type = "regression" goes to the regression trainer, as in the JAX
     # package's CLI
     base["data"]["task_type"] = "regression"
