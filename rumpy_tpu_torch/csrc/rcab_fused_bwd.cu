@@ -23,6 +23,21 @@
 //
 // h2 and u come from the forward's workspace; h1 is recomputed from x.
 //
+// dh2 = g * u + c with c[n] = dgap / (H*W) a constant over the image. The
+// tensor-core plan feeds only round_bf16(g * u) to its two products with dh2
+// (conv2's transposed conv, dw2) and adds c's share exactly in f32: c is
+// below half a bf16 ulp of g * u wherever H*W is large, so rounding the sum
+// would drop it, and with it most of db1 and dw2 on a whole image. Its share
+// of dh1 at pixel q is the sum over the taps t whose source pixel q - t lies
+// in the image of W2[t] . c[n]; that depends only on whether q lies on the
+// first, last or an inner row and column, so the gate kernel tabulates it as
+// 9 classes x C an image (ctab). Its share of dw2[t] is (the sum of h1 over
+// the pixels q with q - t in the image) x c[n]; the weight-gradient pass sums
+// h1 by the same 9 classes from the tiles it holds and adds the product to
+// its split's partial. db2 sums dh2 before any rounding. The CUDA-core plan
+// holds dh2 in f32 in its tiles (bf16 ones too, at the widths off the tensor
+// cores), so c stays in it exactly and that plan needs no split.
+//
 // Per-example gate inputs (a QRCAB: bd[n], bu[n] and a channel scale
 // s[n, c] in place of res_scale; rcab_fused.cu): the gate kernel reads
 // bd[n * bd_stride + j], takes du = s[n,c] * sum_hw dout * h2, writes
@@ -47,14 +62,15 @@
 //
 // Tensor-core plan, six launches:
 //   1. rcab_bwd_du_kernel: per-chunk sums of dout * h2; rcab_bwd_gate_kernel,
-//      one block an image: du, the gate's backward, dgap.
+//      one block an image: du, the gate's backward, dgap, and ctab.
 //   2. rcab_bwd_dh1_mma_kernel, one block per (tile, image): conv1 again on
 //      the x tile -> h1, rounded to bf16, staged in shared memory and written
 //      out 16 bytes a thread for pass 4, its sign kept as 64 bits a thread
-//      in the C-fragment layout; then dh2 built as bf16 in shared memory
-//      from dout, u and dgap (dh2_value: rounded once, and pass 4 rebuilds
-//      the same bits, so conv2^T and dw2 see one dh2), the transposed conv2
-//      and the ReLU mask -> dh1. Both convs are conv3x3_mma: a tap
+//      in the C-fragment layout; then g * u built as bf16 in shared memory
+//      from dout and u (dh2_part: rounded once, and pass 4 rebuilds the same
+//      bits, so conv2^T and dw2 see one operand), the transposed conv2, the
+//      pixel's ctab row added in f32, and the ReLU mask -> dh1. Both convs are
+//      conv3x3_mma: a tap
 //      of weights comes through cp.async under the mma of the tap before,
 //      and a transposed conv reads tap 8 - t as it lies with ldmatrix without
 //      .trans, so there is no flipped copy. Tiles are 16x16 (two m-tiles a
@@ -74,8 +90,9 @@
 //      tiles in order with the next two tiles' cp.async loads in flight,
 //      sums the bias gradient from the same g tile (db2 from dh2 before its
 //      rounding: the rounding errors of dout * u + c do not average out over
-//      an image, because dout takes few distinct bf16 values), and writes
-//      one partial.
+//      an image, because dout takes few distinct bf16 values), for conv2
+//      sums h1 by pixel class and adds c's share to its accumulators each
+//      time its walk leaves an image, and writes one partial.
 //   5. rcab_bwd_finish_kernel adds the splits in order into dw1, dw2, db1,
 //      db2 and the images' terms into dwd, dbd, dwu, dbu.
 // The weight gradients are not folded into passes 2 and 3, though those hold
@@ -209,13 +226,30 @@ __device__ __forceinline__ float strided_sum(const float* __restrict__ p, int q,
   return s;
 }
 
+// A pixel's class along one axis: 0 on the first row (column), 2 on the last,
+// 1 between (an axis of extent 1 has class 0 only).
+__device__ __forceinline__ int edge_class(int i, int extent) {
+  return i == 0 ? 0 : (i == extent - 1 ? 2 : 1);
+}
+
+// Whether tap row (column) k of a 3x3 conv, offset k - 1, reaches from a
+// pixel of class `cls` along an axis of `extent` to a source pixel inside
+// it: offset -1 needs a pixel below (not the last row), +1 one above.
+__device__ __forceinline__ bool tap_valid(int cls, int k, int extent) {
+  if (k == 1) return true;
+  if (k == 0) return cls == 1 || (cls == 0 && extent > 1);
+  return cls != 0;
+}
+
 // One block per image: du from the chunk sums, GAP from the forward's tile
 // sums, the C -> R -> C gate backwards. Each channel's tiles and chunks are
 // split over Q threads (q, q+Q, ...) and the Q sums added in order. Leaves
 // dgap / HW, ds (gradient at the sigmoid's input), gap, dz (gradient at the
 // ReLU's input) and d (the ReLU's output) per image for the passes that
 // follow. With a per-example scale it also writes dscale and the effective
-// gate u * scale (see the top of the file).
+// gate u * scale (see the top of the file). With w2 (the tensor-core plan)
+// it also writes ctab[n][3 * row class + column class][ci], the sum over
+// the taps t valid for that class of sum_co w2[t][ci][co] * dgap[n][co] / HW.
 __global__ void __launch_bounds__(kThreads)
 rcab_bwd_gate_kernel(const float* __restrict__ part_du, const float* __restrict__ fwd_partial,
                      const float* __restrict__ gate, const float* __restrict__ wd,
@@ -224,7 +258,9 @@ rcab_bwd_gate_kernel(const float* __restrict__ part_du, const float* __restrict_
                      float* __restrict__ dscale, float* __restrict__ gate_eff,
                      float* __restrict__ dgap_hw, float* __restrict__ ds_out,
                      float* __restrict__ gap_out, float* __restrict__ dz_out,
-                     float* __restrict__ d_out, int J, int n_tiles, int HW, int C, int R) {
+                     float* __restrict__ d_out, const __nv_bfloat16* __restrict__ w2,
+                     float* __restrict__ ctab, int J, int n_tiles, int H, int W, int C, int R) {
+  const int HW = H * W;
   extern __shared__ float gsm[];
   float* gap = gsm;     // C
   float* ds = gap + C;  // C
@@ -276,16 +312,41 @@ rcab_bwd_gate_kernel(const float* __restrict__ part_du, const float* __restrict_
     dz[j] = z > 0.f ? dd : 0.f;
   }
   __syncthreads();
+  float* cvec = wu_s + R * C;  // C: dgap / HW, with w2 only
+  float* taps = cvec + C;      // 9 * C: sum_co w2[t][ci][co] * cvec[co]
   for (int c = threadIdx.x; c < C; c += kThreads) {
     float s = 0.f;
     for (int j = 0; j < R; ++j) s = fmaf(dz[j], wd_s[c * R + j], s);
     dgap_hw[(size_t)n * C + c] = s / (float)HW;
+    if (w2) cvec[c] = s / (float)HW;
     ds_out[(size_t)n * C + c] = ds[c];
     gap_out[(size_t)n * C + c] = gap[c];
   }
   for (int j = threadIdx.x; j < R; j += kThreads) {
     dz_out[(size_t)n * R + j] = dz[j];
     d_out[(size_t)n * R + j] = d[j];
+  }
+  if (!w2) return;  // block-uniform
+  __syncthreads();
+  for (int i = threadIdx.x; i < 9 * C; i += kThreads) {  // i = t * C + ci
+    const __nv_bfloat16* row = w2 + (size_t)i * C;
+    float v = 0.f;
+    for (int co = 0; co < C; co += 8) {
+      float w8[8];
+      load8(row + co, w8);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v = fmaf(w8[k], cvec[co + k], v);
+    }
+    taps[i] = v;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 9 * C; i += kThreads) {  // i = class * C + ci
+    const int cls = i / C, ci = i - cls * C;
+    float v = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      if (tap_valid(cls / 3, t / 3, H) && tap_valid(cls % 3, t % 3, W)) v += taps[t * C + ci];
+    ctab[(size_t)n * 9 * C + i] = v;
   }
 }
 
@@ -565,28 +626,27 @@ rcab_bwd_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ g,
 
 using bf16 = __nv_bfloat16;
 
-// dh2 as every pass that needs it computes it: the same f32 operations in
-// the same order, then one rounding to bf16.
-__device__ __forceinline__ float dh2_value(float dout, float res_scale, float gate,
-                                           float dgap_hw) {
-  return __fmaf_rn(__fmul_rn(dout, res_scale), gate, dgap_hw);
+// The rounded part of dh2, g * u, as every pass that needs it computes it:
+// the same f32 operations in the same order, then one rounding to bf16.
+__device__ __forceinline__ float dh2_part(float dout, float res_scale, float gate) {
+  return __fmul_rn(__fmul_rn(dout, res_scale), gate);
 }
 
-// Eight channels of dout -> eight of dh2; `sum`, where given, gains the
-// eight values before their rounding.
+// Eight channels of dout -> eight of round_bf16(g * u); `sum`, where given,
+// gains the eight values of the whole dh2, g * u + dgap_hw, in f32.
 __device__ __forceinline__ uint4 dh2_chunk(uint4 d, float res_scale, const float (&gate)[8],
-                                           const float (&dgap_hw)[8], float* sum = nullptr) {
+                                           float* sum = nullptr, const float* dgap_hw = nullptr) {
   const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&d);
   uint4 r;
   __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(&r);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(in[i]);
-    const float v0 = dh2_value(f.x, res_scale, gate[2 * i], dgap_hw[2 * i]);
-    const float v1 = dh2_value(f.y, res_scale, gate[2 * i + 1], dgap_hw[2 * i + 1]);
+    const float v0 = dh2_part(f.x, res_scale, gate[2 * i]);
+    const float v1 = dh2_part(f.y, res_scale, gate[2 * i + 1]);
     if (sum) {
-      sum[2 * i] += v0;
-      sum[2 * i + 1] += v1;
+      sum[2 * i] += __fadd_rn(v0, dgap_hw[2 * i]);
+      sum[2 * i + 1] += __fadd_rn(v1, dgap_hw[2 * i + 1]);
     }
     out[i] = __floats2bfloat162_rn(v0, v1);
   }
@@ -634,7 +694,7 @@ __global__ void __launch_bounds__(kThreads)
 rcab_bwd_dh1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                         const float* __restrict__ b1, const bf16* __restrict__ w2,
                         const bf16* __restrict__ dout, const float* __restrict__ gate,
-                        const float* __restrict__ dgap_hw, float res_scale,
+                        const float* __restrict__ ctab, float res_scale,
                         bf16* __restrict__ h1, bf16* __restrict__ dh1, int H, int W, int TH,
                         int TW) {
   constexpr int C = NT * 8;
@@ -680,27 +740,24 @@ rcab_bwd_dh1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   __syncthreads();  // conv1 has read the x tile everywhere; the h1 tile is whole
   store_tile<C>(o_s, h1 + img, ty0, tx0, H, W, TH, TW);
 
-  // dh2 tile with a 1-pixel halo, zero outside the image; a thread meets
-  // the same 8 channels at every step of the loop
+  // round_bf16(g * u) tile with a 1-pixel halo, zero outside the image; a
+  // thread meets the same 8 channels at every step of the loop
   {
     const int c8 = (threadIdx.x % (C / 8)) * 8;
-    float u8[8], g8[8];
+    float u8[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      u8[k] = gate[(size_t)n * C + c8 + k];
-      g8[k] = dgap_hw[(size_t)n * C + c8 + k];
-    }
+    for (int k = 0; k < 8; ++k) u8[k] = gate[(size_t)n * C + c8 + k];
     for (int i = threadIdx.x; i < XH * XW * (C / 8); i += kThreads) {
       const int p = i / (C / 8);
       const int gy = ty0 - 1 + p / XW, gx = tx0 - 1 + p % XW;
       uint4 v = make_uint4(0, 0, 0, 0);
       if (gy >= 0 && gy < H && gx >= 0 && gx < W)
         v = dh2_chunk(*reinterpret_cast<const uint4*>(dout + img + ((size_t)gy * W + gx) * C + c8),
-                      res_scale, u8, g8);
+                      res_scale, u8);
       *reinterpret_cast<uint4*>(t_s + p * SP + c8) = v;
     }
   }
-  // its first barrier publishes dh2 and ends the reads of the h1 tile
+  // its first barrier publishes the tile and ends the reads of the h1 tile
   conv3x3_mma<NT, true>(t_s, XW, TH, TW, SP, w2, w_s, 1, nullptr, acc);
 #pragma unroll
   for (int u = 0; u < MU; ++u) {
@@ -708,12 +765,16 @@ rcab_bwd_dh1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     for (int half = 0; half < 2; ++half) {
       const int m = (warp + 8 * u) * 16 + r0 + 8 * half;
       if (m >= P) continue;
+      // dgap / HW's share, exact in f32, by the pixel's class
+      const float* k = ctab + ((size_t)n * 9 + 3 * edge_class(ty0 + m / TW, H)
+                               + edge_class(tx0 + m % TW, W)) * C + cq;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int bit = (u * NT + j) * 4 + 2 * half;
+        const float2 kc = *reinterpret_cast<const float2*>(k + j * 8);
         *reinterpret_cast<__nv_bfloat162*>(o_s + m * SP + j * 8 + cq) = __floats2bfloat162_rn(
-            (positive >> bit) & 1ull ? acc[u][j][2 * half] : 0.f,
-            (positive >> (bit + 1)) & 1ull ? acc[u][j][2 * half + 1] : 0.f);
+            (positive >> bit) & 1ull ? acc[u][j][2 * half] + kc.x : 0.f,
+            (positive >> (bit + 1)) & 1ull ? acc[u][j][2 * half + 1] + kc.y : 0.f);
       }
     }
   }
@@ -780,6 +841,11 @@ rcab_bwd_dx_mma_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1
 // of the C x C matrix, CB = 8 * NTB = min(C, 64). It writes, for all 9 taps,
 //   part_w[conv][s][3 ty + tx][ci][co] = sum_p a[p + (ty, tx)][ci] * g[p][co]
 // and the blocks with cib = 0 also part_b[conv][s][co] = sum_p g[p][co].
+// For conv2, g is round_bf16(g * u) and dgap / HW's share is added exactly:
+// thread (grp, ci) sums h1 over its rows of each tile by pixel class (cls_sum),
+// and when the walk leaves an image (flush) the block adds, for each tap,
+// the classes valid for it into hs[t][ci] and warps kw = 0 add
+// hs[t][ci] * dgap[n][co] / HW to their accumulators, in a fixed order.
 // A tile row is 16 pixels, one K step of the mma. The A fragment of halo
 // row r shifted by tx serves the taps (0, tx), (1, tx), (2, tx) against the g
 // rows r, r - 1, r - 2, whose B fragments wait in registers: per halo row a
@@ -807,9 +873,12 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
   constexpr int TH = kWTH, TW = kWTW, XH = TH + 2, XW = TW + 2, P = TH * TW;
   constexpr int a_elems = XH * XW * SP;
   constexpr int stage_elems = a_elems + P * SP;
+  constexpr int G = kThreads / CB;  // row groups of the class sums
   static_assert(TH % KW == 0 && TW == 16, "a K step is one tile row");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  float* red_s = reinterpret_cast<float*>(stages + kWStages * stage_elems);  // G x 9 x CB
+  float* hs_s = red_s + 9 * kThreads;                                        // 9 x CB
   const int s = blockIdx.x, S = gridDim.x;
   const int nb = C / CB;
   const int conv = blockIdx.z / (nb * nb);
@@ -827,10 +896,15 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
   const int g0 = kw * (TH / KW), g1 = g0 + TH / KW;  // this warp's rows of g
   const bool bias = cib == 0;
   const int c8 = (tid % CH) * 8;  // kThreads % CH == 0: the same at every step
+  const int grp = tid / CB, ci_s = tid % CB;  // the class sums' row group and channel
 
   float acc[9][WN][4];
   float bsum[8], u8[8], g8[8];  // bias sums; the gate and dgap / HW of image gate_of
   int gate_of = -1;
+  float cls_sum[9];  // h1 of channel ci_s by pixel class, this thread's rows, image hs_of
+  int hs_of = -1;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) cls_sum[k] = 0.f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) bsum[k] = u8[k] = g8[k] = 0.f;
 #pragma unroll
@@ -865,6 +939,44 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
     cp_async_commit();
   };
 
+  // dgap[nf] / HW's share of dw2 from the class sums of image nf (conv2 only)
+  auto flush = [&](int nf) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      red_s[(grp * 9 + k) * CB + ci_s] = cls_sum[k];
+      cls_sum[k] = 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < 9 * CB; i += kThreads) {  // i = t * CB + ci
+      const int t = i / CB, ci = i - t * CB;
+      float v = 0.f;
+      for (int cls = 0; cls < 9; ++cls) {
+        if (!tap_valid(cls / 3, t / 3, H) || !tap_valid(cls % 3, t % 3, W)) continue;
+        float sg = 0.f;
+        for (int q = 0; q < G; ++q) sg += red_s[(q * 9 + cls) * CB + ci];
+        v += sg;
+      }
+      hs_s[i] = v;
+    }
+    __syncthreads();
+    if (kw == 0) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float h = hs_s[t * CB + mt * 16 + (lane >> 2) + 8 * half];
+#pragma unroll
+          for (int j = 0; j < WN; ++j) {
+            const int co = cob * CB + (ng * WN + j) * 8 + (lane & 3) * 2;
+            acc[t][j][2 * half] = fmaf(h, dgap_hw[(size_t)nf * C + co], acc[t][j][2 * half]);
+            acc[t][j][2 * half + 1] =
+                fmaf(h, dgap_hw[(size_t)nf * C + co + 1], acc[t][j][2 * half + 1]);
+          }
+        }
+    }
+    __syncthreads();  // red_s and hs_s are free again
+  };
+
   // lane's pixel and column in a B (g) and an A (a) ldmatrix.trans
   const int lb = ((lane & 7) + ((lane >> 3) & 1) * 8) * SP + ng * WN * 8 + (lane >> 4) * 8;
   const int la = ((lane & 7) + ((lane >> 4) & 1) * 8) * SP + mt * 16 + ((lane >> 3) & 1) * 8;
@@ -876,6 +988,10 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
     cp_async_wait<2>();
     const bf16* a_s = stages + ((tile - begin) % kWStages) * stage_elems;
     bf16* g_s = stages + ((tile - begin) % kWStages) * stage_elems + a_elems;
+    if (conv && tile / per_image != hs_of) {  // block-uniform
+      if (hs_of >= 0) flush(hs_of);
+      hs_of = tile / per_image;
+    }
     // a thread's own chunks of g have landed: dh2 in place, the bias sums
     if (conv || bias) {
       const int n = tile / per_image, r = tile % per_image;
@@ -893,8 +1009,8 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
         if (ty0 + p / TW >= H || tx0 + p % TW >= W) continue;  // stays 0
         uint4* at = reinterpret_cast<uint4*>(g_s + p * SP + c8);
         uint4 v = *at;
-        if (conv) {  // db2 sums dh2 as it is before the rounding
-          v = dh2_chunk(v, res_scale, u8, g8, bias ? bsum : nullptr);
+        if (conv) {  // db2 sums the whole dh2 before any rounding
+          v = dh2_chunk(v, res_scale, u8, bias ? bsum : nullptr, g8);
           *at = v;
         } else if (bias) {
           const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -908,6 +1024,29 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
       }
     }
     __syncthreads();
+    if (conv) {  // h1 of this tile's in-image pixels by class, rows grp, grp + G, ...
+      const int r = tile % per_image;
+      const int ty0 = (r / tiles_x) * TH, tx0 = (r % tiles_x) * TW;
+      for (int y = grp; y < TH && ty0 + y < H; y += G) {
+        const bf16* row = a_s + ((y + 1) * XW + 1) * SP + ci_s;
+        float first = 0.f, inner = 0.f, last = 0.f;
+        for (int x = 0; x < TW && tx0 + x < W; ++x) {
+          const float v = __bfloat162float(row[x * SP]);
+          const int cx = edge_class(tx0 + x, W);
+          if (cx == 0) first += v;
+          else if (cx == 2) last += v;
+          else inner += v;
+        }
+        const int cy = edge_class(ty0 + y, H);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          if (cy != k) continue;
+          cls_sum[3 * k] += first;
+          cls_sum[3 * k + 1] += inner;
+          cls_sum[3 * k + 2] += last;
+        }
+      }
+    }
     uint32_t bw[3][WN / 2][4] = {};  // B fragments of the g rows r, r - 1, r - 2
 #pragma unroll 1
     for (int r = g0; r < g1 + 2; ++r) {  // halo rows of a
@@ -941,6 +1080,7 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
     __syncthreads();  // the stage is free for the tile three on
   }
   cp_async_wait<0>();
+  if (conv && hs_of >= 0) flush(hs_of);
 
   float* red = reinterpret_cast<float*>(smem_raw);  // the stages are free now
   if (KW > 1) {
@@ -1109,7 +1249,8 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
   const long long pixels = (long long)N * H * W;
   if (p->mma) {
     p->cb = C < 64 ? C : 64;
-    p->wsmem = kWStages * ((kWTH + 2) * (kWTW + 2) + kWTH * kWTW) * (p->cb + 8) * 2;
+    p->wsmem = kWStages * ((kWTH + 2) * (kWTW + 2) + kWTH * kWTW) * (p->cb + 8) * 2
+               + (9 * kThreads + 9 * p->cb) * (int)sizeof(float);  // the class sums' flush
     const long long tiles =
         (long long)N * ((H + kWTH - 1) / kWTH) * ((W + kWTW - 1) / kWTW);
     const int nb = C / p->cb;
@@ -1131,11 +1272,12 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
 // Float32 scratch of one backward, in this order: the flipped weights of
 // the CUDA-core plan (2 x 9CC elements of T, in float-sized slots; nothing
 // on the tensor-core plan), the dout * h2 chunk sums (N, J, C), dgap/HW, ds,
-// gap and the effective gate (N, C each), the weight-gradient splits (2, splits, 9CC) and bias
-// splits (2, splits, C), then dz and d (N, R each). C % 8 == 0 keeps every
-// part but the last two 32-byte aligned.
+// gap and the effective gate (N, C each), ctab (N, 9, C; the tensor-core
+// plan only), the weight-gradient splits (2, splits, 9CC) and bias splits (2,
+// splits, C), then dz and d (N, R each). C % 8 == 0 keeps every part but the
+// last two 32-byte aligned.
 struct Layout {
-  long long wt, part_du, per_image, part_w, part_b, dz, total;
+  long long wt, part_du, per_image, ctab, part_w, part_b, dz, total;
 };
 
 Layout make_layout(const Plan& p, int N, int C, int R) {
@@ -1144,7 +1286,8 @@ Layout make_layout(const Plan& p, int N, int C, int R) {
   l.wt = 0;
   l.part_du = l.wt + (p.mma ? 0 : 2 * cc);
   l.per_image = l.part_du + (long long)N * p.J * C;
-  l.part_w = l.per_image + 4LL * N * C;
+  l.ctab = l.per_image + 4LL * N * C;
+  l.part_w = l.ctab + (p.mma ? 9LL * N * C : 0);
   l.part_b = l.part_w + 2LL * p.splits * cc;
   l.dz = l.part_b + 2LL * p.splits * C;
   l.total = l.dz + 2LL * N * R;
@@ -1155,8 +1298,8 @@ Layout make_layout(const Plan& p, int N, int C, int R) {
 template <int NT>
 cudaError_t run_mma(const Plan& p, const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
                     float res_scale, const bf16* dout, const float* gate, const float* dgap_hw,
-                    bf16* dx, bf16* h1, bf16* dh1, float* part_w, float* part_b, int N, int H,
-                    int W, cudaStream_t s) {
+                    const float* ctab, bf16* dx, bf16* h1, bf16* dh1, float* part_w,
+                    float* part_b, int N, int H, int W, cudaStream_t s) {
   constexpr int C = NT * 8;
   constexpr int NTB = NT < 8 ? NT : 8;
   static int done_dh1[kMaxDevices] = {};
@@ -1170,7 +1313,7 @@ cudaError_t run_mma(const Plan& p, const bf16* x, const bf16* w1, const float* b
   if (err != cudaSuccess) return err;
   const dim3 grid((W + p.tw - 1) / p.tw, (H + p.th - 1) / p.th, N);
   rcab_bwd_dh1_mma_kernel<NT><<<grid, kThreads, p.smem, s>>>(
-      x, w1, b1, w2, dout, gate, dgap_hw, res_scale, h1, dh1, H, W, p.th, p.tw);
+      x, w1, b1, w2, dout, gate, ctab, res_scale, h1, dh1, H, W, p.th, p.tw);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   rcab_bwd_dx_mma_kernel<NT><<<grid, kThreads, p.smem, s>>>(dh1, w1, dout, dx, H, W, p.th, p.tw);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -1229,6 +1372,7 @@ cudaError_t run(const Plan& p, const Layout& l, const T* x, const T* w1, const f
   // the passes after the gate kernel read u * scale with scale 1, or u with res_scale
   const float* gate = scale ? gate_eff : gate_u;
   const float pass_scale = scale ? 1.f : res_scale;
+  float* ctab = ws + l.ctab;
   float* part_w = ws + l.part_w;
   float* part_b = ws + l.part_b;
   float* dz = ws + l.dz;
@@ -1240,18 +1384,23 @@ cudaError_t run(const Plan& p, const Layout& l, const T* x, const T* w1, const f
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int Q = C < kThreads ? kThreads / C : 1;
-  rcab_bwd_gate_kernel<<<N, kThreads, (2 * C + 2 * R + 2 * Q * C + 2 * C * R) * sizeof(float), s>>>(
+  const __nv_bfloat16* w2_mma = nullptr;  // the tensor-core plan's ctab comes from w2
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (p.mma) w2_mma = w2;
+  }
+  const int gate_floats = 2 * C + 2 * R + 2 * Q * C + 2 * C * R + (w2_mma ? 10 * C : 0);
+  rcab_bwd_gate_kernel<<<N, kThreads, gate_floats * sizeof(float), s>>>(
       part_du, fwd_partial, gate_u, wd, bd, bd_stride, wu, res_scale, scale, dscale, gate_eff,
-      dgap_hw, ds, gap, dz, d, p.J, n_tiles, H * W, C, R);
+      dgap_hw, ds, gap, dz, d, w2_mma, w2_mma ? ctab : nullptr, p.J, n_tiles, H, W, C, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   if constexpr (std::is_same<T, bf16>::value) {
     if (p.mma) {
       switch (C) {
-        case 16: err = run_mma<2>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 32: err = run_mma<4>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 64: err = run_mma<8>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 128: err = run_mma<16>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 16: err = run_mma<2>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 32: err = run_mma<4>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 64: err = run_mma<8>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
+        case 128: err = run_mma<16>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
         default: err = cudaErrorInvalidValue;
       }
     }

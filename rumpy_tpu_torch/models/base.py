@@ -188,6 +188,11 @@ class BaseHandler:
     # Input spatial dims must divide this; the eval interface pads up to it
     # and crops the SR output back.
     size_multiple: int = 1
+    # A parameter the loss does not reach gets a zero gradient, not None,
+    # in a train step: optax advances every parameter's moments and step
+    # count, while torch.optim.Adam skips a parameter without a gradient,
+    # so its bias correction would fall behind.
+    missing_grads_as_zeros: bool = False
 
     def __init__(self, scale: int = 4, in_features: int = 3,
                  lr: float = 1e-4, optimizer_type: str = "adam",
@@ -357,6 +362,11 @@ class BaseHandler:
         with torch.enable_grad():
             losses = loss_fn()
             losses["train-loss"].backward()
+        if self.missing_grads_as_zeros:
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
         named = {k: p for k, p in self.module.named_parameters()
                  if p.grad is not None}
         grads = {k: p.grad for k, p in named.items()}
@@ -399,6 +409,18 @@ class BaseHandler:
 
     # -- checkpointing -----------------------------------------------------
 
+    def optimizer_state(self):
+        """The optimizer state a checkpoint holds: None before the first
+        step (a handler with several optimizers returns them by name)."""
+        return None if self._optimizer is None else self._optimizer.state_dict()
+
+    def load_optimizer_state(self, saved) -> None:
+        """Fresh optimizer state, then a checkpoint's ``saved`` state where
+        given."""
+        self._optimizer = None
+        if saved is not None:
+            self.optimizer().load_state_dict(saved)
+
     def save_model(self, state: TrainState, model_save_dir: str, epoch: int,
                    minimal: bool = False) -> str:
         path = ckpt.checkpoint_path(model_save_dir, epoch)
@@ -407,8 +429,7 @@ class BaseHandler:
             "extra": state.extra,
             "step": int(state.step),
             "rng": self.rng.get_state(),
-            "optimizer": (None if self._optimizer is None
-                          else self._optimizer.state_dict()),
+            "optimizer": self.optimizer_state(),
             "model_name": getattr(self, "registered_name", type(self).__name__),
             "model_epoch": epoch,
             "handler_metadata": self.handler_metadata(),
@@ -431,9 +452,7 @@ class BaseHandler:
         # minimal checkpoints carry no optimizer state, and a caller may
         # skip it to load weights trained under another optimizer config:
         # both start from a fresh optimizer
-        self._optimizer = None
-        if not skip_optimizer_load and loaded.get("optimizer") is not None:
-            self.optimizer().load_state_dict(loaded["optimizer"])
+        self.load_optimizer_state(None if skip_optimizer_load else loaded.get("optimizer"))
         return self._own_state(int(loaded["step"]), loaded.get("extra")), epoch
 
     def _load_jax_checkpoint(self, loaded, path: str,
@@ -455,7 +474,7 @@ class BaseHandler:
                 "pass skip_optimizer_load=True to start from fresh optimizer state")
         with torch.no_grad():
             self.module.load_state_dict(self._jax_state_dict(loaded))
-        self._optimizer = None
+        self.load_optimizer_state(None)
         return self._own_state(int(np.asarray(loaded["step"])))
 
     def _jax_state_dict(self, loaded) -> Dict[str, torch.Tensor]:

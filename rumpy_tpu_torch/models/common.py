@@ -44,34 +44,54 @@ class Conv(nn.Module):
     """k x k conv with SAME padding: the zoo's default_conv. With
     ``stride`` 2 it pads k // 2 on every side, as the JAX package's explicit
     ``padding=((1, 1), (1, 1))`` does for a 3x3 kernel (flax's 'SAME'
-    would pad (0, 1) there).
+    would pad (0, 1) there); ``flax_same`` pads as flax's 'SAME' does
+    instead (ceil(size / stride) outputs, an odd pixel of padding at the
+    end).
 
     Initialised as torch's own default kernel init, U(+-1/sqrt(fan_in)),
-    with a zero bias, as the JAX package's ``TConv`` does."""
+    with a zero bias, as the JAX package's ``TConv`` does; ``init="he_normal"``
+    draws N(0, 2 / fan_in) (the JAX package's ``HE_NORMAL_INIT``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, dtype: torch.dtype = torch.float32,
-                 stride: int = 1):
+                 stride: int = 1, flax_same: bool = False, init: str = "torch"):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
-        self.padding = kernel_size // 2
+        self.kernel_size = kernel_size
+        self.flax_same = flax_same and stride > 1
+        self.padding = 0 if self.flax_same else kernel_size // 2
+        self.init_kind = init
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        bound = 1.0 / math.sqrt(self.weight[0].numel())
-        w = torch.empty(self.weight.shape).uniform_(-bound, bound,
-                                                    generator=generator)
+        fan_in = self.weight[0].numel()
+        w = torch.empty(self.weight.shape)
+        if self.init_kind == "he_normal":
+            w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+        else:
+            bound = 1.0 / math.sqrt(fan_in)
+            w.uniform_(-bound, bound, generator=generator)
         self.weight.copy_(w)
         if self.bias is not None:
             self.bias.zero_()
 
+    def _same_pads(self, size):
+        pads = []
+        for d in reversed(size):  # F.pad's order: the last dimension first
+            total = max((-(-d // self.stride) - 1) * self.stride + self.kernel_size - d, 0)
+            pads += [total // 2, total - total // 2]
+        return pads
+
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), b,
+        x = x.to(self.dtype)
+        if self.flax_same:
+            x = F.pad(x, self._same_pads(x.shape[2:]))
+        return F.conv2d(x, self.weight.to(self.dtype), b,
                         stride=self.stride, padding=self.padding)
 
     def as_linear(self, v):
@@ -87,22 +107,23 @@ class Linear(nn.Module):
     zero bias; products in ``dtype``."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.weight.shape[1])
         self.weight.copy_(torch.empty(self.weight.shape).uniform_(
             -bound, bound, generator=generator))
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
 class BatchNorm(nn.Module):

@@ -19,6 +19,9 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.attention_manipulators",
     "rumpy_tpu_torch.models.blind_sr",
     "rumpy_tpu_torch.models.contrastive",
+    "rumpy_tpu_torch.models.dan",
+    "rumpy_tpu_torch.models.dasr",
+    "rumpy_tpu_torch.models.ikc",
     "rumpy_tpu_torch.models.sftmd_variants",
 ]
 _TOOL_MODULES = [

@@ -16,7 +16,9 @@ Covered: RCAN, EDSR (and EDSRMD), QRCAN (``QResidualGroup_<i>``,
 ``SFTLayer_0``), QEDSR (``ParamResBlock_<i>``), SRMD, SFTMD (its SFT
 layers and q-layers), the DASR encoder (``TConv_0..5``,
 ``BatchNorm_0..5``, ``TDense_<k>``) and the BoBW pipeline's
-``generator``/``encoder``/``reducer`` subtrees. Flax names a compact
+``generator``/``encoder``/``reducer`` subtrees; and every module that
+names its own children (``flax_children``: DAN, DANv2, IKC, DASR, DCLS and
+their blocks). Flax names a compact
 module's children in the order they are constructed, and an outer conv
 is constructed before its inner one: an ``SFTLayer``'s ``TConv_0`` is
 its scale branch's second conv. Any unused or missing
@@ -58,6 +60,9 @@ def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Pa
 
     if isinstance(module, LEAF_TYPES):
         yield port.rstrip("."), flax, module
+    elif hasattr(module, "flax_children"):  # the module names its own children
+        for name, path, child in module.flax_children():
+            yield from sub(child, name, *path)
     elif isinstance(module, (RCAN, QRCAN)):
         group = "ResidualGroup" if isinstance(module, RCAN) else "QResidualGroup"
         yield from conv(module.head, "head", 0)
@@ -181,7 +186,7 @@ _LEAVES = {
 
 def _leaf_names(module: nn.Module) -> Dict[str, Tuple[str, str]]:
     names = dict(_LEAVES[type(module)])
-    if isinstance(module, Conv) and module.bias is None:
+    if isinstance(module, (Conv, Linear)) and module.bias is None:
         del names["bias"]
     return names
 
@@ -267,6 +272,25 @@ def state_dict_from_jax(params, module: nn.Module,
     if missing:
         raise KeyError(f"port parameters with no flax leaf: {missing}")
     return out
+
+
+@torch.no_grad()
+def model_constants_from_jax(jax_module, module: nn.Module) -> None:
+    """Copy the constants a JAX model carries as attributes, not params,
+    into ``module``'s buffers of the same names: DAN's ``init_ker_map`` and
+    DANv2's ``pca_matrix`` (plain tuples on the flax module, which both
+    packages otherwise fit from their own random draws). ``jax_module`` is
+    read by attribute only."""
+    for name in ("init_ker_map", "pca_matrix"):
+        value = getattr(jax_module, name, None)
+        buf = getattr(module, name, None)
+        if value is None or not torch.is_tensor(buf):
+            continue
+        new = torch.as_tensor(np.asarray(value, np.float32))
+        if new.shape != buf.shape:
+            raise ValueError(f"{name}: the JAX module's {tuple(new.shape)} against the "
+                             f"port's {tuple(buf.shape)}")
+        buf.copy_(new)
 
 
 def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],

@@ -393,3 +393,49 @@ def test_chip_smoke_holds_every_launched_shape():
         want.update((len(range(i, min(i + 8, k))), h, w, 64) for i in range(0, k, 8))
     assert want <= set(smoke.EXTRA_SHAPES)
     assert want <= {s for s, dt in smoke.QRCAB_SHAPES if dt == torch.bfloat16}
+
+
+ITERATIVE_MODULES = ("models/dan.py", "models/ikc.py", "models/dasr.py")
+ITERATIVE_MODELS = {"dan": dict(init_ker_map=(0.0,) * 10), "ikc": {}, "dasr": {}, "dcls": {}}
+
+
+def test_port_covers_the_iterative_blind_sr_modules():
+    """The iterative blind-SR slice's modules are in the package (so the
+    import scans above read them, neither jax nor rumpy_tpu among their
+    imports), the registry finds dan, ikc, dasr and dcls, and
+    danv1qrealesrgan raises naming its item."""
+    from rumpy_tpu_torch.registry import available_models, get_model
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    missing = [m for m in ITERATIVE_MODULES if m not in names]
+    assert not missing, missing
+    for m in ITERATIVE_MODULES:
+        bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
+        assert not bad, (m, bad)
+    assert set(ITERATIVE_MODELS) | {"danv1qrealesrgan"} <= set(available_models())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        get_model("danv1qrealesrgan")(device="cpu")
+
+
+@pytest.mark.parametrize("name", list(ITERATIVE_MODELS))
+def test_iterative_models_raise_without_cuda(monkeypatch, name):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(name)(**ITERATIVE_MODELS[name])
+
+
+def test_chip_smoke_drives_the_iterative_phases_and_gates_the_sums():
+    """chip_smoke.py drives the slice's three phases from main(), and
+    rcab_bwd_f32_sums fails where the bf16 backward stands more than its
+    factor off the plain version's error."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    called = {n.func.id for n in ast.walk(fns["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    for phase in ("dan_train", "ikc_train", "dasr_train", "rcab_bwd_f32_sums", "rcab_bwd_c128"):
+        assert f"{phase}_phase" in called, phase
+    sums = fns["rcab_bwd_f32_sums_phase"]
+    raises = [n for n in ast.walk(sums) if isinstance(n, ast.Raise)]
+    assert raises, "rcab_bwd_f32_sums_phase has no gate"
+    names = {n.id for n in ast.walk(sums) if isinstance(n, ast.Name)}
+    assert "F32_FACTOR" in names
