@@ -72,6 +72,21 @@ seeded random weights):
   (``dasr_train``); each with step ms, HR-MP/s, busy ms, idle share,
   kernels, peak memory, RCAB launches and conv2d calls a step and a fixed
   batch's loss before and after its steps;
+* the BoBW generator families without a GAN: HAN x4 (10 x 20 x 64 bf16,
+  its 200 RCABs on the shared-form kernels, LAM and CSAM) through
+  cli.train_sisr on LR/HR pairs with validation and cli.eval_sisr, and
+  the LAM attention's largest entry (``han_train``); the slice's main path,
+  contrastiveblindqhan (QHAN's standard style with q-layers: shared bd and
+  bu, a per-image scale) through cli.train_sisr on a copy of the BoBW
+  example, steady steps with bench.py's chain and cli.eval_sisr, and the
+  kernels in that form against their plain versions (``bobw_qhan``); ELAN
+  x4 at its defaults (36 x 180, windows 4/8/16) with a DIV2K-sized eval
+  reflect-padded to 352 x 512 and a contrastiveblindqelan step
+  (``elan_train``); SAN x4 at its defaults (20 x 10 x 64) with its
+  always-tiled eval through forward_chop and a contrastiveblindqsan step
+  (``san_train``); each with step ms, HR-MP/s, busy ms, idle share,
+  kernels, peak memory, RCAB launches a step by form, a fixed batch's loss
+  before and after its steps and eval images/s;
 * every RCAB kernel launch of the run, recorded by shape, dtype, direction
   and which gate inputs are per image: each one that no phase held against
   the plain version is held after the paths, in the directions launched,
@@ -372,6 +387,9 @@ def kernel_phase(rcab):
 LAUNCHED = {"forward": set(), "backward": set()}
 CHECKED = {"forward": set(), "backward": set()}
 RECORDING = [True]
+# launches by direction and form ("forward/shared", "backward/per_image:scale",
+# ...), cleared by a phase where it reads them
+FORM_LAUNCHES = collections.Counter()
 
 
 def launch_key(x, bd, bu, scale):
@@ -381,19 +399,30 @@ def launch_key(x, bd, bu, scale):
             scale is not None)
 
 
+def form_name(direction, key):
+    """A launch key's direction and form: "forward/shared",
+    "backward/per_image:bd,scale", ..."""
+    per = [n for n, on in zip(("bd", "bu", "scale"), key[2:]) if on]
+    return f"{direction}/" + ("per_image:" + ",".join(per) if per else "shared")
+
+
 def record_launches(rcab):
     """Wraps the wrapper's two launch functions to add each launch's key to
-    LAUNCHED; the launch counts stay the wrapper's own."""
+    LAUNCHED and count it by form in FORM_LAUNCHES; the launch counts stay
+    the wrapper's own."""
     fwd, bwd = rcab._forward, rcab._backward
 
-    def forward(x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale):
+    def record(direction, key):
         if RECORDING[0]:
-            LAUNCHED["forward"].add(launch_key(x, bd, bu, scale))
+            LAUNCHED[direction].add(key)
+            FORM_LAUNCHES[form_name(direction, key)] += 1
+
+    def forward(x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale):
+        record("forward", launch_key(x, bd, bu, scale))
         return fwd(x, w1, b1, w2, b2, wd, bd, wu, bu, scale, res_scale)
 
     def backward(dout, x, workspace, kargs, res_scale, keep=None):
-        if RECORDING[0]:
-            LAUNCHED["backward"].add(launch_key(x, kargs[5], kargs[7], kargs[8]))
+        record("backward", launch_key(x, kargs[5], kargs[7], kargs[8]))
         return bwd(dout, x, workspace, kargs, res_scale, keep)
 
     rcab._forward, rcab._backward = forward, backward
@@ -3003,6 +3032,7 @@ def step_row(rcab, handler, state, batch, name, steps=2):
     ms = cuda_ms(step, steps, warmup=1, backlog_s=0)
     peak = torch.cuda.max_memory_allocated()
     rcab.launches = rcab.backward_launches = 0
+    FORM_LAUNCHES.clear()
     convs = conv_calls(step)
     torch.cuda.synchronize()
     n = batch["hr"].shape[0]
@@ -3011,6 +3041,7 @@ def step_row(rcab, handler, state, batch, name, steps=2):
            "peak_memory_bytes": peak,
            "launches_a_step": {"rcab_fused": rcab.launches,
                                "rcab_fused_backward": rcab.backward_launches},
+           "launches_a_step_by_form": dict(FORM_LAUNCHES),
            "conv2d_calls_a_step": sum(convs.values()),
            "losses": [float(x) for x in losses]}
     if not np.isfinite(row["losses"]).all():
@@ -3720,6 +3751,457 @@ def dasr_train_phase(rcab, card):
     return row
 
 
+HAN_FULL = dict(scale=4, n_feats=64, n_resgroups=10, n_resblocks=20, reduction=16)
+HAN_EXP = "han_x4"
+QHAN_EXP = "qhan_supmoco_bobw"
+# QHAN's default block (the standard style with a q-layer): shared bd and bu,
+# the q-layer's gate as a per-image scale
+QHAN_FORM = (False, False, True)
+ELAN_FULL = dict(scale=4, m_elan=36, c_elan=180, window_sizes=(4, 8, 16))  # its defaults
+SAN_FULL = dict(scale=4, n_feats=64, n_resgroups=20, n_resblocks=10)  # its defaults
+
+
+def fixed_pair_batch(lr_dir, hr_dir, batch):
+    """Centre crops of TRAIN_CROP LR pixels and the matching HR_SIDE HR
+    pixels of the LR/HR pairs, on the card."""
+    names = sorted(os.listdir(hr_dir))
+    lrs, hrs = [], []
+    for name in (names * batch)[:batch]:
+        lr = np.load(os.path.join(lr_dir, name))
+        top, left = (lr.shape[0] - TRAIN_CROP) // 2, (lr.shape[1] - TRAIN_CROP) // 2
+        lrs.append(lr[top:top + TRAIN_CROP, left:left + TRAIN_CROP])
+        hr = np.load(os.path.join(hr_dir, name))
+        t, l_ = top * TRAIN_SCALE, left * TRAIN_SCALE
+        hrs.append(hr[t:t + HR_SIDE, l_:l_ + HR_SIDE])
+    return {k: torch.from_numpy(np.stack(v).astype(np.float32) / 255.0).cuda()
+            for k, v in (("lr", lrs), ("hr", hrs))}
+
+
+@contextlib.contextmanager
+def buffers_kept(module):
+    """The module's buffers (BatchNorm running statistics) as they were
+    after the block: a loss taken in train mode leaves the model alone."""
+    saved = {k: v.clone() for k, v in module.named_buffers()}
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, v in module.named_buffers():
+                v.copy_(saved[k])
+
+
+def running_stats(module, prefix=""):
+    return {k: v.clone() for k, v in module.named_buffers()
+            if k.startswith(prefix) and k.endswith(("running_mean", "running_var"))}
+
+
+def pair_loss(handler, batch, train=False):
+    """The L1 of ``handler`` on an LR/HR ``batch``: the state's loss."""
+    def loss(state):
+        out, _, _ = without_grad(lambda: handler.apply(state.params, batch, train=train))
+        return float((out.float() - batch["hr"]).abs().mean())
+    return loss
+
+
+def lam_attention(handler, state, lr):
+    """LAM's attention (B, 11, 11) in a forward of ``lr``, from the stacked
+    layers it receives, and the same from float32 energies of those layers."""
+    taken = []
+    hook = handler.module.lam.register_forward_pre_hook(lambda m, a: taken.append(a[0]))
+    try:
+        without_grad(lambda: handler.apply(state.params, {"lr": lr}))
+    finally:
+        hook.remove()
+    out = []
+    for x in (taken[0], taken[0].float()):
+        flat = x.reshape(x.shape[0], x.shape[1], -1)
+        energy = torch.bmm(flat, flat.transpose(1, 2))
+        out.append(torch.softmax(energy.amax(-1, keepdim=True) - energy, dim=-1).float())
+    return out
+
+
+def eval_images(handler, state, lr_dir, images):
+    """Each LR image of ``lr_dir`` through ``handler.run_eval`` alone, as
+    eval_sisr runs them: images/s (host clock, the card waited for), the
+    outputs' shapes and whether all are finite, peak memory."""
+    names = sorted(n for n in os.listdir(lr_dir) if n.endswith(".npy"))[:images]
+    lrs = [torch.from_numpy(np.load(os.path.join(lr_dir, n)).astype(np.float32)
+                            / 255.0)[None].cuda() for n in names]
+    handler.run_eval(state, {"lr": lrs[0]})  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [handler.run_eval(state, {"lr": x}) for x in lrs]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    shapes_ok = all(tuple(o.shape) == (1, x.shape[1] * TRAIN_SCALE, x.shape[2] * TRAIN_SCALE, 3)
+                    for o, x in zip(outs, lrs))
+    if not (finite and shapes_ok):
+        raise AssertionError(f"eval outputs: finite {finite}, shapes {[tuple(o.shape) for o in outs]}")
+    return {"eval_images": len(lrs), "eval_images_per_s": len(lrs) / seconds,
+            "eval_seconds": seconds, "peak_memory_bytes_eval": torch.cuda.max_memory_allocated()}
+
+
+def one_bobw_step(rcab, name, hr16, card_seed, **kw):
+    """One step of the BoBW handler ``name`` (bf16, its defaults, the
+    packaged encoder frozen) with bench.py's chain in the step at batch 16:
+    its host ms, loss, RCAB launches, and which BatchNorm running statistics
+    moved (the encoder's in a train step; the generator's never, as the
+    pipeline calls it without ``train``)."""
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.registry import get_model
+    handler = get_model(name)(device="cuda", dtype="bf16", lr=1e-4,
+                              pre_trained_encoder_weights=PACKAGED_ENCODER, **kw)
+    pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+    handler.set_input_pipeline(lambda g, b: {"lr": pipe.degrade_batch(g, b["hr"])[0],
+                                             "hr": b["hr"]})
+    state = handler.init_state()
+    handler.rng.manual_seed(card_seed)
+    gen0, enc0 = (running_stats(handler.module, p) for p in ("generator.", "encoder."))
+    torch.cuda.synchronize()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    _, losses = handler.train_batch(state, {"hr": hr16})
+    loss = float(losses["train-loss"])
+    step_s = time.perf_counter() - t0
+    gen1, enc1 = (running_stats(handler.module, p) for p in ("generator.", "encoder."))
+    row = {"model": f"{name} x4 bf16, frozen {PACKAGED_ENCODER}", "batch": TRAIN_BATCH,
+           "first_step_host_s": step_s, "loss": loss,
+           "launches": {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches},
+           "generator_running_stats": len(gen0),
+           "generator_running_stats_moved": sum(not torch.equal(gen0[k], gen1[k]) for k in gen0),
+           "encoder_running_stats_moved": sum(not torch.equal(enc0[k], enc1[k]) for k in enc0)}
+    if not np.isfinite(loss) or row["encoder_running_stats_moved"] != len(enc0) \
+            or row["generator_running_stats_moved"] or any(row["launches"].values()):
+        raise AssertionError(f"{name} step: {row}")
+    del handler, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def han_train_phase(rcab, card):
+    """HAN x4 at full width (10 x 20 x 64 bf16: RCAN's 200 RCABs on the
+    shared-form kernels, LAM over the 11 stacked layers, CSAM's conv3d)
+    through cli.train_sisr on LR/HR pairs (batch 16, crop 48, 2 epochs of 2
+    steps, validating each epoch on the 9 eval pairs), cli.eval_sisr on the
+    run, steady steps on a fixed batch, and the LAM attention's largest
+    entry. Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_han")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(80))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(81))
+    internal = dict(HAN_FULL, dtype="bf16", lr=1e-4, optimizer_type="adam")
+    seed, exp_root = 3, os.path.join(root, "experiments")
+    cfg = {"experiment": HAN_EXP, "experiment_save_loc": exp_root,
+           "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "augmentations": True,
+                    "dataloader_threads": 4,
+                    "training_sets": {f"data_{i}": {"lr_dir": lr_dir, "hr_dir": hr_dir}
+                                      for i in range(TRAIN_SETS)},
+                    "eval_sets": {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr}}},
+           "model": {"name": "han", "internal_params": internal},
+           "training": {"num_epochs": TRAIN_EPOCHS, "batch_size": TRAIN_BATCH, "seed": seed}}
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    steps = TRAIN_EPOCHS * (TRAIN_IMAGES * TRAIN_SETS // TRAIN_BATCH)
+    fixed = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    FORM_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    want = {"rcab_fused": 200 * (steps + len(forwards)), "rcab_fused_backward": 200 * steps}
+    forms = dict(FORM_LAUNCHES)
+    if (launches != want or len(forwards) != 2 * VALIDATION_FORWARDS
+            or set(forms) != {"forward/shared", "backward/shared"}):
+        raise AssertionError(f"kernel launches in the HAN run {launches} by form {forms}, "
+                             f"expected {want} ({len(forwards)} validation forwards)")
+    launches["rcab_fused_validation"] = 200 * len(forwards)
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    val = {k: [stats[e].get(k) for e in sorted(stats)] for k in ("val-PSNR", "val-SSIM")}
+    if len(losses) != TRAIN_EPOCHS or not np.isfinite(losses + val["val-PSNR"]
+                                                      + val["val-SSIM"]).all():
+        raise AssertionError(f"HAN run: losses {losses}, validation {val}")
+
+    out = os.path.join(root, "eval")
+    images = len(EVAL_LR_SHAPES)
+    rcab.launches = 0
+    with watched(SISRInterface, "net_run") as eval_forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        eval_lr, "--hr_dir", eval_hr, "-m", "PSNR", "-m", "SSIM",
+                        "-me", HAN_EXP, "best", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    eval_launches = rcab.launches
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    if (len(values) != images or (HAN_EXP, "PSNR") not in columns
+            or not np.isfinite(list(values.values())).all()
+            or len(eval_forwards) != images or eval_launches != 200 * images):
+        raise AssertionError(f"eval_sisr of the HAN run: columns {columns}, {len(values)} rows, "
+                             f"{len(eval_forwards)} forwards, {eval_launches} launches")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+
+    handler = get_model("han")(device="cuda", seed=seed, **internal)
+    state = handler.init_state()
+    steps_row = phase_step_row(rcab, handler, state, fixed, "han x4 10x20x64 bf16",
+                               pair_loss(handler, fixed))
+    if steps_row["launches_a_step"] != {"rcab_fused": 200, "rcab_fused_backward": 200} \
+            or set(steps_row["launches_a_step_by_form"]) != {"forward/shared", "backward/shared"}:
+        raise AssertionError(f"a HAN step launched {steps_row['launches_a_step_by_form']}")
+    att16, att32 = lam_attention(handler, state, fixed["lr"])
+    lam = {"largest_entry": float(att16.max()), "mean_row_max": float(att16.amax(-1).mean()),
+           "largest_entry_f32_energies": float(att32.max()),
+           "row_winners_agree_with_f32": float((att16.argmax(-1) == att32.argmax(-1))
+                                               .float().mean())}
+    row = {"phase": "han_train", "model": "han x4 10x20x64 bf16", "card": card,
+           "steps": steps, "batch": TRAIN_BATCH, "crop": TRAIN_CROP, "launches": launches,
+           "launches_by_form": forms, "epoch_train_loss": losses, **val,
+           "run_experiment_s": seconds, "peak_memory_bytes_run": peak_run,
+           "eval_sisr_s": cli_seconds, "eval_images_per_s": images / cli_seconds,
+           "eval_mean": mean, "eval_rcab_launches": eval_launches,
+           "lam_attention_bf16": lam, "fixed_batch": steps_row}
+    print(json.dumps(row), flush=True)
+    if not steps_row["loss_lower_after_steps"]:
+        raise AssertionError(f"HAN fixed-batch loss {steps_row['fixed_batch_loss']}")
+    del handler, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return row
+
+
+def bobw_qhan_phase(rcab, card):
+    """The slice's main path: contrastiveblindqhan (QHAN 10 x 20 x 64 bf16,
+    standard style with q-layers: each of its 200 blocks launches the RCAB
+    kernels with shared bd and bu and a per-image scale; the frozen packaged
+    encoder) through cli.train_sisr on a copy of
+    examples/train_bobw_rcan_supmoco.toml with the model's name changed (2
+    epochs of 2 steps, validating each epoch), steady steps at batch 16 with
+    bench.py's chain in the step, cli.eval_sisr on the run; then the
+    kernels in that form against their plain versions at its shapes.
+    Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_bobw_qhan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(90))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(91))
+    cfg = load_config(os.path.join(ROOT, BOBW_CONFIG)).as_plain()
+    cfg["model"]["name"] = "contrastiveblindqhan"
+    cfg["experiment"] = QHAN_EXP
+    exp_root = os.path.join(root, "experiments")
+    cfg["experiment_save_loc"] = exp_root
+    cfg["data"]["training_sets"] = {f"data_{i}": {"hr_dir": hr_dir} for i in range(DEGRADE_SETS)}
+    cfg["data"]["eval_sets"] = {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr}}
+    cfg["training"].update(num_epochs=2)
+    internal = cfg["model"]["internal_params"]
+    if ({k: internal[k] for k in BOBW_FULL} != BOBW_FULL or internal.get("dtype") != "bf16"
+            or cfg["training"]["batch_size"] != TRAIN_BATCH or cfg["data"]["crop"] != TRAIN_CROP):
+        raise AssertionError(f"{BOBW_CONFIG} is not full-width bf16 BoBW at batch 16, crop 48")
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    FORM_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    want = {"rcab_fused": 200 * (DEGRADE_STEPS + len(forwards)),
+            "rcab_fused_backward": 200 * DEGRADE_STEPS}
+    forms = dict(FORM_LAUNCHES)
+    qhan_forms = {"forward/per_image:scale", "backward/per_image:scale"}
+    if launches != want or len(forwards) != 2 * VALIDATION_FORWARDS or set(forms) != qhan_forms:
+        raise AssertionError(f"kernel launches in the QHAN BoBW run {launches} by form {forms}, "
+                             f"expected {want} in {qhan_forms}")
+    launches["rcab_fused_validation"] = 200 * len(forwards)
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    val = {k: [stats[e].get(k) for e in sorted(stats)] for k in ("val-PSNR", "val-SSIM")}
+    if len(losses) != 2 or not np.isfinite(losses + val["val-PSNR"] + val["val-SSIM"]).all():
+        raise AssertionError(f"QHAN BoBW run: losses {losses}, validation {val}")
+
+    # steady steps at batch 16 with bench.py's chain in the step
+    handler = get_model("contrastiveblindqhan")(device="cuda", seed=cfg["training"]["seed"],
+                                                **internal)
+    pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+
+    def input_fn(generator, b):
+        return {"lr": pipe.degrade_batch(generator, b["hr"])[0], "hr": b["hr"]}
+
+    handler.set_input_pipeline(input_fn)
+    state = handler.init_state()
+    hr16 = fixed_hr_batch(hr_dir, TRAIN_BATCH)
+    fixed = without_grad(lambda: input_fn(card_generator(92), {"hr": hr16}))
+    steps_row = phase_step_row(rcab, handler, state, {"hr": hr16},
+                               "contrastiveblindqhan x4 10x20x64 bf16", pair_loss(handler, fixed))
+    if steps_row["launches_a_step"] != {"rcab_fused": 200, "rcab_fused_backward": 200} \
+            or set(steps_row["launches_a_step_by_form"]) != qhan_forms:
+        raise AssertionError(f"a QHAN BoBW step launched {steps_row['launches_a_step_by_form']}")
+    del handler, state
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "eval")
+    images = len(EVAL_LR_SHAPES)
+    rcab.launches = 0
+    with watched(SISRInterface, "net_run") as eval_forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        eval_lr, "--hr_dir", eval_hr, "-m", "PSNR", "-m", "SSIM",
+                        "-me", QHAN_EXP, "best", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    eval_launches = rcab.launches
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    if (len(values) != images or (QHAN_EXP, "PSNR") not in columns
+            or not np.isfinite(list(values.values())).all()
+            or len(eval_forwards) != images or eval_launches != 200 * images):
+        raise AssertionError(f"eval_sisr of the QHAN BoBW run: columns {columns}, "
+                             f"{len(values)} rows, {len(eval_forwards)} forwards, "
+                             f"{eval_launches} launches")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+    kernel_rows = [qrcab_check(rcab, TRAIN_SHAPE, torch.bfloat16, 480, QHAN_FORM)] + [
+        qrcab_check(rcab, shape, torch.bfloat16, 481 + i, QHAN_FORM, backward=False)
+        for i, shape in enumerate(EVAL_SHAPES)]
+    row = {"phase": "bobw_qhan", "model": "contrastiveblindqhan x4 10x20x64 bf16 (standard, "
+           f"q-layers), frozen {PACKAGED_ENCODER}", "card": card, "config": BOBW_CONFIG,
+           "steps": DEGRADE_STEPS, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "launches": launches, "launches_by_form": forms, "epoch_train_loss": losses, **val,
+           "run_experiment_s": seconds, "peak_memory_bytes_run": peak_run,
+           "eval_sisr_s": cli_seconds, "eval_images_per_s": images / cli_seconds,
+           "eval_mean": mean, "eval_rcab_launches": eval_launches,
+           "fixed_batch": dict(steps_row, chain="bench.py:133-143"),
+           "kernel_form_rows": [{k: r[k] for k in ("shape", "ms", "shared_form_ms", "plain_ms",
+                                                   "bound_ms", "max_abs_err", "backward_ms",
+                                                   "shared_form_backward_ms", "backward_plain_ms",
+                                                   "bwd_worst_rel_err")} for r in kernel_rows]}
+    print(json.dumps(row), flush=True)
+    if not steps_row["loss_lower_after_steps"]:
+        raise AssertionError(f"QHAN BoBW fixed-batch loss {steps_row['fixed_batch_loss']}")
+    shutil.rmtree(root)
+    return row
+
+
+def elan_train_phase(rcab, card):
+    """ELAN x4 at its defaults (36 blocks, 180 channels, windows 4/8/16,
+    bf16): steady steps on a fixed LR/HR batch (batch 16, crop 48; a step's
+    BatchNorm runs on the batch's statistics and moves the running ones), a
+    DIV2K-sized LR 339 x 510 (reflect-padded to 352 x 512 inside) and the
+    9 eval pairs through run_eval, one image a forward; then one
+    contrastiveblindqelan step (its generator's running statistics stay).
+    No RCAB kernel runs. Returns the row."""
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_elan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(100))
+    eval_lr, _ = write_eval_pairs(os.path.join(root, "eval_data"), np.random.default_rng(101))
+    fixed = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH)
+    handler = get_model("elan")(device="cuda", dtype="bf16", lr=1e-4, seed=5, **ELAN_FULL)
+    state = handler.init_state()
+    stats0 = running_stats(handler.module)
+
+    def loss_of(state):  # batch statistics, as the step's loss, the running ones kept
+        with buffers_kept(handler.module):
+            return pair_loss(handler, fixed, train=True)(state)
+
+    steps_row = phase_step_row(rcab, handler, state, fixed, "elan x4 36x180 bf16", loss_of)
+    stats1 = running_stats(handler.module)
+    moved = sum(not torch.equal(stats0[k], stats1[k]) for k in stats0)
+    if any(steps_row["launches_a_step"].values()) or moved != len(stats0):
+        raise AssertionError(f"ELAN steps: launches {steps_row['launches_a_step']}, "
+                             f"{moved} of {len(stats0)} running statistics moved")
+    x = torch.from_numpy(np.load(os.path.join(eval_lr, sorted(os.listdir(eval_lr))[0]))
+                         .astype(np.float32) / 255.0)[None].cuda()
+    if tuple(x.shape[1:3]) != DIV2K_LR:
+        raise AssertionError(f"the first eval image is {tuple(x.shape)}")
+    forward = lambda: handler.run_eval(state, {"lr": x})
+    forward_ms = cuda_ms(forward, 2, warmup=1, backlog_s=0)
+    trace = traced(forward, "elan_div2k_forward_trace", 1, by_kernel=True)
+    top = sorted(trace["per_call_device_us_by_kernel"].items(), key=lambda kv: -kv[1])[:8]
+    evals = eval_images(handler, state, eval_lr, len(EVAL_LR_SHAPES))
+    del handler, state
+    torch.cuda.empty_cache()
+    bobw = one_bobw_step(rcab, "contrastiveblindqelan", fixed["hr"], 102)
+    row = {"phase": "elan_train", "model": "elan x4 m36 c180 windows 4/8/16 bf16", "card": card,
+           "fixed_batch": steps_row, "running_stats_moved": moved,
+           "div2k_lr": DIV2K_LR, "div2k_padded_to": (352, 512),
+           "forward_div2k_wall_ms": forward_ms, "forward_div2k_busy_ms": trace["busy_us"] / 1e3,
+           "forward_div2k_kernels": trace["kernels_per_call"],
+           "forward_div2k_top_kernels_us": dict(top), **evals,
+           "contrastiveblindqelan_step": bobw}
+    print(json.dumps(row), flush=True)
+    if not steps_row["loss_lower_after_steps"]:
+        raise AssertionError(f"ELAN fixed-batch loss {steps_row['fixed_batch_loss']}")
+    shutil.rmtree(root)
+    return row
+
+
+def san_train_phase(rcab, card):
+    """SAN x4 at its defaults (20 groups x 10 blocks x 64, bf16): steady
+    steps on a fixed LR/HR batch (batch 16, crop 48), then its evaluation,
+    which always tiles (forward_chop with a forced split, tiles one after
+    another), on the 9 eval pairs one image a forward; then one
+    contrastiveblindqsan step. No RCAB kernel runs. Returns the row."""
+    from rumpy_tpu_torch.models import san as san_module
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_san")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(110))
+    eval_lr, _ = write_eval_pairs(os.path.join(root, "eval_data"), np.random.default_rng(111))
+    fixed = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH)
+    handler = get_model("san")(device="cuda", dtype="bf16", lr=1e-4, seed=6, **SAN_FULL)
+    state = handler.init_state()
+    steps_row = phase_step_row(rcab, handler, state, fixed, "san x4 20x10x64 bf16",
+                               pair_loss(handler, fixed))
+    if any(steps_row["launches_a_step"].values()):
+        raise AssertionError(f"a SAN step launched {steps_row['launches_a_step']}")
+    with watched(san_module, "forward_chop") as chops, watched(handler, "apply") as tiles:
+        evals = eval_images(handler, state, eval_lr, len(EVAL_LR_SHAPES))
+    images = len(EVAL_LR_SHAPES)
+    # one warm-up and one call an image, each at least four tiles
+    if len(chops) != images + 1 or len(tiles) < 4 * len(chops):
+        raise AssertionError(f"SAN eval: {len(chops)} forward_chop calls, {len(tiles)} tiles")
+    del handler, state
+    torch.cuda.empty_cache()
+    bobw = one_bobw_step(rcab, "contrastiveblindqsan", fixed["hr"], 112)
+    row = {"phase": "san_train", "model": "san x4 20x10x64 bf16", "card": card,
+           "fixed_batch": steps_row, **evals, "eval_forward_chop_calls": len(chops),
+           "eval_tile_forwards": len(tiles), "contrastiveblindqsan_step": bobw}
+    print(json.dumps(row), flush=True)
+    if not steps_row["loss_lower_after_steps"]:
+        raise AssertionError(f"SAN fixed-batch loss {steps_row['fixed_batch_loss']}")
+    shutil.rmtree(root)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3776,6 +4258,10 @@ def main() -> int:
     dan = dan_train_phase(rcab, card)
     ikc_train_phase(rcab, card)
     dasr_train_phase(rcab, card)
+    han = han_train_phase(rcab, card)
+    qhan = bobw_qhan_phase(rcab, card)
+    elan = elan_train_phase(rcab, card)
+    san = san_train_phase(rcab, card)
     qrcab_rows += [r for r in launch_coverage_phase(rcab) if r["per_image"]]
     per_image = [{k: r[k] for k in (
         "shape", "dtype", "per_image", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",
@@ -3791,7 +4277,9 @@ def main() -> int:
                      + bobw_launches["rcab_fused"] + bobw_eval_row["rcab_launches"]
                      + joint_launches["rcab_fused"] + meta_launches["rcab_fused"]
                      + meta_row["eval_rcab_launches"] + family["launches"]
-                     + dan["launches"]["rcab_fused"] + dan["eval_rcab_launches"]),
+                     + dan["launches"]["rcab_fused"] + dan["eval_rcab_launches"]
+                     + han["launches"]["rcab_fused"] + han["eval_rcab_launches"]
+                     + qhan["launches"]["rcab_fused"] + qhan["eval_rcab_launches"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
@@ -3809,6 +4297,17 @@ def main() -> int:
         "launches_dan_validation": dan["launches"]["rcab_fused_validation"],
         "launches_dan_eval_path": dan["eval_rcab_launches"],
         "launches_dan_a_step": dan["fixed_batch"]["launches_a_step"]["rcab_fused"],
+        "launches_han_training_path": han["launches"]["rcab_fused"],
+        "launches_han_validation": han["launches"]["rcab_fused_validation"],
+        "launches_han_eval_path": han["eval_rcab_launches"],
+        "launches_han_a_step_by_form": han["fixed_batch"]["launches_a_step_by_form"],
+        # the slice's main path: contrastiveblindqhan, a per-image scale
+        "launches_bobw_qhan_path": qhan["launches"]["rcab_fused"],
+        "launches_bobw_qhan_validation": qhan["launches"]["rcab_fused_validation"],
+        "launches_bobw_qhan_eval_path": qhan["eval_rcab_launches"],
+        "launches_bobw_qhan_a_step_by_form": qhan["fixed_batch"]["launches_a_step_by_form"],
+        "launches_elan_a_step": elan["fixed_batch"]["launches_a_step"]["rcab_fused"],
+        "launches_san_a_step": san["fixed_batch"]["launches_a_step"]["rcab_fused"],
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -3835,7 +4334,9 @@ def main() -> int:
                      + bobw_launches["rcab_fused_backward"]
                      + joint_launches["rcab_fused_backward"]
                      + meta_launches["rcab_fused_backward"] + family["backward_launches"]
-                     + dan["launches"]["rcab_fused_backward"]),
+                     + dan["launches"]["rcab_fused_backward"]
+                     + han["launches"]["rcab_fused_backward"]
+                     + qhan["launches"]["rcab_fused_backward"]),
         "launches_training_path": train_launches["rcab_fused_backward"],
         "launches_blind_training_path": blind_launches["rcab_fused_backward"],
         "launches_bobw_training_path": bobw_launches["rcab_fused_backward"],
@@ -3844,6 +4345,10 @@ def main() -> int:
         "launches_bobw_family_path": family["backward_launches"],
         "launches_dan_training_path": dan["launches"]["rcab_fused_backward"],
         "launches_dan_a_step": dan["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
+        "launches_han_training_path": han["launches"]["rcab_fused_backward"],
+        "launches_bobw_qhan_path": qhan["launches"]["rcab_fused_backward"],
+        "launches_elan_a_step": elan["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
+        "launches_san_a_step": san["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

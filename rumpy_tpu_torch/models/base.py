@@ -222,8 +222,11 @@ class BaseHandler:
             self.loss_type = loss
         self.seed = seed
         self.model_kwargs = model_kwargs
-        self.module = self.build_module(**model_kwargs).to(
-            self.device, memory_format=torch.channels_last).eval()
+        # 4-D parameters channels_last (``Module.to(memory_format=...)``
+        # refuses the 5-D kernel of a conv3d)
+        self.module = self.build_module(**model_kwargs).to(self.device)._apply(
+            lambda t: t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t
+        ).eval()
         self.schedule = build_schedule(lr, scheduler, scheduler_params)
         self._optimizer = None  # built at the first train step or load
         self._state_params = None

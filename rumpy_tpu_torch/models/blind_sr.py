@@ -31,13 +31,20 @@ discards that pass's update), the optimizer step over G, E and the
 reducer, and the enqueue, with no host sync. As in the JAX package the key
 encoder is copied from E at initialisation, before a warm start loads E.
 
-Generators: QRCAN (``contrastiveblindqrcan``) and QEDSR
-(``contrastiveblindqedsr``). ``sft_mode`` tiles the embedding to
+Generators: QRCAN (``contrastiveblindqrcan``), QEDSR
+(``contrastiveblindqedsr``), QHAN (``contrastiveblindqhan``: the ``standard``
+style with q-layers, so every block runs the fused kernel with shared
+``bd``/``bu`` and a per-image scale), QELAN (``contrastiveblindqelan``) and
+QSAN (``contrastiveblindqsan``). ``sft_mode`` tiles the embedding to
 (N, D, H, W) maps and feeds them to QRCAN's SFT layers; ``srmd_mode``
 concatenates the maps to the input instead (``in_feats`` 3 + D), so its
-QRCAN keeps ``max_concat`` and the fused kernel. The other generators of
-the JAX package (QHAN, QELAN, SAN, QRRDBNet, Metabed) come with their
-families and raise ``NotImplementedError`` (ROADMAP queue 1 item 9).
+QRCAN keeps ``max_concat`` and the fused kernel. As in the JAX package the
+generator is called without ``train``: QELAN's BatchNorm normalises by its
+running statistics in a train step too, and never updates them; in
+``sft_mode`` the maps land in QELAN's ``train`` and in no argument of SAN's,
+and both fail at their first forward; QHAN ignores them. QRRDBNet and
+Metabed come with their families and raise ``NotImplementedError``
+(ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ from rumpy_tpu_torch.models.common import Linear, tile_maps
 from rumpy_tpu_torch.models.contrastive import (DASREncoder, _normalize, check_queue_batch,
                                                 device_batch, enqueue, moco_logits,
                                                 momentum_update, softmax_cross_entropy_first)
+from rumpy_tpu_torch.models.han_elan import QELAN, QHAN
+from rumpy_tpu_torch.models.san import SAN
 from rumpy_tpu_torch.registry import register_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 
@@ -146,8 +155,18 @@ def _build_generator(name: str, scale: int, num_metadata: int, dtype,
                      dtype=dtype, **gen_kwargs)
     if name in ("qedsr", "edsr"):
         return QEDSR(scale=scale, input_para=num_metadata, dtype=dtype, **gen_kwargs)
-    if name in ("qhan", "han", "qelan", "elan", "qsan", "san", "qrealesrgan", "qrrdbnet",
-                "realesrgan", "metabed"):
+    # the JAX generators below infer their input width: srmd_mode's is 3 + D
+    in_feats = 3 + (num_metadata if srmd_mode else 0)
+    if name in ("qhan", "han"):
+        return QHAN(scale=scale, in_feats=in_feats, num_metadata=num_metadata, dtype=dtype,
+                    **gen_kwargs)
+    if name in ("qelan", "elan"):
+        return QELAN(scale=scale, in_feats=in_feats, num_metadata=num_metadata, dtype=dtype,
+                     **gen_kwargs)
+    if name in ("qsan", "san"):
+        return SAN(scale=scale, in_feats=in_feats, num_metadata=num_metadata, dtype=dtype,
+                   **gen_kwargs)
+    if name in ("qrealesrgan", "qrrdbnet", "realesrgan", "metabed"):
         raise NotImplementedError(f"BoBW generator {name!r} is not ported yet: it comes "
                                   "with its family (ROADMAP queue 1 item 9)")
     raise KeyError(f"Unknown generator {name}")
@@ -388,3 +407,34 @@ class ContrastiveBlindQRCANHandler(ContrastiveBlindSRHandler):
 @register_model("contrastiveblindqedsr")
 class ContrastiveBlindQEDSRHandler(ContrastiveBlindSRHandler):
     generator_name = "qedsr"
+
+
+@register_model("contrastiveblindqhan")
+class ContrastiveBlindQHANHandler(ContrastiveBlindSRHandler):
+    generator_name = "qhan"
+
+
+@register_model("contrastiveblindqelan")
+class ContrastiveBlindQELANHandler(ContrastiveBlindSRHandler):
+    generator_name = "qelan"
+
+
+@register_model("contrastiveblindqsan")
+class ContrastiveBlindQSANHandler(ContrastiveBlindSRHandler):
+    generator_name = "qsan"
+
+
+@register_model("contrastiveblindqrealesrgan")
+class ContrastiveBlindQRealESRGANHandler(ContrastiveBlindSRHandler):
+    """QRRDBNet under the BoBW pipeline: raises until ``gan_models`` is
+    ported (ROADMAP queue 1 item 9)."""
+
+    generator_name = "qrealesrgan"
+
+
+@register_model("contrastiveblindmetabed")
+class ContrastiveBlindMetaBedHandler(ContrastiveBlindSRHandler):
+    """The Metabed generator under the BoBW pipeline: raises until
+    ``metabed`` is ported (ROADMAP queue 1 item 9)."""
+
+    generator_name = "metabed"

@@ -101,6 +101,46 @@ class Conv(nn.Module):
         return F.linear(v.to(self.dtype), self.weight.flatten(1).to(self.dtype), b)
 
 
+class Conv3d(nn.Module):
+    """k x k x k conv with SAME padding over (N, C, D, H, W) volumes: the
+    JAX package's 3-D ``TConv`` (kernel (k, k, k, in, out) there, (out, in,
+    k, k, k) here), torch's U(+-1/sqrt(fan_in)) kernel init, a zero bias."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        self.weight.copy_(torch.empty(self.weight.shape).uniform_(
+            -bound, bound, generator=generator))
+        self.bias.zero_()
+
+    def forward(self, x):
+        return F.conv3d(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype),
+                        padding=self.weight.shape[-1] // 2)
+
+
+class Gamma(nn.Module):
+    """Base of a module with a scalar ``gamma`` of its own, initialised to
+    zero (flax's ``self.param("gamma", zeros, (1,))``)."""
+
+    flax_leaves = {"gamma": ("params", "gamma")}
+
+    def __init__(self):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.gamma.zero_()
+
+
 class Linear(nn.Module):
     """Dense layer: the JAX package's ``TDense`` (weight (out, in) here,
     its kernel (in, out)), torch's U(+-1/sqrt(fan_in)) kernel init and a

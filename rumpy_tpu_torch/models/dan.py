@@ -16,9 +16,10 @@ their activations kept).
 (DANv2: dual-path blocks, the Estimator emits the full softmaxed kernel,
 PCA-projected by a fixed matrix to the code the Restorer takes) and
 ``v1QRCAN``, whose Restorer is QRCAN fed the code as its metadata vector
-(its 200 blocks on the RCAB kernels; float32, as in the JAX package).
-``v1QHAN`` and ``v1QELAN`` raise with their family (ROADMAP queue 1 item
-9). DAN's ``init_ker_map`` and DANv2's ``pca_matrix`` are constants of the
+(its 200 blocks on the RCAB kernels; float32, as in the JAX package), and
+``v1QHAN`` with QHAN in its place. ``v1QELAN`` is refused: the JAX
+package's DAN keeps no BatchNorm statistics, so its QELAN fails at the
+first forward there (ROADMAP.md section 3). DAN's ``init_ker_map`` and DANv2's ``pca_matrix`` are constants of the
 model, not parameters: both packages fit them by default from random SRMD
 kernels, which a torch generator cannot draw as jax.random does, so a
 JAX-trained DAN scores the same here only when its constants are passed in
@@ -404,6 +405,10 @@ class DANHandler(BaseHandler):
                  generator_params=None, **kwargs):
         if mode not in ("v1", "v2", "v1QRCAN", "v1QHAN", "v1QELAN"):
             raise NotImplementedError("Set mode to v1, v2 or a v1Q* variant")
+        if mode == "v1QELAN":
+            raise ValueError("DAN v1QELAN fails in the JAX package: its handler keeps no "
+                             "batch_stats, and QELAN's BatchNorm finds no running statistics "
+                             "at the first forward; the port refuses it")
         self.mode = mode
         self.selected_metadata = selected_metadata
         if selected_metadata:

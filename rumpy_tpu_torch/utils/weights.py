@@ -17,8 +17,12 @@ Covered: RCAN, EDSR (and EDSRMD), QRCAN (``QResidualGroup_<i>``,
 layers and q-layers), the DASR encoder (``TConv_0..5``,
 ``BatchNorm_0..5``, ``TDense_<k>``) and the BoBW pipeline's
 ``generator``/``encoder``/``reducer`` subtrees; and every module that
-names its own children (``flax_children``: DAN, DANv2, IKC, DASR, DCLS and
-their blocks). Flax names a compact
+names its own children (``flax_children``: DAN, DANv2, IKC, DASR, DCLS,
+HAN, QHAN, ELAN, QELAN, SAN, QSAN and their blocks). A module with a
+parameter of its own beside its children (``flax_leaves``: the scalar
+``gamma`` of LAM, CSAM and SAN) maps it at its own path; SAN's shared
+non-local block is one flax submodule and one port module. A 3-D conv
+kernel (``Conv3d``, CSAM's) goes DHWIO -> OIDHW. Flax names a compact
 module's children in the order they are constructed, and an outer conv
 is constructed before its inner one: an ``SFTLayer``'s ``TConv_0`` is
 its scale branch's second conv. Any unused or missing
@@ -40,13 +44,13 @@ from rumpy_tpu_torch.models.attention_manipulators import (QEDSR, QRCAB, QRCAN, 
                                                            ParaCALayer, ParamResBlock,
                                                            QCALayer, QResidualGroup, SFTLayer)
 from rumpy_tpu_torch.models.blind_sr import BlindSRPipeline, EncodingReducer
-from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Linear,
+from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Conv3d, Linear,
                                            ResBlock, Upsampler)
 from rumpy_tpu_torch.models.contrastive import DASREncoder
 from rumpy_tpu_torch.models.sftmd_variants import SFTMD, SFTResidualBlock, SftConvs
 
 Path = Tuple[str, ...]
-LEAF_TYPES = (Conv, Linear, BatchNorm)
+LEAF_TYPES = (Conv, Conv3d, Linear, BatchNorm)
 
 
 def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path, nn.Module]]:
@@ -58,6 +62,8 @@ def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Pa
     def conv(child, name, index):  # a flax Conv wraps one TConv
         yield from sub(child, name, f"Conv_{index}", "TConv_0")
 
+    if hasattr(module, "flax_leaves"):  # a parameter of its own beside its children
+        yield port.rstrip("."), flax, module
     if isinstance(module, LEAF_TYPES):
         yield port.rstrip("."), flax, module
     elif hasattr(module, "flax_children"):  # the module names its own children
@@ -177,6 +183,7 @@ def _convs(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path
 # port tensor name -> (flax collection, leaf name) of each leaf type
 _LEAVES = {
     Conv: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    Conv3d: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     Linear: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     BatchNorm: {"scale": ("params", "scale"), "bias": ("params", "bias"),
                 "running_mean": ("batch_stats", "mean"),
@@ -185,7 +192,7 @@ _LEAVES = {
 
 
 def _leaf_names(module: nn.Module) -> Dict[str, Tuple[str, str]]:
-    names = dict(_LEAVES[type(module)])
+    names = dict(getattr(module, "flax_leaves", None) or _LEAVES[type(module)])
     if isinstance(module, (Conv, Linear)) and module.bias is None:
         del names["bias"]
     return names
@@ -194,6 +201,8 @@ def _leaf_names(module: nn.Module) -> Dict[str, Tuple[str, str]]:
 def _to_port(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
     if name == "weight" and isinstance(module, Conv):
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if name == "weight" and isinstance(module, Conv3d):
+        return arr.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
     if name == "weight" and isinstance(module, Linear):
         return arr.T  # (in, out) -> (out, in)
     return arr
@@ -202,6 +211,8 @@ def _to_port(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
 def _to_flax(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
     if name == "weight" and isinstance(module, Conv):
         return arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if name == "weight" and isinstance(module, Conv3d):
+        return arr.transpose(2, 3, 4, 1, 0)  # OIDHW -> DHWIO
     if name == "weight" and isinstance(module, Linear):
         return arr.T
     return arr
@@ -218,6 +229,11 @@ def _lookup(tree: Mapping, path: Path) -> Tuple[Mapping, Path]:
             raise KeyError(f"flax tree is missing {'/'.join(real + (key,))}")
         node, real = node[key], real + (key,)
     return node, real
+
+
+def _key(port: str, name: str) -> str:
+    """The state_dict key of a leaf (a root module's own leaf has no prefix)."""
+    return f"{port}.{name}" if port else name
 
 
 def _leaves(tree, prefix: Path = ()) -> Iterator[Path]:
@@ -255,8 +271,8 @@ def state_dict_from_jax(params, module: nn.Module,
             target = tuple(getattr(mod, name).shape)
             if arr.shape != target:
                 raise ValueError(f"shape mismatch at {'/'.join(real + (leaf,))}: "
-                                 f"{arr.shape} vs {port}.{name} {target}")
-            out[f"{port}.{name}"] = torch.from_numpy(arr.copy())
+                                 f"{arr.shape} vs {_key(port, name)} {target}")
+            out[_key(port, name)] = torch.from_numpy(arr.copy())
             used[collection].add(real + (leaf,))
     for collection, tree in trees.items():
         if tree is None:
@@ -304,7 +320,7 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
     used = set()
     for port, flax, mod in _entries(module, "", ()):
         for name, (coll, leaf) in _leaf_names(mod).items():
-            key = f"{port}.{name}"
+            key = _key(port, name)
             used.add(key)
             if coll != collection:
                 continue

@@ -205,10 +205,22 @@ def test_default_constants_differ_from_jax_by_their_draws():
 
 
 def test_danv1qrealesrgan_raises_naming_item_9():
+    """danv1qrealesrgan waits for gan_models; v1QHAN, whose family came
+    with the HAN slice, builds its QHAN restorer and matches JAX."""
     with pytest.raises(NotImplementedError, match="item 9"):
         torch_model("danv1qrealesrgan")(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        torch_model("dan")(mode="v1QHAN", device="cpu", init_ker_map=(0.0,) * 10)
+    kw = dict(mode="v1QHAN", scale=2, nf=16, loop=2, input_para=4, kernel_size=9,
+              init_ker_map=(0.1,) * 4,
+              generator_params=dict(n_feats=16, n_resgroups=1, n_resblocks=2, reduction=4))
+    jh = jax_model("dan")(**kw)
+    js = jh.init_state()
+    th = torch_model("dan")(device="cpu", **kw)
+    assert type(th.module.restorer).__name__ == "QHAN"
+    th.module.load_state_dict(state_dict_from_jax(_np(js.params), th.module))
+    x = np.random.default_rng(0).random((1, 8, 8, 3)).astype(np.float32)
+    want = np.asarray(jh.run_eval(js, {"lr": jnp.asarray(x)}))
+    np.testing.assert_allclose(th.run_eval(th._own_state(), {"lr": x}).numpy(), want,
+                               atol=F32_ATOL, rtol=0)
 
 
 def _example_chains():

@@ -439,3 +439,61 @@ def test_chip_smoke_drives_the_iterative_phases_and_gates_the_sums():
     assert raises, "rcab_bwd_f32_sums_phase has no gate"
     names = {n.id for n in ast.walk(sums) if isinstance(n, ast.Name)}
     assert "F32_FACTOR" in names
+
+
+GENERATOR_MODULES = ("models/han_elan.py", "models/san.py", "ops/tiling.py")
+GENERATOR_MODELS = {"han": {}, "elan": {}, "qhan": {}, "qelan": {}, "san": {}, "qsan": {},
+                    "contrastiveblindqhan": {"block_encoder_loading": True},
+                    "contrastiveblindqelan": {"block_encoder_loading": True},
+                    "contrastiveblindqsan": {"block_encoder_loading": True}}
+# every name the port registers that builds (the raising ones apart): 27
+# of the JAX package's 59
+BUILDING_MODELS = ("edsr", "rcan", "qrcan", "qedsr", "contrastiveblindqrcan",
+                   "contrastiveblindqedsr", "srmd", "edsrmd", "sftmd", "moco", "supmoco",
+                   "weakcon", "supcon", "degradationregressor", "dan", "ikc", "dasr",
+                   "dcls") + tuple(GENERATOR_MODELS)
+RAISING_MODELS = ("danv1qrealesrgan", "contrastiveblindqrealesrgan", "contrastiveblindmetabed")
+
+
+def test_port_covers_the_bobw_generator_families():
+    """The HAN, ELAN and SAN families' modules are in the package (so the
+    import scans above read them, neither jax nor rumpy_tpu among their
+    imports) and the registry finds their nine handlers: 27 names that
+    build, and the three that raise naming item 9, whose generators come
+    with gan_models and metabed."""
+    from rumpy_tpu_torch.registry import available_models, get_model
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    missing = [m for m in GENERATOR_MODULES if m not in names]
+    assert not missing, missing
+    for m in GENERATOR_MODULES:
+        bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
+        assert not bad, (m, bad)
+    registered = set(available_models())
+    assert len(BUILDING_MODELS) == 27 and set(BUILDING_MODELS) <= registered
+    assert registered == set(BUILDING_MODELS) | set(RAISING_MODELS)
+    for name in ("contrastiveblindqrealesrgan", "contrastiveblindmetabed"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            get_model(name)(device="cpu")
+
+
+@pytest.mark.parametrize("name", list(GENERATOR_MODELS))
+def test_generator_family_models_raise_without_cuda(monkeypatch, name):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(name)(**GENERATOR_MODELS[name])
+
+
+def test_chip_smoke_drives_the_generator_family_phases():
+    """chip_smoke.py drives the slice's four phases from main() and keeps
+    the earlier ones."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    called = {n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    for phase in ("han_train", "bobw_qhan", "elan_train", "san_train", "dan_train",
+                  "bobw_train", "degrade_train", "launch_coverage"):
+        assert f"{phase}_phase" in called, phase
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in ("han_train", "bobw_qhan", "elan_train", "san_train"):
+        assert f'"phase": "{phase}"' in text, phase
