@@ -87,6 +87,23 @@ seeded random weights):
   (``san_train``); each with step ms, HR-MP/s, busy ms, idle share,
   kernels, peak memory, RCAB launches a step by form, a fixed batch's loss
   before and after its steps and eval images/s;
+* the GAN group (no RCAB kernel: cuDNN convs and PyTorch ops): the slice's
+  main path, realesrgan x4 at its defaults (RRDBNet 23 x 64, gc 32, the
+  U-Net SN discriminator, 64 features, bf16) through cli.train_sisr on
+  examples/train_rcan_blind_x4.toml's chain with the model table swapped,
+  an L1 pre-training epoch, then an adversarial epoch, validating each,
+  cli.eval_sisr on the run, and steady steps of both phases
+  (``realesrgan_train``); contrastiveblindqrealesrgan (QRRDBNet 23 x 64
+  behind the frozen packaged encoder) through a copy of the BoBW example
+  and cli.eval_sisr (``bobw_qrealesrgan``); esrgan (LR 32 for VGG-128,
+  the VGG-19 conv5_4 content term from a seeded npz), bsrgan, qrealesrgan
+  and danv1qrealesrgan (nb 23, loop 4, the PCA chain) steps
+  (``gan_family``); Metabed with each meta type, its autoencoder's phase
+  flip, metabedesrgan and contrastiveblindmetabed steps (``metabed``);
+  each with step ms by phase, HR-MP/s, busy ms, idle share, kernels, peak
+  memory, conv2d calls a step, a fixed batch's generator L1 and
+  discriminator loss before and after, and the discriminator's train-mode
+  calls a step (4);
 * every RCAB kernel launch of the run, recorded by shape, dtype, direction
   and which gate inputs are per image: each one that no phase held against
   the plain version is held after the paths, in the directions launched,
@@ -3035,9 +3052,11 @@ def step_row(rcab, handler, state, batch, name, steps=2):
     FORM_LAUNCHES.clear()
     convs = conv_calls(step)
     torch.cuda.synchronize()
-    n = batch["hr"].shape[0]
+    n, side_h, side_w = batch["hr"].shape[:3]
+    if side_h != HR_SIDE and handler.input_fn is not None:  # HR-only crops
+        raise AssertionError(f"{name}: HR crops {side_h} x {side_w}")
     row = {"model": name, "batch": n, "step_ms": ms,
-           "hr_megapixels_per_s": n * HR_SIDE ** 2 / 1e6 / (ms / 1e3),
+           "hr_megapixels_per_s": n * side_h * side_w / 1e6 / (ms / 1e3),
            "peak_memory_bytes": peak,
            "launches_a_step": {"rcab_fused": rcab.launches,
                                "rcab_fused_backward": rcab.backward_launches},
@@ -3761,18 +3780,19 @@ ELAN_FULL = dict(scale=4, m_elan=36, c_elan=180, window_sizes=(4, 8, 16))  # its
 SAN_FULL = dict(scale=4, n_feats=64, n_resgroups=20, n_resblocks=10)  # its defaults
 
 
-def fixed_pair_batch(lr_dir, hr_dir, batch):
-    """Centre crops of TRAIN_CROP LR pixels and the matching HR_SIDE HR
-    pixels of the LR/HR pairs, on the card."""
+def fixed_pair_batch(lr_dir, hr_dir, batch, crop=TRAIN_CROP):
+    """Centre crops of ``crop`` LR pixels and the matching HR pixels of
+    the LR/HR pairs, on the card."""
     names = sorted(os.listdir(hr_dir))
     lrs, hrs = [], []
+    side = crop * TRAIN_SCALE
     for name in (names * batch)[:batch]:
         lr = np.load(os.path.join(lr_dir, name))
-        top, left = (lr.shape[0] - TRAIN_CROP) // 2, (lr.shape[1] - TRAIN_CROP) // 2
-        lrs.append(lr[top:top + TRAIN_CROP, left:left + TRAIN_CROP])
+        top, left = (lr.shape[0] - crop) // 2, (lr.shape[1] - crop) // 2
+        lrs.append(lr[top:top + crop, left:left + crop])
         hr = np.load(os.path.join(hr_dir, name))
         t, l_ = top * TRAIN_SCALE, left * TRAIN_SCALE
-        hrs.append(hr[t:t + HR_SIDE, l_:l_ + HR_SIDE])
+        hrs.append(hr[t:t + side, l_:l_ + side])
     return {k: torch.from_numpy(np.stack(v).astype(np.float32) / 255.0).cuda()
             for k, v in (("lr", lrs), ("hr", hrs))}
 
@@ -4202,6 +4222,387 @@ def san_train_phase(rcab, card):
     return row
 
 
+# the GAN group: RRDBNet and the U-Net SN discriminator at their defaults
+GAN_FULL = dict(scale=4, nf=64, nb=23, gc=32, d_nf=64)
+REALESRGAN_EXP = "realesrgan_x4_blind"
+QREALESRGAN_EXP = "qrealesrgan_supmoco_bobw"
+GAN_CROP = 32  # esrgan and metabedesrgan: VGG-128 takes HR 128 x 128
+META_LEN = 5  # Metabed's metadata values in the metabed phase
+
+
+def gan_losses(handler, fixed):
+    """A fixed LR/HR batch's generator L1 (the eval forward) and
+    discriminator loss (train mode, its statistics and spectral-norm state
+    put back), as floats."""
+    def losses(state):
+        sr = without_grad(lambda: handler.apply(state.params, fixed)[0])
+        with buffers_kept(handler.module):
+            pred_real = without_grad(lambda: handler._disc(fixed["hr"]))
+            pred_fake = without_grad(lambda: handler._disc(sr))
+        real, fake = handler._adv_d_loss(pred_fake, pred_real)
+        return float((sr.float() - fixed["hr"]).abs().mean()), float(real + fake)
+    return losses
+
+
+def gan_phase_rows(rcab, handler, state, batch, name, fixed, epochs, steps=2):
+    """For each epoch of ``epochs`` (below ``pretrain_epochs`` the L1 step,
+    else the adversarial step): step_row's numbers (``steps`` timed after a
+    warm-up), one traced step (busy ms, idle share, kernels), the fixed
+    batch's generator L1 and discriminator loss before and after, and the
+    discriminator's train-mode calls in that step. No RCAB kernel runs."""
+    losses_of = gan_losses(handler, fixed)
+    rows = {}
+    for epoch in epochs:
+        handler.set_epoch(epoch)
+        phase = "pretrain" if epoch < handler.pretrain_epochs else "adversarial"
+        before = losses_of(state)
+        row = step_row(rcab, handler, state, batch, f"{name} {phase}", steps=steps)
+        after = losses_of(state)
+        calls = []
+        hook = handler.discriminator.register_forward_pre_hook(
+            lambda m, a, kw: calls.append(bool(kw.get("train"))), with_kwargs=True)
+        try:
+            trace = traced(lambda: handler.train_batch(state, batch),
+                           f"{re.sub(r'[^a-z0-9]+', '_', name)}_{phase}_trace", 1)
+        finally:
+            hook.remove()
+        row.update(phase=phase, fixed_batch_g_l1=[before[0], after[0]],
+                   fixed_batch_d_loss=[before[1], after[1]],
+                   d_train_calls_a_step=sum(calls), step_busy_ms=trace["busy_us"] / 1e3,
+                   step_idle_share=trace["idle_share"], kernels_a_step=trace["kernels_per_call"])
+        want_calls = 4 if phase == "adversarial" else 0
+        if (not np.isfinite(before + after).all() or any(row["launches_a_step"].values())
+                or row["d_train_calls_a_step"] != want_calls
+                or (phase == "pretrain" and not after[0] < before[0])):
+            raise AssertionError(f"{name} {phase}: {row}")
+        rows[phase] = row
+    return rows
+
+
+def realesrgan_train_phase(rcab, card):
+    """The slice's main path: realesrgan x4 at its defaults (RRDBNet 23 x
+    64, gc 32; the U-Net SN discriminator, 64 features; bf16) through
+    cli.train_sisr on examples/train_rcan_blind_x4.toml with the model table
+    swapped: HR-only .npy files degraded on the card by the example's chain
+    in each step, batch 16, crop 48, epoch 0 the L1 pre-training, epoch 1
+    adversarial (2 steps each), validating each epoch; cli.eval_sisr on the
+    run; then steady steps of both phases on a fixed batch with the chain.
+    Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.interface import SISRInterface
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_realesrgan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(120))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(121))
+    cfg = load_config(os.path.join(ROOT, EXAMPLE_CONFIG)).as_plain()
+    if cfg["training"]["batch_size"] != TRAIN_BATCH or cfg["data"]["crop"] != TRAIN_CROP:
+        raise AssertionError(f"{EXAMPLE_CONFIG} is not batch 16, crop 48")
+    exp_root = os.path.join(root, "experiments")
+    cfg["experiment"], cfg["experiment_save_loc"] = REALESRGAN_EXP, exp_root
+    cfg["model"] = {"name": "realesrgan", "internal_params": dict(
+        GAN_FULL, dtype="bf16", lr=1e-4, pretrain_epochs=1)}
+    cfg["data"]["training_sets"] = {f"data_{i}": {"hr_dir": hr_dir} for i in range(DEGRADE_SETS)}
+    cfg["data"]["eval_sets"] = {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr}}
+    cfg["training"].update(num_epochs=2)
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    epochs = [stats[e] for e in sorted(stats)]
+    losses = {k: [r.get(k) for r in epochs] for k in ("train-loss", "l1-loss", "gan-loss",
+                                                      "d-loss-real", "d-loss-fake")}
+    val = {k: [r.get(k) for r in epochs] for k in ("val-PSNR", "val-SSIM")}
+    if (any(launches.values()) or len(forwards) != 2 * VALIDATION_FORWARDS or len(epochs) != 2
+            or losses["gan-loss"][0] != 0.0 or not losses["gan-loss"][1] > 0
+            or not np.isfinite(sum(losses.values(), []) + val["val-PSNR"]
+                               + val["val-SSIM"]).all()):
+        raise AssertionError(f"realesrgan run: launches {launches}, {len(forwards)} validation "
+                             f"forwards, losses {losses}, validation {val}")
+
+    out = os.path.join(root, "eval")
+    images = len(EVAL_LR_SHAPES)
+    with watched(SISRInterface, "net_run") as eval_forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        eval_lr, "--hr_dir", eval_hr, "-m", "PSNR", "-m", "SSIM",
+                        "-me", REALESRGAN_EXP, "best", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    if (len(values) != images or (REALESRGAN_EXP, "PSNR") not in columns
+            or not np.isfinite(list(values.values())).all() or len(eval_forwards) != images):
+        raise AssertionError(f"eval_sisr of the realesrgan run: columns {columns}, "
+                             f"{len(values)} rows, {len(eval_forwards)} forwards")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+
+    hr16 = fixed_hr_batch(hr_dir, TRAIN_BATCH)
+    handler, state = trained_handler(dict(load_config(cfg_path).as_plain(),
+                                          experiment_save_loc=root), root, "steps")
+    fixed = without_grad(lambda: handler.input_fn(card_generator(122), {"hr": hr16}))
+    steps = gan_phase_rows(rcab, handler, state, {"hr": hr16},
+                           "realesrgan x4 23x64 bf16, U-Net SN 64", fixed, (0, 1))
+    del handler, state
+    torch.cuda.empty_cache()
+    row = {"phase": "realesrgan_train", "model": "realesrgan x4 RRDBNet 23x64 gc32 bf16, "
+           "U-Net SN discriminator 64", "card": card, "config": EXAMPLE_CONFIG,
+           "steps": DEGRADE_STEPS, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "launches": launches, "epoch_losses": losses, **val, "run_experiment_s": seconds,
+           "peak_memory_bytes_run": peak_run, "eval_sisr_s": cli_seconds,
+           "eval_images_per_s": images / cli_seconds, "eval_mean": mean,
+           "fixed_batch": steps}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
+def bobw_qrealesrgan_phase(rcab, card):
+    """contrastiveblindqrealesrgan: QRRDBNet 23 x 64 (gc 32, bf16; the BoBW
+    example's QRCAN widths swapped for RRDBNet's defaults) behind the frozen
+    packaged encoder, through cli.train_sisr on a copy of
+    examples/train_bobw_rcan_supmoco.toml (2 epochs of 2 steps, validating
+    each), steady steps at batch 16 with bench.py's chain, cli.eval_sisr on
+    the run. Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_bobw_qrealesrgan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(123))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(124))
+    cfg = load_config(os.path.join(ROOT, BOBW_CONFIG)).as_plain()
+    cfg["model"]["name"] = "contrastiveblindqrealesrgan"
+    cfg["experiment"] = QREALESRGAN_EXP
+    exp_root = os.path.join(root, "experiments")
+    cfg["experiment_save_loc"] = exp_root
+    cfg["data"]["training_sets"] = {f"data_{i}": {"hr_dir": hr_dir} for i in range(DEGRADE_SETS)}
+    cfg["data"]["eval_sets"] = {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr}}
+    cfg["training"].update(num_epochs=2)
+    internal = cfg["model"]["internal_params"]
+    for k in BOBW_FULL:  # QRCAN's widths; QRRDBNet takes nf, nb, gc
+        if k != "scale":
+            internal.pop(k)
+    internal.update({k: GAN_FULL[k] for k in ("nf", "nb", "gc")})
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    val = {k: [stats[e].get(k) for e in sorted(stats)] for k in ("val-PSNR", "val-SSIM")}
+    if (any(launches.values()) or len(forwards) != 2 * VALIDATION_FORWARDS or len(losses) != 2
+            or not np.isfinite(losses + val["val-PSNR"] + val["val-SSIM"]).all()):
+        raise AssertionError(f"QRRDBNet BoBW run: launches {launches}, losses {losses}, "
+                             f"validation {val}")
+
+    handler = get_model("contrastiveblindqrealesrgan")(
+        device="cuda", seed=cfg["training"]["seed"], **internal)
+    pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+
+    def input_fn(generator, b):
+        return {"lr": pipe.degrade_batch(generator, b["hr"])[0], "hr": b["hr"]}
+
+    handler.set_input_pipeline(input_fn)
+    state = handler.init_state()
+    hr16 = fixed_hr_batch(hr_dir, TRAIN_BATCH)
+    fixed = without_grad(lambda: input_fn(card_generator(125), {"hr": hr16}))
+    steps_row = phase_step_row(rcab, handler, state, {"hr": hr16},
+                               "contrastiveblindqrealesrgan x4 23x64 bf16",
+                               pair_loss(handler, fixed))
+    if any(steps_row["launches_a_step"].values()) or not steps_row["loss_lower_after_steps"]:
+        raise AssertionError(f"a QRRDBNet BoBW step: {steps_row}")
+    del handler, state
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "eval")
+    images = len(EVAL_LR_SHAPES)
+    with watched(SISRInterface, "net_run") as eval_forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        eval_lr, "--hr_dir", eval_hr, "-m", "PSNR", "-m", "SSIM",
+                        "-me", QREALESRGAN_EXP, "best", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    if (len(values) != images or not np.isfinite(list(values.values())).all()
+            or len(eval_forwards) != images):
+        raise AssertionError(f"eval_sisr of the QRRDBNet BoBW run: {len(values)} rows, "
+                             f"{len(eval_forwards)} forwards")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+    row = {"phase": "bobw_qrealesrgan", "model": "contrastiveblindqrealesrgan x4 QRRDBNet "
+           f"23x64 gc32 bf16, frozen {PACKAGED_ENCODER}", "card": card, "config": BOBW_CONFIG,
+           "steps": DEGRADE_STEPS, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "launches": launches, "epoch_train_loss": losses, **val,
+           "run_experiment_s": seconds, "peak_memory_bytes_run": peak_run,
+           "eval_sisr_s": cli_seconds, "eval_images_per_s": images / cli_seconds,
+           "eval_mean": mean, "fixed_batch": dict(steps_row, chain="bench.py:133-143")}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
+def seeded_vgg19_npz(path, seed):
+    """VGG-19 weights in the flax-layout npz the port reads (``Conv_<i>/
+    kernel`` HWIO, ``Conv_<i>/bias``), He-scaled normal draws from a seed:
+    pretrained VGG weights stay gated."""
+    rng = np.random.default_rng(seed)
+    out, cin, i = {}, 3, 0
+    for c in (64, 64, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512, 512, 512, 512, 512):
+        out[f"Conv_{i}/kernel"] = (rng.standard_normal((3, 3, cin, c), dtype=np.float32)
+                                   * np.float32(np.sqrt(2.0 / (9 * cin))))
+        out[f"Conv_{i}/bias"] = np.zeros(c, np.float32)
+        cin, i = c, i + 1
+    np.savez(path, **out)
+    return path
+
+
+def gan_family_phase(rcab, card):
+    """The rest of the GAN group at full width, bf16, batch 16: esrgan (RRDBNet
+    23 x 64, VGG-128 discriminator 64, LR 32 so that HR is 128 x 128, the
+    VGG-19 conv5_4 content term from a seeded npz): a pre-train and an
+    adversarial step; bsrgan and qrealesrgan (U-Net SN): an adversarial
+    step each; danv1qrealesrgan (DAN v1 on QRRDBNet 23 x 64, loop 4, the DAN
+    example's chain corrected to the PCA code): a pre-train and an
+    adversarial step. Returns the row."""
+    from rumpy_tpu_torch.config.loader import load_config
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_gan_family")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(126))
+    npz = seeded_vgg19_npz(os.path.join(root, "vgg19_seeded.npz"), 127)
+    rows = {}
+    batch32 = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH, crop=GAN_CROP)
+    handler = get_model("esrgan")(device="cuda", dtype="bf16", lr=1e-4, vgg_weights=npz,
+                                  **GAN_FULL)
+    state = handler.init_state()
+    rows["esrgan"] = gan_phase_rows(rcab, handler, state, batch32,
+                                    "esrgan x4 23x64 bf16 VGG-128 64 vgg conv5_4", batch32,
+                                    (0, handler.pretrain_epochs), steps=1)
+    del handler, state
+    torch.cuda.empty_cache()
+    batch48 = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH)
+    batch48["metadata"] = torch.rand(TRAIN_BATCH, 1, generator=card_generator(128),
+                                     device="cuda")
+    for name in ("bsrgan", "qrealesrgan"):
+        handler = get_model(name)(device="cuda", dtype="bf16", lr=1e-4, **GAN_FULL)
+        state = handler.init_state()
+        rows[name] = gan_phase_rows(rcab, handler, state, batch48,
+                                    f"{name} x4 23x64 bf16 U-Net SN 64", batch48, (0,), steps=1)
+        del handler, state
+        torch.cuda.empty_cache()
+    cfg = load_config(os.path.join(ROOT, DAN_CONFIG)).as_plain()
+    cfg["data"].update(online_degradations=pca_kernel_chain(cfg["data"]["online_degradations"]),
+                       metadata=["blur_kernel"])
+    cfg["data"]["training_sets"] = {"data_1": {"hr_dir": hr_dir}}
+    cfg["data"].pop("eval_sets", None)
+    cfg["experiment_save_loc"] = root
+    cfg["model"] = {"name": "danv1qrealesrgan", "internal_params": dict(
+        GAN_FULL, loop=DAN_LOOP, dtype="bf16", lr=1e-4, pretrain_epochs=1)}
+    handler, state = trained_handler(cfg, root, "danv1qrealesrgan")
+    hr16 = fixed_hr_batch(hr_dir, TRAIN_BATCH)
+    fixed = without_grad(lambda: handler.input_fn(card_generator(129), {"hr": hr16}))
+    rows["danv1qrealesrgan"] = gan_phase_rows(
+        rcab, handler, state, {"hr": hr16}, "danv1qrealesrgan x4 QRRDBNet 23x64 loop 4 bf16",
+        fixed, (0, 1), steps=1)
+    del handler, state
+    torch.cuda.empty_cache()
+    row = {"phase": "gan_family", "card": card, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "esrgan_crop": GAN_CROP, "vgg_weights": "seeded random npz (pretrained gated)",
+           "steps": rows}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
+def metabed_phase(rcab, card):
+    """Metabed at its defaults (8 blocks x 64, res_scale 0.1, bf16) on a
+    fixed LR/HR batch (16 x 48) with 5 metadata values: two steps with
+    each of its six meta types; the autoencoder (use_encoder, one pretrain
+    epoch) before and after its phase flip; metabedesrgan (LR 32, VGG-128):
+    a pre-train and an adversarial step; one contrastiveblindmetabed step
+    (front_only q-layer, the frozen packaged encoder, bench.py's chain).
+    Returns the row."""
+    from rumpy_tpu_torch.models.metabed import META_TYPES
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_metabed")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(130))
+    batch = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH)
+    batch["metadata"] = torch.rand(TRAIN_BATCH, META_LEN, generator=card_generator(131),
+                                   device="cuda")
+    by_type = {}
+    for meta in META_TYPES:
+        handler = get_model("metabed")(device="cuda", dtype="bf16", lr=1e-4, meta_block=meta,
+                                       metadata_bypass_len=META_LEN)
+        state = handler.init_state()
+        r = step_row(rcab, handler, state, batch, f"metabed {meta}")
+        if any(r["launches_a_step"].values()):
+            raise AssertionError(f"metabed {meta}: {r}")
+        by_type[meta] = {k: r[k] for k in ("step_ms", "hr_megapixels_per_s", "peak_memory_bytes",
+                                           "conv2d_calls_a_step", "losses")}
+        del handler, state
+        torch.cuda.empty_cache()
+    handler = get_model("metabed")(device="cuda", dtype="bf16", lr=1e-4, meta_block="q-layer",
+                                   metadata_bypass_len=META_LEN, use_encoder=True,
+                                   encoder_pretrain_epochs=1)
+    state = handler.init_state()
+    ae = {}
+    for epoch in (0, 1):
+        handler.set_epoch(epoch)
+        state, l = handler.train_batch(state, batch)
+        ae[epoch] = {k: float(v) for k, v in l.items()}
+    if not (ae[0]["scaled-l1-loss-ae"] > 0 and ae[1]["scaled-l1-loss-ae"] == 0):
+        raise AssertionError(f"Metabed autoencoder phases: {ae}")
+    del handler, state
+    torch.cuda.empty_cache()
+    batch32 = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH, crop=GAN_CROP)
+    batch32["metadata"] = batch["metadata"][:, :1]
+    handler = get_model("metabedesrgan")(device="cuda", dtype="bf16", lr=1e-4,
+                                         meta_block="q-layer", pretrain_epochs=1)
+    state = handler.init_state()
+    esrgan = gan_phase_rows(rcab, handler, state, batch32,
+                            "metabedesrgan x4 8x64 bf16 VGG-128 64", batch32, (0, 1), steps=1)
+    del handler, state
+    torch.cuda.empty_cache()
+    bobw = one_bobw_step(rcab, "contrastiveblindmetabed", fixed_hr_batch(hr_dir, TRAIN_BATCH), 132)
+    row = {"phase": "metabed", "card": card, "model": "metabed x4 8x64 res_scale 0.1 bf16",
+           "batch": TRAIN_BATCH, "crop": TRAIN_CROP, "metadata_values": META_LEN,
+           "meta_types": by_type, "autoencoder_phases": ae, "metabedesrgan": esrgan,
+           "contrastiveblindmetabed_step": bobw}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4262,6 +4663,20 @@ def main() -> int:
     qhan = bobw_qhan_phase(rcab, card)
     elan = elan_train_phase(rcab, card)
     san = san_train_phase(rcab, card)
+    realesrgan = realesrgan_train_phase(rcab, card)
+    qrealesrgan = bobw_qrealesrgan_phase(rcab, card)
+    gan_family = gan_family_phase(rcab, card)
+    metabed = metabed_phase(rcab, card)
+    # the GAN group launches no RCAB kernel: each phase failed on any
+    gan_group_launches = {
+        "realesrgan_training_path": realesrgan["launches"],
+        "realesrgan_a_step": {p: r["launches_a_step"]
+                              for p, r in realesrgan["fixed_batch"].items()},
+        "bobw_qrealesrgan_path": qrealesrgan["launches"],
+        "gan_family_a_step": {n: {p: r["launches_a_step"] for p, r in rows.items()}
+                              for n, rows in gan_family["steps"].items()},
+        "metabed_a_step": {n: {"rcab_fused": 0, "rcab_fused_backward": 0}
+                           for n in metabed["meta_types"]}}
     qrcab_rows += [r for r in launch_coverage_phase(rcab) if r["per_image"]]
     per_image = [{k: r[k] for k in (
         "shape", "dtype", "per_image", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",
@@ -4308,6 +4723,7 @@ def main() -> int:
         "launches_bobw_qhan_a_step_by_form": qhan["fixed_batch"]["launches_a_step_by_form"],
         "launches_elan_a_step": elan["fixed_batch"]["launches_a_step"]["rcab_fused"],
         "launches_san_a_step": san["fixed_batch"]["launches_a_step"]["rcab_fused"],
+        "launches_gan_group": gan_group_launches,
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -4349,6 +4765,7 @@ def main() -> int:
         "launches_bobw_qhan_path": qhan["launches"]["rcab_fused_backward"],
         "launches_elan_a_step": elan["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
         "launches_san_a_step": san["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
+        "launches_gan_group": gan_group_launches,
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

@@ -3,9 +3,11 @@ SR network (the "Best of Both Worlds" injection mechanism).
 
 Port of ``rumpy_tpu/models/attention_manipulators.py``: ``ParaCALayer``,
 ``PALayer``, ``SFTLayer``, ``QCALayer`` in its six styles, ``QRCAB``,
-``QResidualGroup``, ``QRCAN``, ``ParamResBlock``, ``QEDSR``, the
-metadata-size rules and the ``qrcan`` and ``qedsr`` handlers. Metadata
-rides as an (N, M) tensor; SFT layers take it tiled to (N, M, H, W) maps.
+``QResidualGroup``, ``QRCAN``, ``ParamResBlock``, ``QEDSR``, Metabed's
+metadata layers (``ResPipesCALayer``, ``ResPipesSplitCALayer``,
+``DGFMBLayer``), the metadata-size rules and the ``qrcan`` and ``qedsr``
+handlers. Metadata rides as an (N, M) tensor; SFT layers take it tiled to
+(N, M, H, W) maps.
 
 A QRCAB is an RCAB whose channel attention takes the metadata, and whose
 branch a metadata gate may multiply. Its route is fixed when it is built,
@@ -128,6 +130,137 @@ class SFTLayer(nn.Module):
         scale = self.scale_out(F.leaky_relu(self.scale_in(cond), 0.1))
         shift = self.shift_out(F.leaky_relu(self.shift_in(cond), 0.1))
         return x * (scale + 1.0) + shift
+
+
+def _stack_gate(convs, y, relu: bool):
+    """1x1 convs on (N, M) vectors, a ReLU after each where asked."""
+    for conv in convs:
+        y = conv.as_linear(y)
+        if relu:
+            y = torch.relu(y)
+    return y
+
+
+def _pipe_depth(num_layers, i: int) -> int:
+    return num_layers[i] if isinstance(num_layers, (list, tuple)) else num_layers + i
+
+
+def _pipe_widths(start: int, stop: int, n: int) -> Tuple[int, ...]:
+    """``n`` layers from ``start`` to ``stop`` channels in equal steps,
+    truncated by ``int`` (the JAX package's sizing)."""
+    diff = (stop - start) / n
+    return tuple(int(diff * j + start) for j in range(n + 1))
+
+
+class _PipesGate(nn.Module):
+    """Base of the pipe layers: ``pipes`` (lists of 1x1 convs) and ``out``,
+    in flax's order of construction; ``gate`` (N, C) scales the features."""
+
+    def forward(self, x, attributes):
+        return x * self.gate(attributes)[:, :, None, None].to(x.dtype)
+
+    def flax_children(self):
+        convs = [(f"pipes.{i}.{j}", c) for i, p in enumerate(self.pipes) for j, c in enumerate(p)]
+        convs.append(("out", self.out))
+        return [(name, (f"TConv_{k}",), c) for k, (name, c) in enumerate(convs)]
+
+
+class ResPipesCALayer(_PipesGate):
+    """Multi-pipe meta-attention: ``num_pipes`` stacks of 1x1 convs of
+    increasing depth (``num_layers + i``, or ``num_layers[i]``) take the
+    metadata from M to C channels; their outputs, concatenated (or added),
+    go through a last 1x1 conv and a sigmoid into a channel gate."""
+
+    def __init__(self, network_channels: int, num_metadata: int, nonlinearity: bool = True,
+                 num_layers=2, num_pipes: int = 3, combine_pipes: str = "concat",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.nonlinearity = nonlinearity
+        self.combine_pipes = combine_pipes
+        self.pipes = nn.ModuleList()
+        for i in range(num_pipes):
+            w = _pipe_widths(num_metadata, network_channels, _pipe_depth(num_layers, i))
+            self.pipes.append(nn.ModuleList(Conv(a, b, 1, dtype=dtype)
+                                            for a, b in zip(w[:-1], w[1:])))
+        width = network_channels * (1 if combine_pipes == "add" else num_pipes)
+        self.out = Conv(width, network_channels, 1, dtype=dtype)
+
+    def gate(self, attributes):
+        outs = [_stack_gate(p, attributes, self.nonlinearity) for p in self.pipes]
+        combined = sum(outs) if self.combine_pipes == "add" else torch.cat(outs, dim=1)
+        return torch.sigmoid(self.out.as_linear(combined))
+
+
+class ResPipesSplitCALayer(_PipesGate):
+    """Split-pipe meta-attention: pipe 0 maps the metadata to C channels,
+    keeps the first ``int(C * split_percent)`` and hands the rest to the
+    next pipe; the last pipe ends at the kept width; the kept slices,
+    concatenated, go through a last 1x1 conv and a sigmoid."""
+
+    def __init__(self, network_channels: int, num_metadata: int, nonlinearity: bool = True,
+                 num_layers=2, num_pipes: int = 3, split_percent: float = 0.25,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.nonlinearity = nonlinearity
+        self.split_f = int(network_channels * split_percent)
+        rem_f = network_channels - self.split_f
+        self.pipes = nn.ModuleList()
+        for i in range(num_pipes):
+            start = num_metadata if i == 0 else rem_f
+            stop = self.split_f if i == num_pipes - 1 else network_channels
+            w = _pipe_widths(start, stop, _pipe_depth(num_layers, i))
+            self.pipes.append(nn.ModuleList(Conv(a, b, 1, dtype=dtype)
+                                            for a, b in zip(w[:-1], w[1:])))
+        self.out = Conv(self.split_f * num_pipes, network_channels, 1, dtype=dtype)
+
+    def gate(self, attributes):
+        kept, carry, last = [], attributes, len(self.pipes) - 1
+        for i, pipe in enumerate(self.pipes):
+            h = _stack_gate(pipe, carry, self.nonlinearity)
+            if i == last:
+                kept.append(h)
+            else:
+                kept.append(h[:, :self.split_f])
+                carry = h[:, self.split_f:]
+        return torch.sigmoid(self.out.as_linear(torch.cat(kept, dim=1)))
+
+
+class DGFMBLayer(nn.Module):
+    """Degradation-guided feature modulation: the features' global average
+    concatenated with the (1x1-reduced) degradation encoding, a stack of
+    1x1 convs without activations, a sigmoid; ``x * att + x``."""
+
+    def __init__(self, num_channels: int = 64, degradation_full_dim: int = 256,
+                 degradation_reduced_dim: int = 64, num_layers=2, use_reduction: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        red_dim = degradation_reduced_dim if use_reduction else degradation_full_dim
+        self.reduce = (Conv(degradation_full_dim, red_dim, 1, dtype=dtype)
+                       if use_reduction else None)
+        combined = num_channels + red_dim
+        if isinstance(num_layers, (list, tuple)):
+            sizes = list(num_layers) + [num_channels]
+        else:
+            sizes, multiplier = [], num_layers
+            for _ in range(num_layers):
+                sizes.append((num_channels - combined) // multiplier + combined
+                             if combined > 15 else num_channels // multiplier)
+                multiplier -= 1
+        ins = [combined] + sizes[:-1]
+        self.convs = nn.ModuleList(Conv(a, b, 1, dtype=dtype) for a, b in zip(ins, sizes))
+
+    def forward(self, features, encoding):
+        gap = features.mean(dim=(2, 3))
+        enc = encoding.to(features.dtype)
+        if self.reduce is not None:
+            enc = self.reduce.as_linear(enc)
+        y = _stack_gate(self.convs, torch.cat([gap, enc.to(gap.dtype)], dim=1), False)
+        return features * torch.sigmoid(y)[:, :, None, None].to(features.dtype) + features
+
+    def flax_children(self):
+        convs = ([("reduce", self.reduce)] if self.reduce is not None else []) + [
+            (f"convs.{i}", c) for i, c in enumerate(self.convs)]
+        return [(name, (f"TConv_{k}",), c) for k, (name, c) in enumerate(convs)]
 
 
 class QCALayer(nn.Module):

@@ -34,17 +34,19 @@ encoder is copied from E at initialisation, before a warm start loads E.
 Generators: QRCAN (``contrastiveblindqrcan``), QEDSR
 (``contrastiveblindqedsr``), QHAN (``contrastiveblindqhan``: the ``standard``
 style with q-layers, so every block runs the fused kernel with shared
-``bd``/``bu`` and a per-image scale), QELAN (``contrastiveblindqelan``) and
-QSAN (``contrastiveblindqsan``). ``sft_mode`` tiles the embedding to
+``bd``/``bu`` and a per-image scale), QELAN (``contrastiveblindqelan``),
+QSAN (``contrastiveblindqsan``), QRRDBNet and Metabed. ``sft_mode`` tiles the embedding to
 (N, D, H, W) maps and feeds them to QRCAN's SFT layers; ``srmd_mode``
 concatenates the maps to the input instead (``in_feats`` 3 + D), so its
 QRCAN keeps ``max_concat`` and the fused kernel. As in the JAX package the
 generator is called without ``train``: QELAN's BatchNorm normalises by its
 running statistics in a train step too, and never updates them; in
-``sft_mode`` the maps land in QELAN's ``train`` and in no argument of SAN's,
-and both fail at their first forward; QHAN ignores them. QRRDBNet and
-Metabed come with their families and raise ``NotImplementedError``
-(ROADMAP queue 1 item 9).
+``sft_mode`` the maps land in QELAN's ``train`` and in no argument of SAN's
+or QRRDBNet's, and these fail at their first forward; QHAN ignores them, and
+so does Metabed (they land in its ``encoded``, read only with an encoder).
+QRRDBNet (``contrastiveblindqrealesrgan``) and Metabed
+(``contrastiveblindmetabed``) train by the pixel loss alone here, without a
+discriminator.
 """
 
 from __future__ import annotations
@@ -166,9 +168,14 @@ def _build_generator(name: str, scale: int, num_metadata: int, dtype,
     if name in ("qsan", "san"):
         return SAN(scale=scale, in_feats=in_feats, num_metadata=num_metadata, dtype=dtype,
                    **gen_kwargs)
-    if name in ("qrealesrgan", "qrrdbnet", "realesrgan", "metabed"):
-        raise NotImplementedError(f"BoBW generator {name!r} is not ported yet: it comes "
-                                  "with its family (ROADMAP queue 1 item 9)")
+    if name in ("qrealesrgan", "qrrdbnet", "realesrgan"):
+        from rumpy_tpu_torch.models.gan_models import QRRDBNet
+        return QRRDBNet(scale=scale, in_nc=in_feats, num_metadata=num_metadata, dtype=dtype,
+                        **gen_kwargs)
+    if name == "metabed":
+        from rumpy_tpu_torch.models.metabed import Metabed
+        return Metabed(scale=scale, in_features=in_feats, input_para=num_metadata, dtype=dtype,
+                       **gen_kwargs)
     raise KeyError(f"Unknown generator {name}")
 
 
@@ -426,15 +433,26 @@ class ContrastiveBlindQSANHandler(ContrastiveBlindSRHandler):
 
 @register_model("contrastiveblindqrealesrgan")
 class ContrastiveBlindQRealESRGANHandler(ContrastiveBlindSRHandler):
-    """QRRDBNet under the BoBW pipeline: raises until ``gan_models`` is
-    ported (ROADMAP queue 1 item 9)."""
+    """QRRDBNet under the BoBW pipeline, trained by L1 (no discriminator)."""
 
     generator_name = "qrealesrgan"
 
 
 @register_model("contrastiveblindmetabed")
 class ContrastiveBlindMetaBedHandler(ContrastiveBlindSRHandler):
-    """The Metabed generator under the BoBW pipeline: raises until
-    ``metabed`` is ported (ROADMAP queue 1 item 9)."""
+    """The Metabed generator under the BoBW pipeline: the embedding feeds
+    its blocks' metadata layers; ``selective_meta_blocks="front_only"`` (the
+    default) gates block 0 alone."""
 
     generator_name = "metabed"
+
+    def __init__(self, selective_meta_blocks="front_only", meta_block="q-layer",
+                 num_blocks=8, **kwargs):
+        if selective_meta_blocks == "front_only":
+            smb = (True,) + (False,) * (num_blocks - 1)
+        elif selective_meta_blocks in ("none", None):
+            smb = None
+        else:
+            smb = tuple(selective_meta_blocks)
+        super().__init__(selective_meta_blocks=smb, meta_block=meta_block,
+                         num_blocks=num_blocks, **kwargs)

@@ -34,6 +34,13 @@ def pixel_unshuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
     return F.pixel_unshuffle(x, scale)
 
 
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling by an integer ``factor``: each pixel
+    repeated ``factor`` x ``factor`` times, as the JAX package's
+    ``_upsample_nearest`` (two ``jnp.repeat``s) does."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
 def tile_maps(v: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Per-image vectors (N, M) as (N, M, H, W) maps: a broadcast view, so a
     consumer's concat makes the only copy."""
@@ -50,7 +57,9 @@ class Conv(nn.Module):
 
     Initialised as torch's own default kernel init, U(+-1/sqrt(fan_in)),
     with a zero bias, as the JAX package's ``TConv`` does; ``init="he_normal"``
-    draws N(0, 2 / fan_in) (the JAX package's ``HE_NORMAL_INIT``)."""
+    draws N(0, 2 / fan_in) (the JAX package's ``HE_NORMAL_INIT``) and
+    ``init="rrdb"`` N(0, 0.02 / fan_in), kaiming-normal x 0.1 (its
+    ``RRDB_KERNEL_INIT``)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, dtype: torch.dtype = torch.float32,
@@ -70,8 +79,9 @@ class Conv(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         fan_in = self.weight[0].numel()
         w = torch.empty(self.weight.shape)
-        if self.init_kind == "he_normal":
-            w.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+        if self.init_kind in ("he_normal", "rrdb"):
+            var = 2.0 if self.init_kind == "he_normal" else 0.02
+            w.normal_(0.0, math.sqrt(var / fan_in), generator=generator)
         else:
             bound = 1.0 / math.sqrt(fan_in)
             w.uniform_(-bound, bound, generator=generator)
@@ -86,13 +96,20 @@ class Conv(nn.Module):
             pads += [total // 2, total - total // 2]
         return pads
 
-    def forward(self, x):
+    def forward(self, x, weight=None):
+        """The conv of ``x``, by ``weight`` in place of the parameter where
+        given (a spectral-normalised kernel)."""
         b = None if self.bias is None else self.bias.to(self.dtype)
+        w = self.weight if weight is None else weight
         x = x.to(self.dtype)
+        padding = self.padding
         if self.flax_same:
-            x = F.pad(x, self._same_pads(x.shape[2:]))
-        return F.conv2d(x, self.weight.to(self.dtype), b,
-                        stride=self.stride, padding=self.padding)
+            pads = self._same_pads(x.shape[2:])
+            if pads[0] == pads[1] and pads[2] == pads[3]:  # symmetric: the conv pads
+                padding = (pads[2], pads[0])
+            else:
+                x = F.pad(x, pads)
+        return F.conv2d(x, w.to(self.dtype), b, stride=self.stride, padding=padding)
 
     def as_linear(self, v):
         """A 1x1 conv applied to (N, in) vectors: (N, features), as the JAX

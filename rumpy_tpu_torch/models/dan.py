@@ -24,9 +24,11 @@ model, not parameters: both packages fit them by default from random SRMD
 kernels, which a torch generator cannot draw as jax.random does, so a
 JAX-trained DAN scores the same here only when its constants are passed in
 (``init_ker_map=`` / ``pca_matrix=``, or
-``utils/weights.py::model_constants_from_jax``). Every layer but QRCAN's
-blocks is a cuDNN conv or a PyTorch op: the JAX package computes none of
-them in a Pallas kernel.
+``utils/weights.py::model_constants_from_jax``). ``danv1qrealesrgan`` is
+DAN v1 on a QRRDBNet restorer under the GAN handler (``gan_models``): the
+DAN loss is its pixel term, the U-Net SN discriminator its adversary (BCE).
+Every layer but QRCAN's blocks is a cuDNN conv or a PyTorch op: the JAX
+package computes none of them in a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from torch import nn
 
 from rumpy_tpu_torch.models.base import PIXEL_LOSSES, BaseHandler
 from rumpy_tpu_torch.models.common import Conv, pixel_shuffle, tile_maps
+from rumpy_tpu_torch.models.gan_models import BaseGANHandler
 from rumpy_tpu_torch.registry import register_model
 from rumpy_tpu_torch.utils.losses import full_f32_matmuls
 
@@ -478,12 +481,78 @@ class DANHandler(BaseHandler):
 
 
 @register_model("danv1qrealesrgan")
-class DANv1QRealESRGANHandler(BaseHandler):
-    """DAN v1 with a QRRDBNet restorer under the GAN recipe: it needs
-    ``gan_models``' QRRDBNet and the GAN handler, which come with their
-    family."""
+class DANv1QRealESRGANHandler(BaseGANHandler):
+    """DAN v1 with a QRRDBNet restorer under the GAN recipe: the estimator
+    predicts the PCA kernel code the restorer conditions on; the generator
+    loss is lambda_pixel * (the last iteration's image L1 + kernel L1) +
+    lambda_vgg * VGG content + lambda_adv * BCE against the U-Net SN
+    discriminator, after ``pretrain_epochs`` of the DAN loss alone. At
+    evaluation the last iteration's SR."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "danv1qrealesrgan needs gan_models' QRRDBNet and the GAN handler, which are not "
-            "ported yet (ROADMAP queue 1 item 9)")
+    gan_mode = "bce"
+    discriminator_type = "unet_sn"
+    uses_metadata = True
+    colorspace = "rgb"
+    im_input = "unmodified"
+
+    def __init__(self, selected_metadata=None, input_para=10, kernel_size=21, loop=4,
+                 use_pca_encoder=True, init_ker_map=None, pretrain_epochs=100,
+                 lambda_adv=0.1, lambda_pixel=1.0, lambda_vgg=1.0, nf=64, nb=23, gc=32,
+                 **kwargs):
+        self.selected_metadata = selected_metadata
+        if selected_metadata:
+            input_para = len(selected_metadata)
+        self.input_para = input_para
+        self.kernel_size = kernel_size
+        self.loop = loop
+        if init_ker_map is not None:
+            self._ikm = tuple(init_ker_map)
+        elif use_pca_encoder:
+            self._ikm = _default_init_ker_map(input_para, kernel_size)
+        else:
+            self._ikm = (0.5,) * input_para
+        super().__init__(pretrain_epochs=pretrain_epochs, lambda_adv=lambda_adv,
+                         lambda_pixel=lambda_pixel, lambda_vgg=lambda_vgg, nf=nf, nb=nb, gc=gc,
+                         **kwargs)
+
+    def build_generator(self, nf, nb, gc):
+        from rumpy_tpu_torch.models.gan_models import RRDBNet
+        restorer = RRDBNet(scale=self.scale, nf=nf, nb=nb, gc=gc, num_metadata=self.input_para,
+                           dtype=self.dtype)
+        return DAN(scale=self.scale, input_para=self.input_para, kernel_size=self.kernel_size,
+                   loop=self.loop, init_ker_map=self._ikm, generator=restorer, dtype=self.dtype)
+
+    def apply(self, params, batch, train=False, rng=None, extra=None):
+        """Train: every iteration's (SR, code), NHWC, a graph on the last
+        only. Eval: the last iteration's SR."""
+        self._use_params(params)
+        lr = torch.as_tensor(batch["lr"], device=self.device).permute(0, 3, 1, 2)
+        srs, codes = self.module.generator(lr, all_grads=not train)
+        srs = [sr.permute(0, 2, 3, 1) for sr in srs]
+        if train:
+            return (srs, codes), {}, extra
+        return srs[-1], {}, extra
+
+    def _dan_loss(self, batch):
+        (srs, codes), _, _ = self.apply(self._state_params, batch, train=True)
+        target = torch.as_tensor(batch["metadata"], device=self.device).float()
+        if self.selected_metadata and target.shape[-1] != len(self.selected_metadata):
+            raise ValueError(
+                f"selected_metadata={self.selected_metadata} predicts "
+                f"{len(self.selected_metadata)} values but the batch metadata has "
+                f"{target.shape[-1]} columns — set data.metadata to the same key list")
+        hr = batch["hr"].float()
+        iter_losses = {}
+        for i, (sr, code) in enumerate(zip(srs, codes)):
+            d_sr = (sr.float() - hr).abs().mean()
+            d_kr = (code.float() - target).abs().mean()
+            iter_losses[f"image-loss-iter-{i}"] = d_sr
+            iter_losses[f"kernel-loss-iter-{i}"] = d_kr
+        return srs[-1], d_sr + d_kr, iter_losses
+
+    def _generator_outputs(self, batch):
+        return self._dan_loss(batch)
+
+    def _pretrain_loss(self, batch):
+        _, dan_loss, iter_losses = self._dan_loss(batch)
+        return dan_loss, iter_losses

@@ -46,19 +46,21 @@ def _lrelu(v):
 
 class DAConv(nn.Module):
     """Degradation-aware conv: per-example depthwise kernels predicted from
-    the 64-d embedding ``k_v``, LeakyReLU(0.1), a 1x1 conv; plus the input
-    gated by a channel attention of ``k_v``."""
+    the embedding ``k_v`` (``embedding_dim`` wide: DASR's is 64, Metabed's
+    the metadata's), LeakyReLU(0.1), a 1x1 conv; plus the input gated by a
+    channel attention of ``k_v``."""
 
     def __init__(self, channels_in: int, channels_out: int, kernel_size: int = 3,
-                 reduction: int = 8, dtype: torch.dtype = torch.float32):
+                 reduction: int = 8, dtype: torch.dtype = torch.float32,
+                 embedding_dim: int = 64):
         super().__init__()
         self.kernel_size = kernel_size
         self.kernel = nn.ModuleList([
-            Linear(64, 64, dtype=dtype, use_bias=False),
+            Linear(embedding_dim, 64, dtype=dtype, use_bias=False),
             Linear(64, channels_in * kernel_size ** 2, dtype=dtype, use_bias=False)])
         self.conv = Conv(channels_in, channels_out, 1, dtype=dtype)
         mid = max(1, channels_in // reduction)
-        self.att = nn.ModuleList([Conv(64, mid, 1, use_bias=False, dtype=dtype),
+        self.att = nn.ModuleList([Conv(embedding_dim, mid, 1, use_bias=False, dtype=dtype),
                                   Conv(mid, channels_out, 1, use_bias=False, dtype=dtype)])
 
     def forward(self, x, k_v):

@@ -21,8 +21,10 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.contrastive",
     "rumpy_tpu_torch.models.dan",
     "rumpy_tpu_torch.models.dasr",
+    "rumpy_tpu_torch.models.gan_models",
     "rumpy_tpu_torch.models.han_elan",
     "rumpy_tpu_torch.models.ikc",
+    "rumpy_tpu_torch.models.metabed",
     "rumpy_tpu_torch.models.san",
     "rumpy_tpu_torch.models.sftmd_variants",
 ]

@@ -1,11 +1,11 @@
 """Loss functions.
 
 Port of ``rumpy_tpu/utils/losses.py``: the supervised contrastive loss
-(SupConLoss semantics, views in view-major order) and the occupancy loss.
+(SupConLoss semantics, views in view-major order), the occupancy loss and
+the VGG perceptual loss.
 The logits are a full float32 product (:func:`full_f32_matmuls`), as the
 JAX package's ``Precision.HIGHEST``, whatever the process-wide TF32 flags
-say. The VGG perceptual loss needs pretrained VGG weights and comes with
-ROADMAP queue 1 item 9.
+say. The perceptual loss reads pretrained VGG weights from an npz.
 """
 
 from __future__ import annotations
@@ -78,9 +78,36 @@ def occupancy_loss(pred: torch.Tensor, target: torch.Tensor,
 
 
 class PerceptualMechanism:
-    """VGG-feature perceptual loss of the JAX package: not ported yet."""
+    """VGG-feature perceptual loss: ``lambda_pixel * L1(sr, y) + lambda_per
+    * L1(vgg(sr), vgg(y))`` with the VGG-19 extractor at ``vgg_layer``
+    (conv5_4 by default, pre-activation, ImageNet-normalised input), the
+    target's features without gradient. Weights come from a converted
+    torchvision checkpoint (``models/feature_extractors.py::
+    convert_torch_vgg19``); without them construction raises, as in the JAX
+    package. Inputs are NHWC RGB float in [0, 1]."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the VGG perceptual loss is not ported yet: it needs pretrained VGG "
-            "weights and comes with ROADMAP queue 1 item 9")
+    def __init__(self, weights_path: Optional[str] = None,
+                 lambda_pixel: float = 1.0, lambda_per: float = 0.01,
+                 vgg_layer: str = "conv5_4", device=None,
+                 dtype: torch.dtype = torch.float32):
+        if weights_path is None:
+            raise NotImplementedError(
+                "Perceptual loss needs pretrained VGG weights; pass a "
+                "weights npz path (convert_torch_vgg19)")
+        from rumpy_tpu_torch.models.feature_extractors import VGG19Features
+        self.lambda_pixel = lambda_pixel
+        self.lambda_per = lambda_per
+        self.module = VGG19Features.from_npz(weights_path, tap=vgg_layer, dtype=dtype,
+                                             device=device)
+
+    def features(self, images: torch.Tensor) -> torch.Tensor:
+        """The tap's features (NHWC) of NHWC images."""
+        return self.module(images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def __call__(self, sr: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        gen_features = self.features(sr)
+        with torch.no_grad():
+            real_features = self.features(y)
+        vgg_loss = (gen_features.float() - real_features.float()).abs().mean()
+        pixel_loss = (sr.float() - y.float()).abs().mean()
+        return self.lambda_pixel * pixel_loss + self.lambda_per * vgg_loss

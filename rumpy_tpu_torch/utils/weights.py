@@ -18,9 +18,14 @@ layers and q-layers), the DASR encoder (``TConv_0..5``,
 ``BatchNorm_0..5``, ``TDense_<k>``) and the BoBW pipeline's
 ``generator``/``encoder``/``reducer`` subtrees; and every module that
 names its own children (``flax_children``: DAN, DANv2, IKC, DASR, DCLS,
-HAN, QHAN, ELAN, QELAN, SAN, QSAN and their blocks). A module with a
+HAN, QHAN, ELAN, QELAN, SAN, QSAN and their blocks; RRDBNet and QRRDBNet,
+the VGG-128 and U-Net SN discriminators and the GAN handlers'
+``generator``/``discriminator`` pair; Metabed and its metadata layers; the
+VGG extractors' ``Conv_<i>``). A module with a
 parameter of its own beside its children (``flax_leaves``: the scalar
-``gamma`` of LAM, CSAM and SAN) maps it at its own path; SAN's shared
+``gamma`` of LAM, CSAM and SAN) maps it at its own path, or at a path of
+keys below it (a spectral-norm conv's ``u`` and ``sigma`` are the
+``batch_stats`` leaves ``SpectralNorm_<i>/'TConv_<j>/kernel/u'``); SAN's shared
 non-local block is one flax submodule and one port module. A 3-D conv
 kernel (``Conv3d``, CSAM's) goes DHWIO -> OIDHW. Flax names a compact
 module's children in the order they are constructed, and an outer conv
@@ -198,6 +203,12 @@ def _leaf_names(module: nn.Module) -> Dict[str, Tuple[str, str]]:
     return names
 
 
+def _leaf_path(leaf) -> Path:
+    """A leaf name, or a path of keys below the module's flax path (a
+    spectral-norm ``u`` sits at ``SpectralNorm_<i>/'TConv_<j>/kernel/u'``)."""
+    return leaf if isinstance(leaf, tuple) else (leaf,)
+
+
 def _to_port(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
     if name == "weight" and isinstance(module, Conv):
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -262,6 +273,11 @@ def state_dict_from_jax(params, module: nn.Module,
             if collection not in nodes:
                 nodes[collection] = _lookup(trees[collection], flax)
             node, real = nodes[collection]
+            for key in _leaf_path(leaf)[:-1]:  # a leaf below the module's path
+                if key not in node:
+                    raise KeyError(f"flax {collection} tree is missing {'/'.join(real + (key,))}")
+                node, real = node[key], real + (key,)
+            leaf = _leaf_path(leaf)[-1]
             if leaf not in node:
                 raise KeyError(f"flax {collection} tree is missing {'/'.join(real + (leaf,))}")
             arr = node[leaf]
@@ -282,8 +298,9 @@ def state_dict_from_jax(params, module: nn.Module,
             raise ValueError(f"flax {collection} leaves not used by "
                              f"{type(module).__name__}: {unused}")
     wanted = set(module.state_dict())
-    if batch_stats is None:
-        wanted -= {k for k in wanted if k.endswith((".running_mean", ".running_var"))}
+    if batch_stats is None:  # statistics (BatchNorm, spectral norm) not asked for
+        wanted -= {_key(port, name) for port, _, mod in _entries(module, "", ())
+                   for name, (coll, _) in _leaf_names(mod).items() if coll == "batch_stats"}
     missing = sorted(wanted - set(out))
     if missing:
         raise KeyError(f"port parameters with no flax leaf: {missing}")
@@ -324,11 +341,12 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
             used.add(key)
             if coll != collection:
                 continue
+            path = flax + _leaf_path(leaf)
             node = tree
-            for k in flax:
+            for k in path[:-1]:
                 node = node.setdefault(k, {})
             arr = state_dict[key].detach().cpu().float().numpy()
-            node[leaf] = np.ascontiguousarray(_to_flax(arr, mod, name))
+            node[path[-1]] = np.ascontiguousarray(_to_flax(arr, mod, name))
     unused = sorted(set(state_dict) - used)
     if unused:
         raise ValueError(f"state_dict entries with no flax leaf: {unused}")

@@ -3,7 +3,7 @@ residual forms) and v1QRCAN (QRCAN's blocks on the RCAB kernel's plain
 version), forward at every iteration, one train step's per-iteration losses,
 gradients and updated parameters, the bridge both ways, the model
 constants carried across, the defaults' divergence, the example's
-metadata chain and ``danv1qrealesrgan``.
+metadata chain and ``danv1qrealesrgan``'s build and eval.
 
 Flax params are carried over by the weight bridge (biases jittered off
 zero), DAN's ``init_ker_map`` and DANv2's ``pca_matrix`` by
@@ -205,10 +205,23 @@ def test_default_constants_differ_from_jax_by_their_draws():
 
 
 def test_danv1qrealesrgan_raises_naming_item_9():
-    """danv1qrealesrgan waits for gan_models; v1QHAN, whose family came
-    with the HAN slice, builds its QHAN restorer and matches JAX."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        torch_model("danv1qrealesrgan")(device="cpu")
+    """danv1qrealesrgan raised naming item 9 until gan_models came: now it
+    builds DAN v1 on a QRRDBNet restorer (its steps against JAX are in
+    tests/test_torch_gan.py) and scores as JAX's at the same weights and
+    code; v1QHAN, whose family came with the HAN slice, builds its QHAN
+    restorer and matches JAX."""
+    gkw = dict(scale=2, nf=8, nb=1, gc=4, d_nf=4, loop=2, init_ker_map=(0.1,) * 10)
+    jg = jax_model("danv1qrealesrgan")(**gkw)
+    jgs = jg.init_state()
+    tg = torch_model("danv1qrealesrgan")(device="cpu", **gkw)
+    assert type(tg.module.generator.restorer).__name__ == "RRDBNet"
+    tg.module.load_state_dict(state_dict_from_jax(
+        _np(jgs.params), tg.module,
+        batch_stats={"discriminator": _np(jgs.extra["d_vars"]["batch_stats"])}))
+    x = np.random.default_rng(1).random((1, 8, 8, 3)).astype(np.float32)
+    np.testing.assert_allclose(tg.run_eval(tg._own_state(), {"lr": x}).numpy(),
+                               np.asarray(jg.run_eval(jgs, {"lr": jnp.asarray(x)})),
+                               atol=F32_ATOL, rtol=0)
     kw = dict(mode="v1QHAN", scale=2, nf=16, loop=2, input_para=4, kernel_size=9,
               init_ker_map=(0.1,) * 4,
               generator_params=dict(n_feats=16, n_resgroups=1, n_resblocks=2, reduction=4))

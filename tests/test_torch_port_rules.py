@@ -4,6 +4,7 @@ and its entry points never fall back to the CPU on their own."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -403,7 +404,8 @@ def test_port_covers_the_iterative_blind_sr_modules():
     """The iterative blind-SR slice's modules are in the package (so the
     import scans above read them, neither jax nor rumpy_tpu among their
     imports), the registry finds dan, ikc, dasr and dcls, and
-    danv1qrealesrgan raises naming its item."""
+    danv1qrealesrgan, which raised naming item 9 until the GAN group came,
+    builds and runs."""
     from rumpy_tpu_torch.registry import available_models, get_model
     names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
     missing = [m for m in ITERATIVE_MODULES if m not in names]
@@ -412,8 +414,7 @@ def test_port_covers_the_iterative_blind_sr_modules():
         bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
         assert not bad, (m, bad)
     assert set(ITERATIVE_MODELS) | {"danv1qrealesrgan"} <= set(available_models())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        get_model("danv1qrealesrgan")(device="cpu")
+    _builds_and_runs("danv1qrealesrgan")
 
 
 @pytest.mark.parametrize("name", list(ITERATIVE_MODELS))
@@ -446,34 +447,67 @@ GENERATOR_MODELS = {"han": {}, "elan": {}, "qhan": {}, "qelan": {}, "san": {}, "
                     "contrastiveblindqhan": {"block_encoder_loading": True},
                     "contrastiveblindqelan": {"block_encoder_loading": True},
                     "contrastiveblindqsan": {"block_encoder_loading": True}}
-# every name the port registers that builds (the raising ones apart): 27
-# of the JAX package's 59
+GAN_MODULES = ("models/gan_models.py", "models/feature_extractors.py", "models/metabed.py")
+# tiny widths for the build-and-run checks
+GAN_MODELS = {"esrgan": dict(nf=8, nb=1, gc=4, d_nf=4), "bsrgan": dict(nf=8, nb=1, gc=4, d_nf=4),
+              "realesrgan": dict(nf=8, nb=1, gc=4, d_nf=4),
+              "qrealesrgan": dict(nf=8, nb=1, gc=4, d_nf=4),
+              "metabed": dict(num_features=8, num_blocks=2, meta_block="q-layer"),
+              "metabedesrgan": dict(num_features=8, num_blocks=2, d_nf=4),
+              "danv1qrealesrgan": dict(nf=8, nb=1, gc=4, d_nf=4, loop=2,
+                                       init_ker_map=(0.0,) * 10),
+              "contrastiveblindqrealesrgan": dict(nf=8, nb=1, gc=4, block_encoder_loading=True),
+              "contrastiveblindmetabed": dict(num_features=8, block_encoder_loading=True)}
+# every name the port registers that builds: 36 of the JAX package's 59
 BUILDING_MODELS = ("edsr", "rcan", "qrcan", "qedsr", "contrastiveblindqrcan",
                    "contrastiveblindqedsr", "srmd", "edsrmd", "sftmd", "moco", "supmoco",
                    "weakcon", "supcon", "degradationregressor", "dan", "ikc", "dasr",
-                   "dcls") + tuple(GENERATOR_MODELS)
-RAISING_MODELS = ("danv1qrealesrgan", "contrastiveblindqrealesrgan", "contrastiveblindmetabed")
+                   "dcls") + tuple(GENERATOR_MODELS) + tuple(GAN_MODELS)
+
+
+def _builds_and_runs(name):
+    """``name`` builds on the CPU at a tiny width and super-resolves a
+    4 x 4 input (with one metadata value where it takes metadata) to a
+    finite x4 image."""
+    from rumpy_tpu_torch.registry import get_model
+    handler = get_model(name)(device="cpu", **GAN_MODELS[name])
+    state = handler.init_state()
+    batch = {"lr": np.full((1, 4, 4, 3), 0.5, np.float32)}
+    if getattr(handler, "uses_metadata", False):
+        batch["metadata"] = np.full((1, getattr(handler, "num_metadata", 10)), 0.5, np.float32)
+    out = handler.run_eval(state, batch)
+    assert tuple(out.shape) == (1, 16, 16, 3) and bool(torch.isfinite(out).all())
 
 
 def test_port_covers_the_bobw_generator_families():
-    """The HAN, ELAN and SAN families' modules are in the package (so the
+    """The HAN, ELAN, SAN and GAN-group modules are in the package (so the
     import scans above read them, neither jax nor rumpy_tpu among their
-    imports) and the registry finds their nine handlers: 27 names that
-    build, and the three that raise naming item 9, whose generators come
-    with gan_models and metabed."""
-    from rumpy_tpu_torch.registry import available_models, get_model
+    imports) and the registry finds 36 names that build; the three that
+    raised naming item 9 until gan_models and metabed came build and run."""
+    from rumpy_tpu_torch.registry import available_models
     names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
-    missing = [m for m in GENERATOR_MODULES if m not in names]
+    missing = [m for m in GENERATOR_MODULES + GAN_MODULES if m not in names]
     assert not missing, missing
-    for m in GENERATOR_MODULES:
+    for m in GENERATOR_MODULES + GAN_MODULES:
         bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
         assert not bad, (m, bad)
     registered = set(available_models())
-    assert len(BUILDING_MODELS) == 27 and set(BUILDING_MODELS) <= registered
-    assert registered == set(BUILDING_MODELS) | set(RAISING_MODELS)
+    assert len(BUILDING_MODELS) == 36 and registered == set(BUILDING_MODELS)
     for name in ("contrastiveblindqrealesrgan", "contrastiveblindmetabed"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            get_model(name)(device="cpu")
+        _builds_and_runs(name)
+
+
+@pytest.mark.parametrize("name", list(GAN_MODELS))
+def test_gan_group_models_build_and_run(name):
+    _builds_and_runs(name)
+
+
+@pytest.mark.parametrize("name", list(GAN_MODELS))
+def test_gan_group_models_raise_without_cuda(monkeypatch, name):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(name)(**GAN_MODELS[name])
 
 
 @pytest.mark.parametrize("name", list(GENERATOR_MODELS))
@@ -496,4 +530,20 @@ def test_chip_smoke_drives_the_generator_family_phases():
         assert f"{phase}_phase" in called, phase
     text = (ROOT / "chip_smoke.py").read_text()
     for phase in ("han_train", "bobw_qhan", "elan_train", "san_train"):
+        assert f'"phase": "{phase}"' in text, phase
+
+
+def test_chip_smoke_drives_the_gan_group_phases():
+    """chip_smoke.py drives the GAN group's four phases from main(), after
+    the earlier ones, and prints a row for each."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    called = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    for phase in ("realesrgan_train", "bobw_qrealesrgan", "gan_family", "metabed", "han_train",
+                  "bobw_qhan", "dan_train", "launch_coverage"):
+        assert f"{phase}_phase" in called, phase
+    assert called.index("realesrgan_train_phase") > called.index("bobw_qhan_phase")
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in ("realesrgan_train", "bobw_qrealesrgan", "gan_family", "metabed"):
         assert f'"phase": "{phase}"' in text, phase
