@@ -104,6 +104,21 @@ seeded random weights):
   memory, conv2d calls a step, a fixed batch's generator L1 and
   discriminator loss before and after, and the discriminator's train-mode
   calls a step (4);
+* the face group, on CelebA-format sets written here as .npy images with a
+  list_attr_celeba.txt table: the data layer read back (the 40 attributes,
+  a blacklist CSV, a patch-location CSV, loss masks, CelebaSplitSampler's
+  order, VideoSequenceImages' bundles under threads) with neither pandas
+  nor PIL (``face_data``); the slice's main path, rcansplitceleb x4 (two
+  RCANs 10 x 20 x 64, bf16: 400 forward RCAB launches a forward and 400
+  backward a step) through cli.train_sisr with per-set attributes and
+  CelebaSplitSampler on gender, validating each epoch, cli.eval_sisr with
+  the attributes from its config, steady steps, the update hook's cost and
+  a single-allocation step under sync debug "error" that leaves the absent
+  expert bit for bit (``rcansplit_train``); SPARNet and QSPARNet at their
+  defaults (bf16; QSPARNet on the 40 attributes, also through
+  cli.train_sisr), their BatchNorm statistics moving (``sparnet_train``);
+  FaceGAN at its defaults through cli.train_sisr and steady steps, its
+  images in [0, 1] (``facegan_train``);
 * every RCAB kernel launch of the run, recorded by shape, dtype, direction
   and which gate inputs are per image: each one that no phase held against
   the plain version is held after the paths, in the directions launched,
@@ -4603,6 +4618,532 @@ def metabed_phase(rcab, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The face group (slice 15): CelebA-format sets written here as .npy images
+# (the card machine has no PIL) beside a list_attr_celeba.txt table.
+# ---------------------------------------------------------------------------
+
+CELEBA_ATTRIBUTES = (
+    "5_o_Clock_Shadow Arched_Eyebrows Attractive Bags_Under_Eyes Bald Bangs Big_Lips Big_Nose "
+    "Black_Hair Blond_Hair Blurry Brown_Hair Bushy_Eyebrows Chubby Double_Chin Eyeglasses "
+    "Goatee Gray_Hair Heavy_Makeup High_Cheekbones Male Mouth_Slightly_Open Mustache "
+    "Narrow_Eyes No_Beard Oval_Face Pale_Skin Pointy_Nose Receding_Hairline Rosy_Cheeks "
+    "Sideburns Smiling Straight_Hair Wavy_Hair Wearing_Earrings Wearing_Hat Wearing_Lipstick "
+    "Wearing_Necklace Wearing_Necktie Young").split()
+FACE_HR = (216, 176)  # CelebA's aligned 218 x 178 faces, cut to a multiple of 4
+FACE_IMAGES, FACE_POSITIVES = 32, 20  # Male: 20 positives, 12 negatives
+FACE_CROP = 32  # LR crop of the x4 models: HR 128
+FACE_EVAL_IMAGES = 4
+SPLIT_FULL = dict(scale=4, n_feats=64, n_resgroups=10, n_resblocks=20)  # two RCANs
+SPLIT_EXP = "rcansplitceleb_x4"
+SPLIT_EPOCHS = 2
+SPARNET_SIDE = 128  # SPARNet's in_size and out_size (its defaults)
+FACEGAN_FULL = dict(latent_dim=100, nf=128)  # its defaults
+FACEGAN_SIDE = 80
+
+
+def write_celeba_set(root, rng, images, positives, hr_shape=FACE_HR):
+    """A CelebA-format set: ``images`` textured HR faces ``000001.npy`` ...
+    (uint8 HWC), their x4 decimations, and list_attr_celeba.txt (a count
+    line, the 40 names, a row of -1/1 an image named NNNNNN.jpg) with
+    ``positives`` images Male. Returns (lr_dir, hr_dir, attributes file,
+    {name: Male 0/1})."""
+    lr_dir, hr_dir = os.path.join(root, "lr"), os.path.join(root, "hr")
+    os.makedirs(lr_dir)
+    os.makedirs(hr_dir)
+    yy, xx = np.mgrid[:hr_shape[0], :hr_shape[1]].astype(np.float32)
+    male = np.zeros(images, np.int64)
+    male[rng.permutation(images)[:positives]] = 1
+    rows, gender = [], {}
+    for k in range(images):
+        stem = f"{k + 1:06d}"
+        amp = 70.0 * (0.5 + 0.5 * np.sin(xx / (20.0 + k) + k)) * (0.5 + 0.5 * np.cos(yy / 17.0))
+        hr = np.clip(128.0 + amp[..., None] * rng.standard_normal((*hr_shape, 3),
+                                                                  dtype=np.float32), 0, 255)
+        hr = hr.astype(np.uint8)
+        np.save(os.path.join(hr_dir, f"{stem}.npy"), hr)
+        np.save(os.path.join(lr_dir, f"{stem}.npy"),
+                np.ascontiguousarray(hr[::TRAIN_SCALE, ::TRAIN_SCALE]))
+        values = rng.choice([-1, 1], len(CELEBA_ATTRIBUTES))
+        values[CELEBA_ATTRIBUTES.index("Male")] = 1 if male[k] else -1
+        rows.append(f"{stem}.jpg " + " ".join(f"{v:2d}" for v in values))
+        gender[f"{stem}.npy"] = int(male[k])
+    attrs = os.path.join(root, "list_attr_celeba.txt")
+    with open(attrs, "w") as f:
+        f.write(f"{images}\n" + " ".join(CELEBA_ATTRIBUTES) + "\n" + "\n".join(rows) + "\n")
+    return lr_dir, hr_dir, attrs, gender
+
+
+@contextlib.contextmanager
+def imports_blocked(*names):
+    """While the block runs, importing any of ``names`` raises ImportError."""
+    saved = {n: sys.modules.get(n) for n in names}
+    sys.modules.update(dict.fromkeys(names))
+    try:
+        yield
+    finally:
+        for n, module in saved.items():
+            if module is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = module
+
+
+def face_data_phase(card):
+    """The face slice's data layer on the card machine, from files written
+    here: a CelebA-format set read through SuperResImages with all 40
+    attributes, a blacklist CSV, a patch-location CSV (a tuple index and a
+    plain name) and loss masks (one smaller than its target, centred in a
+    zero field); the selected and amplified attributes; CelebaSplitSampler's
+    order; VideoSequenceImages over 5 frames with a uvtex mask, its bundles
+    coherent under four threads. It reads with pandas and PIL made
+    unimportable."""
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_face_data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(150)
+    images = 12
+    lr_dir, hr_dir, attrs, gender = write_celeba_set(root, rng, images, 7, hr_shape=(64, 56))
+    names = sorted(gender)
+    blacklist = os.path.join(root, "blacklist.csv")
+    with open(blacklist, "w") as f:
+        f.write(f"Images,reason\n{names[2]},blurred\n")
+    patches = os.path.join(root, "patches.csv")
+    with open(patches, "w") as f:
+        f.write(",high_entropy_patches_left_corner\n"
+                f"\"('{names[1]}', 0)\",\"[(2, 3), (5, 1)]\"\n{names[3]},\"[(0, 6)]\"\n")
+    masks = os.path.join(root, "masks")
+    os.makedirs(masks)
+    for k, n in enumerate(names):
+        shape = (40, 30) if k == 4 else (64, 56)
+        np.save(os.path.join(masks, n), (rng.random((*shape, 3)) > 0.3).astype(np.uint8) * 255)
+    with imports_blocked("pandas", "PIL"):
+        row = read_face_files(card, root, lr_dir, hr_dir, attrs, gender, blacklist, patches,
+                              masks, images)
+    print(json.dumps(row), flush=True)
+    if not (all(v for k, v in row.items() if k.endswith("_ok") or k == "blacklisted_dropped")
+            and row["listed_after_blacklist"] == images - 1):
+        raise AssertionError(f"face data layer: {row}")
+    shutil.rmtree(root)
+    return row
+
+
+def read_face_files(card, root, lr_dir, hr_dir, attrs, gender, blacklist, patches, masks,
+                    images):
+    """face_data's reads and checks: its row."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rumpy_tpu_torch.data.datasets import SuperResImages, VideoSequenceImages
+    from rumpy_tpu_torch.data.loader import CelebaSplitSampler
+
+    names = sorted(gender)
+    t0 = time.perf_counter()
+    kw = dict(lr_dir=lr_dir, hr_dir=hr_dir, scale=TRAIN_SCALE, attributes_loc=attrs,
+              blacklist=blacklist, predefined_patch_location=patches, mask_data=masks,
+              crop=8, device="cuda")
+    ds = SuperResImages(**kw)
+    keys_ok = ds.metadata_keys == [f"celeba-{a.lower()}" for a in CELEBA_ATTRIBUTES]
+    listed = [os.path.basename(f) for f in ds.lr_files]
+    items = {os.path.basename(f): ds[i] for i, f in enumerate(ds.lr_files)}
+    lr1 = np.load(os.path.join(lr_dir, names[1])).astype(np.float32) / 255.0
+    lr3 = np.load(os.path.join(lr_dir, names[3])).astype(np.float32) / 255.0
+    patch_ok = bool(np.array_equal(items[names[1]]["lr"], lr1[2:10, 3:11])
+                    and np.array_equal(items[names[3]]["lr"], lr3[0:8, 6:14]))
+    whole = SuperResImages(**dict(kw, crop=None))[listed.index(names[4])]["mask"]
+    mask_ok = bool(all(it["mask"].shape == (32, 32, 3) for it in items.values())
+                   and whole.shape == (64, 56, 3) and not whole[:12].any()
+                   and not whole[:, :13].any() and whole[12:52, 13:43].any())
+    gender_col = ds.metadata_keys.index("celeba-male")
+    attr_ok = bool(all(items[n]["metadata"][gender_col] == gender[n] for n in items))
+    picked = SuperResImages(**dict(kw, data_attributes=["gender", "age"],
+                                   attribute_amplification=True))
+    amplified = np.stack([picked[i]["metadata"] for i in range(len(picked))])
+    amp_ok = bool(picked.metadata_keys == ["celeba-gender", "celeba-age"]
+              and set(np.unique(amplified)) <= {-2.0, 2.0}
+              and np.array_equal(amplified[:, 0] > 0, [gender[n] == 1 for n in listed]))
+    split = SuperResImages(**dict(kw, data_attributes=["gender"]))
+    sampler = CelebaSplitSampler(split, selected_attribute="gender", seed=1)
+    orders = [list(iter(sampler)) for _ in range(2)]
+    npos = sum(gender[n] for n in listed)
+    sampler_ok = bool(all(all(gender[listed[i]] == 1 for i in o[:npos])
+                     and all(gender[listed[i]] == 0 for i in o[npos:])
+                          and sorted(o) == list(range(len(listed))) for o in orders))
+
+    frames = os.path.join(root, "frames")
+    yy, xx = np.mgrid[0:40, 0:40]
+    pos = ((yy * 40 + xx) % 251).astype(np.uint8)
+    for d in ("lr", "hr"):
+        os.makedirs(os.path.join(frames, d))
+    for i in range(7):
+        frame = np.stack([pos, np.full_like(pos, i * 30), pos], -1)
+        np.save(os.path.join(frames, "lr", f"f{i:03d}.npy"), frame[::TRAIN_SCALE, ::TRAIN_SCALE])
+        np.save(os.path.join(frames, "hr", f"f{i:03d}.npy"), frame)
+    np.save(os.path.join(frames, "hr", "uvtex_mask.npy"), np.full((40, 40, 3), 255, np.uint8))
+    vsr = VideoSequenceImages(lr_dir=os.path.join(frames, "lr"),
+                              hr_dir=os.path.join(frames, "hr"), scale=TRAIN_SCALE,
+                              num_frames=5, use_masks=True, custom_mask_name="uvtex_mask.npy",
+                              crop=4, augmentations=True, seed=0, device="cuda")
+    first = vsr[0]
+
+    def coherent(idx):
+        bundle = vsr[idx]["lr"]
+        return all(np.array_equal(bundle[..., 0], bundle[..., 3 * f]) for f in range(1, 5))
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        vsr_ok = all(pool.map(coherent, list(range(len(vsr))) * 8))
+    vsr_ok = vsr_ok and (len(vsr) == 3 and first["lr"].shape == (4, 4, 15)
+                         and first["tag"] == "f002.npy" and first["mask"].shape == (16, 16, 3))
+    return {"phase": "face_data", "card": card, "seconds": time.perf_counter() - t0,
+            "read_with_pandas_and_PIL_unimportable": True,
+            "images": images, "listed_after_blacklist": len(listed),
+            "blacklisted_dropped": names[2] not in listed, "attribute_keys_ok": keys_ok,
+            "attributes_ok": attr_ok, "patch_csv_corners_ok": patch_ok, "masks_ok": mask_ok,
+            "selected_amplified_ok": amp_ok, "sampler_positives": npos,
+            "sampler_order_ok": sampler_ok, "sampler_epochs_differ": orders[0] != orders[1],
+            "vsr_windows": len(vsr), "vsr_bundle_coherent_under_threads_ok": vsr_ok}
+
+
+def fixed_face_batch(lr_dir, hr_dir, batch, gate):
+    """Centre crops of FACE_CROP LR pixels and their HR pixels of the face
+    set's first ``batch`` images, on the card, with ``gate`` as each image's
+    one metadata value."""
+    pairs = fixed_pair_batch(lr_dir, hr_dir, batch, crop=FACE_CROP)
+    pairs["metadata"] = torch.tensor(gate, dtype=torch.float32)[:, None].to(pairs["lr"].device)
+    return pairs
+
+
+def update_hook_ms(handler, state, batch, steps=3):
+    """A step's ms with the handler's update hook (its parameter copy
+    before the optimizer, the masked update after it) against the same
+    step with the base handler's identity hook, which makes no copy."""
+    from rumpy_tpu_torch.models.base import BaseHandler
+    cls = type(handler)
+    with_hook = cuda_ms(lambda: handler.train_batch(state, batch), steps, warmup=1, backlog_s=0)
+    hook = cls.transform_updates
+    cls.transform_updates = BaseHandler.transform_updates
+    try:
+        without = cuda_ms(lambda: handler.train_batch(state, batch), steps, warmup=1,
+                          backlog_s=0)
+    finally:
+        cls.transform_updates = hook
+    return with_hook, without
+
+
+def rcansplit_train_phase(rcab, card):
+    """The slice's main path: rcansplitceleb x4 (two RCANs 10 x 20 x 64,
+    bf16: each expert's 200 RCABs on the kernels, 400 forward launches a
+    forward and 400 backward a step) through cli.train_sisr on a
+    CelebA-format set (32 faces of 216 x 176, 20 Male) with the set's
+    attributes (data_attributes ["gender"], metadata ["gender"]) and
+    CelebaSplitSampler on gender (batch 16, LR crop 32, 2 epochs of 2 steps,
+    validating on 4 faces), cli.eval_sisr on the run with the attributes
+    given by the eval config, then steady steps on a mixed batch, the update
+    hook's cost, and a single-allocation step under sync debug "error":
+    expert b bit for bit, negative-loss NaN. Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_rcansplit")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(151)
+    lr_dir, hr_dir, attrs, gender = write_celeba_set(os.path.join(root, "data"), rng,
+                                                     FACE_IMAGES, FACE_POSITIVES)
+    e_lr, e_hr, e_attrs, _ = write_celeba_set(os.path.join(root, "eval_data"), rng,
+                                              FACE_EVAL_IMAGES, 2)
+    internal = dict(SPLIT_FULL, dtype="bf16", lr=1e-4, optimizer_type="adam")
+    seed, exp_root = 5, os.path.join(root, "experiments")
+    split = {"attributes_loc": attrs, "data_attributes": ["gender"]}
+    cfg = {"experiment": SPLIT_EXP, "experiment_save_loc": exp_root,
+           "data": {"scale": TRAIN_SCALE, "crop": FACE_CROP, "augmentations": True,
+                    "dataloader_threads": 4, "metadata": ["gender"],
+                    "sampler_attributes": {"name": "celebasplitsampler",
+                                           "selected_attribute": "gender"},
+                    "training_sets": {"data_1": {"lr_dir": lr_dir, "hr_dir": hr_dir, **split}},
+                    "eval_sets": {"data_1": {"lr_dir": e_lr, "hr_dir": e_hr,
+                                             "attributes_loc": e_attrs,
+                                             "data_attributes": ["gender"]}}},
+           "model": {"name": "rcansplitceleb", "internal_params": internal},
+           "training": {"num_epochs": SPLIT_EPOCHS, "batch_size": TRAIN_BATCH, "seed": seed}}
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    steps = SPLIT_EPOCHS * (FACE_IMAGES // TRAIN_BATCH)
+    blocks = 2 * SPLIT_FULL["n_resgroups"] * SPLIT_FULL["n_resblocks"]  # both experts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    FORM_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    want = {"rcab_fused": blocks * (steps + len(forwards)),
+            "rcab_fused_backward": blocks * steps}
+    forms = dict(FORM_LAUNCHES)
+    if (launches != want or len(forwards) != SPLIT_EPOCHS
+            or set(forms) != {"forward/shared", "backward/shared"}):
+        raise AssertionError(f"kernel launches in the rcansplitceleb run {launches} by form "
+                             f"{forms}, expected {want} ({len(forwards)} validation forwards)")
+    launches["rcab_fused_validation"] = blocks * len(forwards)
+    epochs = [stats[e] for e in sorted(stats)]
+    losses = {k: [e.get(k) for e in epochs] for k in ("train-loss", "positive-loss",
+                                                      "negative-loss", "val-PSNR", "val-SSIM")}
+    if len(epochs) != SPLIT_EPOCHS or not np.isfinite(
+            losses["train-loss"] + losses["val-PSNR"] + losses["val-SSIM"]).all():
+        raise AssertionError(f"rcansplitceleb run: {losses}")
+
+    eval_cfg = os.path.join(root, "eval.toml")
+    dump_toml({"data": {"lr_dir": e_lr, "hr_dir": e_hr, "attributes_loc": e_attrs,
+                        "data_attributes": ["gender"]}}, eval_cfg)
+    out = os.path.join(root, "eval")
+    rcab.launches = 0
+    with watched(SISRInterface, "net_run") as eval_forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["-c", eval_cfg, "--model_loc", exp_root, "--scale", str(TRAIN_SCALE),
+                        "-m", "PSNR", "-m", "SSIM", "-me", SPLIT_EXP, "best", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    eval_launches = rcab.launches
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    if (len(values) != FACE_EVAL_IMAGES or (SPLIT_EXP, "PSNR") not in columns
+            or not np.isfinite(list(values.values())).all()
+            or len(eval_forwards) != FACE_EVAL_IMAGES
+            or eval_launches != blocks * FACE_EVAL_IMAGES):
+        raise AssertionError(f"eval_sisr of the rcansplitceleb run: columns {columns}, "
+                             f"{len(values)} rows, {len(eval_forwards)} forwards, "
+                             f"{eval_launches} launches")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+
+    handler = get_model("rcansplitceleb")(device="cuda", seed=seed, **internal)
+    state = handler.init_state()
+    gate = [1.0] * 10 + [0.0] * (TRAIN_BATCH - 10)
+    mixed = fixed_face_batch(lr_dir, hr_dir, TRAIN_BATCH, gate)
+    steps_row = phase_step_row(rcab, handler, state, mixed, "rcansplitceleb x4 2x10x20x64 bf16",
+                               pair_loss(handler, mixed))
+    if steps_row["launches_a_step"] != {"rcab_fused": blocks, "rcab_fused_backward": blocks} \
+            or set(steps_row["launches_a_step_by_form"]) != {"forward/shared",
+                                                             "backward/shared"}:
+        raise AssertionError(f"an rcansplitceleb step launched {steps_row['launches_a_step']}")
+    with_hook, without_hook = update_hook_ms(handler, state, mixed)
+    single = dict(mixed, metadata=torch.ones_like(mixed["metadata"]))
+    expert_b = [p.detach().clone() for p in handler.module.expert_b.parameters()]
+    expert_a = [p.detach().clone() for p in handler.module.expert_a.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, single_losses = handler.train_batch(state, single)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b_kept = all(torch.equal(a, b) for a, b in zip(handler.module.expert_b.parameters(), expert_b))
+    a_moved = sum(not torch.equal(a, b) for a, b in zip(handler.module.expert_a.parameters(),
+                                                        expert_a))
+    single_losses = {k: float(v) for k, v in single_losses.items()}
+    n_params = sum(p.numel() for p in handler.module.parameters())
+    row = {"phase": "rcansplit_train", "model": "rcansplitceleb x4 2 x 10x20x64 bf16",
+           "card": card, "steps": steps, "batch": TRAIN_BATCH, "crop": FACE_CROP,
+           "launches": launches, "launches_by_form": forms, "epochs": losses,
+           "run_experiment_s": seconds, "peak_memory_bytes_run": peak_run,
+           "eval_sisr_s": cli_seconds, "eval_images_per_s": FACE_EVAL_IMAGES / cli_seconds,
+           "eval_mean": mean, "eval_rcab_launches": eval_launches,
+           "fixed_batch": steps_row, "peak_gb_a_step": steps_row["peak_memory_bytes"] / 1e9,
+           "parameters": n_params, "step_ms_with_update_hook": with_hook,
+           "step_ms_identity_hook": without_hook,
+           "update_hook_copy_ms": with_hook - without_hook,
+           "single_allocation_step": {"losses": single_losses,
+                                      "expert_b_bit_for_bit": b_kept,
+                                      "expert_a_parameters_moved": a_moved,
+                                      "sync_debug_error": True}}
+    print(json.dumps(row), flush=True)
+    if not (b_kept and a_moved and np.isnan(single_losses["negative-loss"])
+            and single_losses["train-loss"] == single_losses["positive-loss"]):
+        raise AssertionError(f"rcansplitceleb single-allocation step: {row['single_allocation_step']}")
+    if not steps_row["loss_lower_after_steps"]:
+        raise AssertionError(f"rcansplitceleb fixed-batch loss {steps_row['fixed_batch_loss']}")
+    del handler, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return row
+
+
+def interp_face_batch(hr_dir, batch, metadata=None):
+    """SPARNet's input: centre crops of SPARNET_SIDE HR pixels, their x4
+    decimation upsampled back by bicubic, on the card."""
+    import torch.nn.functional as F
+    names = sorted(os.listdir(hr_dir))
+    crops = []
+    for name in (names * batch)[:batch]:
+        hr = np.load(os.path.join(hr_dir, name))
+        top, left = (hr.shape[0] - SPARNET_SIDE) // 2, (hr.shape[1] - SPARNET_SIDE) // 2
+        crops.append(hr[top:top + SPARNET_SIDE, left:left + SPARNET_SIDE])
+    hr = torch.from_numpy(np.stack(crops).astype(np.float32) / 255.0).cuda()
+    lr = F.interpolate(hr[:, ::TRAIN_SCALE, ::TRAIN_SCALE].permute(0, 3, 1, 2),
+                       scale_factor=TRAIN_SCALE, mode="bicubic", align_corners=False)
+    out = {"lr": lr.clamp(0, 1).permute(0, 2, 3, 1).contiguous(), "hr": hr}
+    if metadata is not None:
+        out["metadata"] = metadata
+    return out
+
+
+def sparnet_train_phase(rcab, card):
+    """SPARNet at its defaults (in and out 128, min_ch 32, max_ch 128,
+    res_depth 10, BatchNorm, leaky relu; bf16) and QSPARNet on the 40 CelebA
+    attributes (metadata ["all"]): steady steps at batch 16 on bicubic
+    inputs of face crops (step ms, busy ms, idle share, kernels, peak
+    memory; every BatchNorm running statistic moved), eval images/s at
+    batch 1; then QSPARNet through cli.train_sisr on a CelebA-format set
+    with all its attributes (one epoch of 2 steps, the LR upsampled by the
+    data layer). No RCAB kernel runs. Returns the row."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_sparnet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(152)
+    lr_dir, hr_dir, attrs, _ = write_celeba_set(os.path.join(root, "data"), rng,
+                                                FACE_IMAGES, FACE_POSITIVES)
+    table = np.loadtxt(attrs, skiprows=2, usecols=range(1, 41))
+    meta = torch.from_numpy((table[:TRAIN_BATCH] > 0).astype(np.float32)).cuda()
+    rows = {}
+    for name, kw in (("sparnet", {}), ("qsparnet", {"metadata": ["all"]})):
+        handler = get_model(name)(device="cuda", dtype="bf16", lr=1e-4, seed=6, **kw)
+        state = handler.init_state()
+        batch = interp_face_batch(hr_dir, TRAIN_BATCH, meta if name == "qsparnet" else None)
+        stats0 = running_stats(handler.module)
+        step = phase_step_row(rcab, handler, state, batch, f"{name} 128 bf16",
+                              pair_loss(handler, batch))
+        stats1 = running_stats(handler.module)
+        moved = sum(not torch.equal(stats0[k], stats1[k]) for k in stats0)
+        x = batch["lr"][:1]
+        m = None if name == "sparnet" else batch["metadata"][:1]
+        handler.run_model(state, x, m)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [handler.run_model(state, batch["lr"][i:i + 1],
+                                  None if m is None else batch["metadata"][i:i + 1])
+                for i in range(8)]
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        row = dict(step, running_stats=len(stats0), running_stats_moved=moved,
+                   eval_images_per_s=8 / eval_s,
+                   num_metadata=getattr(handler, "num_metadata", 0),
+                   parameters=sum(p.numel() for p in handler.module.parameters()))
+        rows[name] = row
+        if (moved != len(stats0) or not stats0 or any(step["launches_a_step"].values())
+                or not all(bool(torch.isfinite(o).all()) and o.shape == (1, 128, 128, 3)
+                           for o in outs)
+                or row["num_metadata"] != (40 if name == "qsparnet" else 0)):
+            raise AssertionError(f"{name} steps: {row}")
+        del handler, state
+        torch.cuda.empty_cache()
+
+    cfg = {"experiment": "qsparnet_celeba", "experiment_save_loc": os.path.join(root, "exp"),
+           "data": {"scale": TRAIN_SCALE, "crop": SPARNET_SIDE, "augmentations": True,
+                    "dataloader_threads": 4, "metadata": ["all"],
+                    "training_sets": {"data_1": {"lr_dir": lr_dir, "hr_dir": hr_dir,
+                                                 "attributes_loc": attrs}}},
+           "model": {"name": "qsparnet", "internal_params": {
+               "metadata": ["all"], "dtype": "bf16", "lr": 1e-4}},
+           "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": 6}}
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    stats = train_sisr.main(["-p", cfg_path])
+    cli_row = {"run_experiment_s": time.perf_counter() - t0,
+               "train_loss": stats[0]["train-loss"],
+               "compute_efficiency": stats[0]["compute_efficiency"],
+               "launches": {"rcab_fused": rcab.launches,
+                            "rcab_fused_backward": rcab.backward_launches}}
+    row = {"phase": "sparnet_train", "card": card, "batch": TRAIN_BATCH, **rows,
+           "qsparnet_cli": cli_row}
+    print(json.dumps(row), flush=True)
+    if not np.isfinite(cli_row["train_loss"]) or any(cli_row["launches"].values()):
+        raise AssertionError(f"qsparnet through cli.train_sisr: {cli_row}")
+    shutil.rmtree(root)
+    return row
+
+
+def facegan_train_phase(rcab, card):
+    """FaceGAN at its defaults (latent 100, nf 128; bf16) through
+    cli.train_sisr on 32 faces of 80 x 80 (scale 1, batch 16, one epoch of
+    2 steps), then steady steps at batch 16 (step ms, busy ms, idle share,
+    kernels, peak memory; the discriminator's two train-mode calls a step),
+    and 16 generated images in [0, 1]. No RCAB kernel runs. Returns the
+    row."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_facegan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(153)
+    _, faces, _, _ = write_celeba_set(os.path.join(root, "data"), rng, FACE_IMAGES,
+                                      FACE_POSITIVES, hr_shape=(FACEGAN_SIDE, FACEGAN_SIDE))
+    internal = dict(FACEGAN_FULL, dtype="bf16", lr=2e-4)
+    cfg = {"experiment": "facegan_celeba", "experiment_save_loc": os.path.join(root, "exp"),
+           "data": {"scale": 1, "dataloader_threads": 4,
+                    "training_sets": {"data_1": {"lr_dir": faces, "hr_dir": faces}}},
+           "model": {"name": "facegan", "internal_params": internal},
+           "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": 7}}
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    stats = train_sisr.main(["-p", cfg_path])
+    cli_row = {"run_experiment_s": time.perf_counter() - t0,
+               **{k: stats[0][k] for k in ("train-loss", "d-loss-real", "d-loss-fake",
+                                           "d-acc-real", "d-acc-fake")}}
+
+    handler = get_model("facegan")(device="cuda", seed=7, **internal)
+    state = handler.init_state()
+    names = sorted(os.listdir(faces))[:TRAIN_BATCH]
+    hr = torch.from_numpy(np.stack([np.load(os.path.join(faces, n)) for n in names])
+                          .astype(np.float32) / 255.0).cuda()
+    batch = {"hr": hr}
+    step = step_row(rcab, handler, state, batch, "facegan bf16")
+    calls = []
+    hook = handler.discriminator.register_forward_pre_hook(
+        lambda m, a, kw: calls.append(bool(kw.get("train"))), with_kwargs=True)
+    try:
+        trace = traced(lambda: handler.train_batch(state, batch), "facegan_step_trace", 1)
+    finally:
+        hook.remove()
+    _, losses = handler.train_batch(state, batch)
+    losses = {k: float(v) for k, v in losses.items()}
+    z = torch.rand((TRAIN_BATCH, FACEGAN_FULL["latent_dim"]), device=handler.device,
+                   generator=handler.rng)
+    images = handler.run_eval(state, {"latent": z})
+    row = {"phase": "facegan_train", "card": card, "cli": cli_row, **step,
+           "model": "facegan latent 100 nf 128 bf16", "step_busy_ms": trace["busy_us"] / 1e3,
+           "step_idle_share": trace["idle_share"], "kernels_a_step": trace["kernels_per_call"],
+           "d_train_calls_a_step": sum(calls), "d_calls_a_step": len(calls),
+           "peak_gb_a_step": step["peak_memory_bytes"] / 1e9, "last_step": losses,
+           "generated": list(images.shape), "generated_min": float(images.min()),
+           "generated_max": float(images.max()),
+           "parameters": sum(p.numel() for p in handler.module.parameters())}
+    print(json.dumps(row), flush=True)
+    if (not np.isfinite(list(cli_row.values()) + list(losses.values())).all()
+            or not all(0 <= losses[k] <= 1 for k in ("d-acc-real", "d-acc-fake"))
+            or tuple(images.shape) != (TRAIN_BATCH, FACEGAN_SIDE, FACEGAN_SIDE, 3)
+            or not 0 <= row["generated_min"] <= row["generated_max"] <= 1
+            or row["d_train_calls_a_step"] != 2 or row["d_calls_a_step"] != 3
+            or any(step["launches_a_step"].values())):
+        raise AssertionError(f"facegan: {row}")
+    del handler, state
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4667,6 +5208,11 @@ def main() -> int:
     qrealesrgan = bobw_qrealesrgan_phase(rcab, card)
     gan_family = gan_family_phase(rcab, card)
     metabed = metabed_phase(rcab, card)
+    # the face group: the slice's main path, rcansplitceleb, on the RCAB kernels
+    face_data_phase(card)
+    split = rcansplit_train_phase(rcab, card)
+    sparnet_train_phase(rcab, card)
+    facegan_train_phase(rcab, card)
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],
@@ -4694,7 +5240,8 @@ def main() -> int:
                      + meta_row["eval_rcab_launches"] + family["launches"]
                      + dan["launches"]["rcab_fused"] + dan["eval_rcab_launches"]
                      + han["launches"]["rcab_fused"] + han["eval_rcab_launches"]
-                     + qhan["launches"]["rcab_fused"] + qhan["eval_rcab_launches"]),
+                     + qhan["launches"]["rcab_fused"] + qhan["eval_rcab_launches"]
+                     + split["launches"]["rcab_fused"] + split["eval_rcab_launches"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
@@ -4724,6 +5271,11 @@ def main() -> int:
         "launches_elan_a_step": elan["fixed_batch"]["launches_a_step"]["rcab_fused"],
         "launches_san_a_step": san["fixed_batch"]["launches_a_step"]["rcab_fused"],
         "launches_gan_group": gan_group_launches,
+        # the face group's main path: rcansplitceleb, two RCANs
+        "launches_rcansplit_training_path": split["launches"]["rcab_fused"],
+        "launches_rcansplit_validation": split["launches"]["rcab_fused_validation"],
+        "launches_rcansplit_eval_path": split["eval_rcab_launches"],
+        "launches_rcansplit_a_step": split["fixed_batch"]["launches_a_step"]["rcab_fused"],
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -4752,7 +5304,8 @@ def main() -> int:
                      + meta_launches["rcab_fused_backward"] + family["backward_launches"]
                      + dan["launches"]["rcab_fused_backward"]
                      + han["launches"]["rcab_fused_backward"]
-                     + qhan["launches"]["rcab_fused_backward"]),
+                     + qhan["launches"]["rcab_fused_backward"]
+                     + split["launches"]["rcab_fused_backward"]),
         "launches_training_path": train_launches["rcab_fused_backward"],
         "launches_blind_training_path": blind_launches["rcab_fused_backward"],
         "launches_bobw_training_path": bobw_launches["rcab_fused_backward"],
@@ -4766,6 +5319,9 @@ def main() -> int:
         "launches_elan_a_step": elan["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
         "launches_san_a_step": san["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
         "launches_gan_group": gan_group_launches,
+        "launches_rcansplit_training_path": split["launches"]["rcab_fused_backward"],
+        "launches_rcansplit_a_step":
+            split["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

@@ -24,17 +24,29 @@ imported only when an image file is actually opened.
 A ``metadata_file`` (or ``"on_site"``: ``<lr_dir>/degradation_metadata.csv``
 where there is one) gives each item its image's row of degradation
 metadata, read by ``data/metadata.py``, and the set its ``metadata_keys``.
+An ``attributes_loc`` (CelebA's ``list_attr_celeba.txt`` layout) prepends
+the image's facial attributes to that row, under ``celeba-<name>`` keys.
 
-Not ported yet, and raising ``NotImplementedError`` rather than doing
-something else: facial attributes, blacklist and patch-location CSV
-files, loss masks, and ``VideoSequenceImages``.
+The CSV files are read with the ``csv`` module, as pandas reads them: a
+``blacklist`` file's ``Images`` column names the images to drop, and a
+``predefined_patch_location`` file gives an image (its index: the name,
+or a stringified tuple whose first entry is the name) the corners of its
+crops, one per crop index. A loss mask (``mask_data``: a folder of masks
+named as the HR images; or ``custom_mask_name``: one file beside each HR
+image) is centre-cropped to the aligned HR size (a smaller mask centred
+in a zero field), then cropped and augmented with the HR image.
+``VideoSequenceImages`` stacks windows of frames on the channel axis, the
+frames of a window sharing one crop and one augmentation draw.
 """
 
 from __future__ import annotations
 
+import ast
+import csv
 import functools
 import os
 import re
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -42,7 +54,7 @@ import numpy as np
 import torch
 
 from rumpy_tpu_torch.config.constants import dataset_splits
-from rumpy_tpu_torch.data.metadata import read_augmentation_list
+from rumpy_tpu_torch.data.metadata import read_augmentation_list, read_celeba_attributes
 from rumpy_tpu_torch.device import resolve_device
 from rumpy_tpu_torch.ops.color_aug import apply_colour_distortion, colour_distortion_draws
 from rumpy_tpu_torch.ops.resize import pil_resize
@@ -85,8 +97,40 @@ def _decode(path: str) -> np.ndarray:
     return _decode_cached(path, os.stat(path).st_mtime_ns)
 
 
-def _later(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with {slice_name}")
+def _csv_rows(path: str) -> Tuple[List[str], List[List[str]]]:
+    """(header, rows) of a CSV file; blank lines are skipped, as pandas
+    skips them."""
+    with open(path, newline="") as fh:
+        reader = csv.reader(fh)
+        header = next(reader)
+        return header, [r for r in reader if r]
+
+
+def read_blacklist(path: str) -> List[str]:
+    """The ``Images`` column of a blacklist CSV file."""
+    header, rows = _csv_rows(path)
+    col = header.index("Images")
+    return [r[col] for r in rows]
+
+
+def read_patch_file(path: str) -> Dict[str, List[Tuple[int, ...]]]:
+    """{image name: its crops' corners} of a predefined-patch CSV file:
+    the first column is the index (the image name, or a stringified tuple
+    whose first entry is the name), the ``high_entropy_patches_left_corner``
+    column a stringified list of corners. A repeated name keeps its last
+    row."""
+    header, rows = _csv_rows(path)
+    col = header.index("high_entropy_patches_left_corner")
+    out: Dict[str, List[Tuple[int, ...]]] = {}
+    for r in rows:
+        key = r[0]
+        try:
+            parsed = ast.literal_eval(key)
+            name = parsed[0] if isinstance(parsed, tuple) else parsed
+        except (ValueError, SyntaxError):
+            name = key
+        out[str(name)] = [tuple(c) for c in ast.literal_eval(r[col])]
+    return out
 
 
 class SuperResImages:
@@ -140,14 +184,6 @@ class SuperResImages:
             # the JAX package; without one the set carries no metadata
             candidate = os.path.join(lr_dir, "degradation_metadata.csv") if lr_dir else None
             metadata_file = candidate if candidate and os.path.isfile(candidate) else None
-        if attributes_loc is not None:
-            raise _later("facial attributes", "the metadata slice")
-        if predefined_patch_location:
-            raise _later("predefined_patch_location CSV files", "the metadata slice")
-        if isinstance(blacklist, str):
-            raise _later("blacklist CSV files", "the metadata slice")
-        if mask_data is not None or custom_mask_name:
-            raise _later("loss masks from image files", "the metadata slice")
         self.scale = scale
         self.input = input
         self.colorspace = colorspace
@@ -155,6 +191,9 @@ class SuperResImages:
         self.crop_count = crop_count
         self.patch_type = patch_type
         self.predefined_patch_locations = predefined_patch_locations
+        # per-image patch corners from a CSV file
+        self.patch_file = (read_patch_file(predefined_patch_location)
+                           if predefined_patch_location else None)
         self.augmentations = augmentations
         self.use_hflip = use_hflip
         self.use_vflip = use_vflip
@@ -163,6 +202,10 @@ class SuperResImages:
         self.colour_distortion_strength = colour_distortion_strength
         self.online_degradations = online_degradations
         self.requested_metadata = list(metadata) if metadata else None
+        # per-image HR loss masks: a folder of masks named as the HR images,
+        # or one file name resolved beside each HR image
+        self.mask_base = mask_data
+        self.custom_mask_name = custom_mask_name
         self._rng = np.random.default_rng(seed)
         # entropy patch selection runs on this device; resolved at first use
         self.device = device
@@ -210,6 +253,8 @@ class SuperResImages:
                      or os.path.basename(f) in keep]
 
         if blacklist:
+            if isinstance(blacklist, str):
+                blacklist = read_blacklist(blacklist)
             banned = set(os.path.basename(b) for b in blacklist)
             files = [f for f in files if os.path.basename(f) not in banned]
 
@@ -226,6 +271,15 @@ class SuperResImages:
                 qpi_selection=qpi_selection)
             # QPI filtering may drop images
             self.lr_files = [f for f in files if os.path.basename(f) in self.metadata_map]
+        elif attributes_loc is not None:
+            self.metadata_map = {os.path.basename(f): np.array([], np.float32)
+                                 for f in self.lr_files}
+        if attributes_loc is not None:
+            # CelebA attributes: their keys come before the degradation keys
+            self.metadata_map, attr_keys = read_celeba_attributes(
+                attributes_loc, self.metadata_map, selected_metadata=data_attributes,
+                attribute_amplification=attribute_amplification)
+            self.metadata_keys = [f"celeba-{k.lower()}" for k in attr_keys] + self.metadata_keys
 
     def __len__(self) -> int:
         return len(self.lr_files)
@@ -252,6 +306,30 @@ class SuperResImages:
             if os.path.isfile(c):
                 return c
         return None
+
+    def _load_mask(self, hr_path: str, th: int, tw: int) -> np.ndarray:
+        """The HR image's loss mask as float32 HWC in [0, 1], centre-cropped
+        to the aligned HR size th x tw with PIL crop semantics: a mask
+        smaller than that comes back centred in a zero field. A missing
+        mask raises, since a half-masked set would give ragged batches."""
+        if self.custom_mask_name:
+            path = os.path.join(os.path.dirname(hr_path), self.custom_mask_name)
+        else:
+            path = os.path.join(self.mask_base, os.path.basename(hr_path))
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"loss mask for {hr_path!r} not found at {path!r} (mask_data/"
+                "custom_mask_name is configured, so every HR image needs a mask)")
+        mask = _decode(path)
+        if mask.shape[0] != th or mask.shape[1] != tw:
+            t, l_ = (mask.shape[0] - th) // 2, (mask.shape[1] - tw) // 2
+            out = np.zeros((th, tw) + mask.shape[2:], mask.dtype)
+            src = mask[max(t, 0):max(t, 0) + min(th, mask.shape[0]),
+                       max(l_, 0):max(l_, 0) + min(tw, mask.shape[1])]
+            out[max(-t, 0):max(-t, 0) + src.shape[0],
+                max(-l_, 0):max(-l_, 0) + src.shape[1]] = src
+            mask = out
+        return mask.astype(np.float32) / 255.0
 
     def _colorspace_convert(self, arr_u8: np.ndarray) -> np.ndarray:
         x = arr_u8.astype(np.float32) / 255.0
@@ -308,8 +386,12 @@ class SuperResImages:
     def _select_patch(self, img: np.ndarray, crop_size: int, idx: int,
                       tag: Optional[str] = None, crop_index: int = 0,
                       total: int = 1) -> Tuple[int, int]:
-        """Patch corner by patch_type: predefined list / entropy / random.
-        ``img`` is the LR image before conversion (uint8 RGB)."""
+        """Patch corner: the image's corners from a patch CSV file, then by
+        patch_type: predefined list / entropy / random. ``img`` is the LR
+        image before conversion (uint8 RGB)."""
+        if self.patch_file is not None and tag in self.patch_file:
+            locs = self.patch_file[tag]
+            return tuple(locs[crop_index % len(locs)])
         if self.patch_type == "predefined" and self.predefined_patch_locations:
             return tuple(self.predefined_patch_locations[
                 (idx + crop_index) % len(self.predefined_patch_locations)])
@@ -370,12 +452,15 @@ class SuperResImages:
         out: Dict[str, Any] = {"tag": tag}
         hr = _decode(hr_path) if hr_path else None
 
+        mask = None
         if hr is not None:
             # HR centre-crop alignment to LR*scale
             th, tw = lr.shape[0] * self.scale, lr.shape[1] * self.scale
             oh = (hr.shape[0] - th) // 2
             ow = (hr.shape[1] - tw) // 2
             hr = hr[oh:oh + th, ow:ow + tw]
+            if self.mask_base is not None or self.custom_mask_name:
+                mask = self._load_mask(hr_path, th, tw)
         t = self._lap("decode", t)
 
         # LR pixels per HR pixel in a crop: 1 once the LR is upsampled
@@ -437,13 +522,18 @@ class SuperResImages:
                 hs = cs * eff_scale
                 hr = hr[top * eff_scale:top * eff_scale + hs,
                         left * eff_scale:left * eff_scale + hs]
+                if mask is not None:
+                    mask = mask[top * eff_scale:top * eff_scale + hs,
+                                left * eff_scale:left * eff_scale + hs]
             t = self._lap("crop_augment", t)
         lr_f = convert(lr)
         hr_f = convert(hr) if hr is not None else None
         t = self._lap("convert", t)
 
         if self.augmentations:
-            if hr_f is not None:
+            if hr_f is not None and mask is not None:
+                lr_f, hr_f, mask = self._augment(lr_f, hr_f, mask)
+            elif hr_f is not None:
                 lr_f, hr_f = self._augment(lr_f, hr_f)
             else:
                 lr_f, = self._augment(lr_f)
@@ -451,14 +541,60 @@ class SuperResImages:
         out["lr"] = lr_f.astype(np.float32)
         if hr_f is not None:
             out["hr"] = hr_f.astype(np.float32)
+        if mask is not None:
+            out["mask"] = mask.astype(np.float32)
         out["metadata"] = self._metadata(tag)
         out["metadata_keys"] = self.metadata_keys
         self._lap("crop_augment", t)
         return out
 
 
-class VideoSequenceImages:
-    """VSR dataset of the JAX package; not ported yet."""
+class VideoSequenceImages(SuperResImages):
+    """VSR dataset: the sorted listing's windows of ``num_frames``
+    consecutive frames, their LR images concatenated on the channel axis;
+    the item's HR target (and tag, metadata and mask) is one frame,
+    ``hr_selection`` ("center" or an index into the window).
+    ``use_masks`` reads ``uvtex_mask.png`` beside the HR frames as the loss
+    mask unless the set names its own ``custom_mask_name``."""
 
-    def __init__(self, *args, **kwargs):
-        raise _later("VideoSequenceImages", "the video slice")
+    def __init__(self, num_frames: int = 5, hr_selection="center",
+                 use_masks: bool = False, **kwargs):
+        if use_masks:
+            kwargs.setdefault("mask_data", kwargs.get("hr_dir"))
+            kwargs.setdefault("custom_mask_name", "uvtex_mask.png")
+        super().__init__(**kwargs)
+        self.num_frames = num_frames
+        self.hr_selection = (num_frames // 2 if hr_selection == "center"
+                             else int(hr_selection))
+        self._starts = list(range(0, len(self.lr_files) - num_frames + 1))
+        self._window_lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._starts)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        start = self._starts[idx]
+        # Every frame of a window shares one crop and one augmentation
+        # draw: the rng is reseeded with one seed drawn from the ongoing
+        # stream before each frame. The whole window runs under a lock, so
+        # that a loader thread fetching another window cannot swap the rng
+        # mid-window; the stream is restored afterwards.
+        with self._window_lock:
+            epoch_rng = self._rng
+            window_seed = int(epoch_rng.integers(0, 2 ** 31))
+            frames = []
+            try:
+                for i in range(self.num_frames):
+                    self._rng = np.random.default_rng(window_seed)
+                    item = super().__getitem__(start + i)
+                    frames.append(item["lr"])
+                    if i == self.hr_selection:
+                        target = item
+            finally:
+                self._rng = epoch_rng
+        out = {"lr": np.concatenate(frames, axis=-1), "tag": target["tag"],
+               "metadata": target["metadata"], "metadata_keys": target["metadata_keys"]}
+        for k in ("hr", "mask"):
+            if k in target:
+                out[k] = target[k]
+        return out

@@ -4,8 +4,8 @@ Port of ``rumpy_tpu/data/loader.py``: a thread pool decodes and crops items
 ahead of the training loop, so the host pipeline overlaps device steps.
 Batches are numpy dicts; the trainer moves them to the device. Shuffle
 order comes from numpy ``default_rng(seed)``, as in the JAX package, so
-both give the same batches. ``CelebaSplitSampler`` comes with the metadata
-slice.
+both give the same batches. ``CelebaSplitSampler`` orders an epoch by
+one CelebA attribute: its positives, then its negatives.
 """
 
 from __future__ import annotations
@@ -40,6 +40,53 @@ class ConcatDataset:
     def __getitem__(self, idx: int):
         ds = int(np.searchsorted(self._offsets, idx, side="right") - 1)
         return self.datasets[ds][idx - self._offsets[ds]]
+
+
+class CelebaSplitSampler:
+    """Attribute-positive-first sampling order: every epoch yields all
+    indices whose selected CelebA attribute is 1 (shuffled), then those
+    where it is 0 (shuffled). A ``ConcatDataset``'s sets are indexed with
+    their offsets. Exactly one of a set's metadata keys must contain the
+    attribute's name."""
+
+    def __init__(self, data_source, selected_attribute: str = "gender", seed: int = 0):
+        self.attribute = selected_attribute
+        self._rng = np.random.default_rng(seed)
+        datasets = (data_source.datasets if isinstance(data_source, ConcatDataset)
+                    else [data_source])
+        self.positive_indices: List[int] = []
+        self.negative_indices: List[int] = []
+        offset = 0
+        for ds in datasets:
+            pos, neg, n = self._index_with_attribute(ds)
+            self.positive_indices += [p + offset for p in pos]
+            self.negative_indices += [p + offset for p in neg]
+            offset += n
+        self.length = offset
+
+    def _index_with_attribute(self, dataset):
+        keys = list(getattr(dataset, "metadata_keys", []))
+        hits = [i for i, k in enumerate(keys) if self.attribute in k]
+        if len(hits) != 1:
+            raise ValueError(f"Attribute {self.attribute!r} matched {len(hits)} "
+                             f"metadata keys {keys}; need exactly one")
+        col = hits[0]
+        if hasattr(dataset, "metadata"):
+            meta = np.asarray(dataset.metadata, np.float32)
+        else:  # SuperResImages: a name -> vector map, in listing order
+            meta = np.stack([dataset.metadata_map[os.path.basename(f)]
+                             for f in dataset.lr_files]).astype(np.float32)
+        pos = np.nonzero(meta[:, col] == 1)[0].tolist()
+        neg = np.nonzero(meta[:, col] == 0)[0].tolist()
+        return pos, neg, meta.shape[0]
+
+    def __iter__(self):
+        pos = self._rng.permutation(self.positive_indices)
+        neg = self._rng.permutation(self.negative_indices)
+        return iter(np.concatenate([pos, neg]).astype(np.int64).tolist())
+
+    def __len__(self) -> int:
+        return self.length
 
 
 class DataLoader:
@@ -184,9 +231,10 @@ def sisr_data_setup(data_cfg, scale: int = 4, batch_size: int = 8,
         ds = datasets[0] if len(datasets) == 1 else ConcatDataset(datasets)
         sampler = None
         if is_train and sampler_attributes is not None:
-            raise NotImplementedError(
-                "custom samplers (CelebaSplitSampler) are not ported yet: "
-                "they come with the metadata slice")
+            attrs = dict(sampler_attributes)
+            if attrs.pop("name", "").lower() != "celebasplitsampler":
+                raise RuntimeError("Selected data sampler not recognized.")
+            sampler = CelebaSplitSampler(ds, seed=seed, **attrs)
         return DataLoader(
             ds, batch_size=batch_size if is_train else eval_batch_size,
             # drop_last defaults to True for training, as in the JAX

@@ -8,7 +8,12 @@ columns (JSON) expand into repeated keys, numeric columns normalize to
 the ``N-`` degradation-position prefix stripped on request. A column is
 numeric, as pandas infers it, when every cell parses as a number (an
 empty cell is NaN) or every cell is ``True``/``False``.
-CelebA attributes come with ROADMAP queue 1 item 8.
+
+``read_celeba_attributes`` reads CelebA's ``list_attr_celeba.txt`` layout
+(a count line, a line of attribute names, then one whitespace-separated
+row an image whose first field, the image name, is one field more than
+the names) with the stdlib, as ``pd.read_csv(..., skiprows=1,
+sep=r"\\s+")`` reads it.
 """
 
 from __future__ import annotations
@@ -101,6 +106,65 @@ def read_augmentation_list(metadata_file: Optional[str], filenames: Sequence[str
         out = {im: v for im, v in out.items()
                if qpi_selection[0] <= v[pos] <= qpi_selection[-1]}
     return out, keys
+
+
+def _read_attribute_table(path: str) -> Tuple[List[str], Dict[str, List[int]]]:
+    """(attribute names, {image name: its row of -1/1 values}) of a
+    ``list_attr_celeba.txt`` file; a repeated image name keeps its last
+    row."""
+    with open(path) as fh:
+        fh.readline()  # the image count
+        names = fh.readline().split()
+        rows: Dict[str, List[int]] = {}
+        for line in fh:
+            fields = line.split()
+            if not fields:
+                continue
+            if len(fields) != len(names) + 1:
+                raise ValueError(f"{path}: a row of {len(fields)} fields under "
+                                 f"{len(names)} attribute names")
+            rows[fields[0]] = [int(v) for v in fields[1:]]
+    return names, rows
+
+
+def read_celeba_attributes(attributes_loc: str, image_dict: Dict[str, np.ndarray],
+                           selected_metadata="all", attribute_amplification=None
+                           ) -> Tuple[Dict[str, np.ndarray], List[str]]:
+    """Merge CelebA facial attributes into an image metadata dict: the
+    table's -1/1 values become 0/1 (or -2/2 with
+    ``attribute_amplification``), restricted to ``selected_metadata`` in its
+    order unless it is ``"all"`` (``Young`` answers to ``age`` and ``Male``
+    to ``gender`` when those are selected), and prepended to each image's
+    vector. An image is looked up by its CelebA stem: ``NNNNNN.jpg`` of
+    ``NNNNNN_anything.ext``. Returns ({image: float32 vector}, attribute
+    keys)."""
+    names, rows = _read_attribute_table(attributes_loc)
+    if attribute_amplification is not None:
+        def level(v):
+            return -2.0 if v < 0 else (2.0 if v > 0 else 0.0)
+    else:
+        def level(v):
+            return 0.0 if v < 0 else float(v)
+    columns = list(range(len(names)))
+    if selected_metadata != "all":
+        aliases = {}
+        if "age" in selected_metadata:
+            aliases["Young"] = "age"
+        if "gender" in selected_metadata:
+            aliases["Male"] = "gender"
+        names = [aliases.get(n, n) for n in names]
+        missing = [k for k in selected_metadata if k not in names]
+        if missing:
+            raise KeyError(f"{missing} not among the attributes of {attributes_loc}")
+        columns = [names.index(k) for k in selected_metadata]
+        names = list(selected_metadata)
+    out = {}
+    for key in sorted(image_dict):
+        stem = key.split("_")[0].split(".")[0] + ".jpg"
+        row = rows[stem]
+        added = np.asarray([level(row[j]) for j in columns], np.float32)
+        out[key] = np.concatenate([added, image_dict[key]])
+    return out, names
 
 
 def select_metadata(vector: np.ndarray, keys: Sequence[str],

@@ -385,15 +385,17 @@ class BaseHandler:
             group["lr"] = lr
         hooked = type(self).transform_updates is not BaseHandler.transform_updates
         if hooked:
-            before = {k: p.detach().clone() for k, p in named.items()}
+            # multi-tensor ops: a few launches for all parameters, not four
+            # a parameter (x * 1 keeps every value's bits, -0.0 included)
+            params = [p.detach() for p in named.values()]
+            before = torch._foreach_mul(params, 1.0)
         opt.step()
         if hooked:
             with torch.no_grad():
                 updates = self.transform_updates(
-                    {k: p.detach() - before[k] for k, p in named.items()},
-                    state, batch)
-                for k, p in named.items():
-                    p.copy_(before[k] + updates[k])
+                    dict(zip(named, torch._foreach_sub(params, before))), state, batch)
+                torch._foreach_add_(before, [updates[k] for k in named])
+                torch._foreach_copy_(params, before)
         return {k: v.detach() for k, v in losses.items()}
 
     # -- eval --------------------------------------------------------------

@@ -59,17 +59,20 @@ class Conv(nn.Module):
     with a zero bias, as the JAX package's ``TConv`` does; ``init="he_normal"``
     draws N(0, 2 / fan_in) (the JAX package's ``HE_NORMAL_INIT``) and
     ``init="rrdb"`` N(0, 0.02 / fan_in), kaiming-normal x 0.1 (its
-    ``RRDB_KERNEL_INIT``)."""
+    ``RRDB_KERNEL_INIT``). ``reflect`` pads k // 2 by reflection instead of
+    zeros (an explicit reflect pad, then a 'VALID' conv)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, dtype: torch.dtype = torch.float32,
-                 stride: int = 1, flax_same: bool = False, init: str = "torch"):
+                 stride: int = 1, flax_same: bool = False, init: str = "torch",
+                 reflect: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         self.kernel_size = kernel_size
         self.flax_same = flax_same and stride > 1
-        self.padding = 0 if self.flax_same else kernel_size // 2
+        self.reflect = reflect
+        self.padding = 0 if (self.flax_same or reflect) else kernel_size // 2
         self.init_kind = init
         self.weight = nn.Parameter(torch.empty(features, in_features,
                                                kernel_size, kernel_size))
@@ -103,6 +106,8 @@ class Conv(nn.Module):
         w = self.weight if weight is None else weight
         x = x.to(self.dtype)
         padding = self.padding
+        if self.reflect and self.kernel_size > 1:
+            x = F.pad(x, [self.kernel_size // 2] * 4, mode="reflect")
         if self.flax_same:
             pads = self._same_pads(x.shape[2:])
             if pads[0] == pads[1] and pads[2] == pads[3]:  # symmetric: the conv pads
@@ -116,6 +121,49 @@ class Conv(nn.Module):
         package's 1x1 ``TConv`` on (N, 1, 1, in) maps."""
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(v.to(self.dtype), self.weight.flatten(1).to(self.dtype), b)
+
+
+class ConvTranspose(nn.Module):
+    """Transposed conv with flax's ``nn.ConvTranspose`` semantics (without
+    ``transpose_kernel``, padding 'SAME'): the input dilated by the stride,
+    padded k + s - 2 in all (k - 1 at the start where the stride exceeds
+    k - 1, else half of it rounded up), and correlated with the kernel as
+    flax stores it; ``size * stride`` outputs. ``F.conv_transpose2d``
+    correlates with the kernel flipped, so the weight here is flax's kernel
+    flipped in both spatial axes, in torch's (in, out, kh, kw) layout (the
+    weight bridge flips it). Torch's U(+-1/sqrt(in * k * k)) kernel init with
+    a zero bias, as the JAX package's ``TConvTranspose`` (fan-in over the
+    kernel's input axis)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int, stride: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = stride
+        total = kernel_size + stride - 2
+        start = kernel_size - 1 if stride > kernel_size - 1 else -(-total // 2)
+        # torch pads k - 1 - padding at both ends of the dilated input, and
+        # output_padding more at the end; a shorter end pad is a crop
+        self.padding = kernel_size - 1 - start
+        self.output_padding = max(total - 2 * start, 0)
+        self.crop = max(2 * start - total, 0)
+        self.weight = nn.Parameter(torch.empty(in_features, features, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[0] * self.weight[0, 0].numel())
+        self.weight.copy_(torch.empty(self.weight.shape).uniform_(
+            -bound, bound, generator=generator))
+        self.bias.zero_()
+
+    def forward(self, x):
+        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                               self.bias.to(self.dtype), stride=self.stride,
+                               padding=self.padding, output_padding=self.output_padding)
+        if self.crop:
+            y = y[:, :, :y.shape[2] - self.crop, :y.shape[3] - self.crop]
+        return y
 
 
 class Conv3d(nn.Module):

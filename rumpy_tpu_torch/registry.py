@@ -21,6 +21,7 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.contrastive",
     "rumpy_tpu_torch.models.dan",
     "rumpy_tpu_torch.models.dasr",
+    "rumpy_tpu_torch.models.face_models",
     "rumpy_tpu_torch.models.gan_models",
     "rumpy_tpu_torch.models.han_elan",
     "rumpy_tpu_torch.models.ikc",

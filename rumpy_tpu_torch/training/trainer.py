@@ -18,6 +18,13 @@ chunk of ``eval_batch_size``, Y-channel PSNR/SSIM on the device
 (``utils/metrics.py``) and one copy of a chunk's metrics to the host; the
 means go into summary.csv as ``val-<metric>``.
 
+``[data.multi_frame_config]`` trains on ``VideoSequenceImages``; its
+``use_masks`` sets the model's ``loss_masking``, as the JAX trainer does.
+Like the JAX trainer's, the train loop hands the step the batch's lr, hr,
+metadata and tags, and not its mask: a loss mask reaches the loss only
+from a caller that puts ``"mask"`` into the batch it hands the handler
+(``ROADMAP.md`` §3).
+
 Not ported yet, and raising ``NotImplementedError``: ``profile_steps`` and
 Aim logging.
 """
@@ -86,6 +93,13 @@ class TrainingHandler:
         self.batch_size = int(train_cfg.get("batch_size")
                               or data_cfg.get("batch_size") or 8)
         load_epoch = train_cfg.get("continue_from_epoch")
+
+        # multi_frame_config.use_masks turns on the model's loss masking
+        if (data_cfg.get("multi_frame_config") or {}).get("use_masks"):
+            model_cfg = dict(model_cfg)
+            internal = dict(model_cfg.get("internal_params") or {})
+            internal.setdefault("loss_masking", True)
+            model_cfg["internal_params"] = internal
 
         self.model = SISRInterface(
             model_loc=config.get("experiment_save_loc"),

@@ -21,13 +21,17 @@ names its own children (``flax_children``: DAN, DANv2, IKC, DASR, DCLS,
 HAN, QHAN, ELAN, QELAN, SAN, QSAN and their blocks; RRDBNet and QRRDBNet,
 the VGG-128 and U-Net SN discriminators and the GAN handlers'
 ``generator``/``discriminator`` pair; Metabed and its metadata layers; the
-VGG extractors' ``Conv_<i>``). A module with a
+VGG extractors' ``Conv_<i>``; SPARNet and QSPARNet, RCANSplitCeleb's
+``expert_a``/``expert_b`` and FaceGAN's pair). A module with a
 parameter of its own beside its children (``flax_leaves``: the scalar
 ``gamma`` of LAM, CSAM and SAN) maps it at its own path, or at a path of
 keys below it (a spectral-norm conv's ``u`` and ``sigma`` are the
 ``batch_stats`` leaves ``SpectralNorm_<i>/'TConv_<j>/kernel/u'``); SAN's shared
 non-local block is one flax submodule and one port module. A 3-D conv
-kernel (``Conv3d``, CSAM's) goes DHWIO -> OIDHW. Flax names a compact
+kernel (``Conv3d``, CSAM's) goes DHWIO -> OIDHW; a transposed conv's
+(``ConvTranspose``) is flipped in both spatial axes and goes HWIO -> (in,
+out, kh, kw); a PReLU's ``alpha`` is the flax leaf ``prelu`` or
+``preact_prelu`` at its owner's path. Flax names a compact
 module's children in the order they are constructed, and an outer conv
 is constructed before its inner one: an ``SFTLayer``'s ``TConv_0`` is
 its scale branch's second conv. Any unused or missing
@@ -49,13 +53,13 @@ from rumpy_tpu_torch.models.attention_manipulators import (QEDSR, QRCAB, QRCAN, 
                                                            ParaCALayer, ParamResBlock,
                                                            QCALayer, QResidualGroup, SFTLayer)
 from rumpy_tpu_torch.models.blind_sr import BlindSRPipeline, EncodingReducer
-from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Conv3d, Linear,
-                                           ResBlock, Upsampler)
+from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Conv3d,
+                                           ConvTranspose, Linear, ResBlock, Upsampler)
 from rumpy_tpu_torch.models.contrastive import DASREncoder
 from rumpy_tpu_torch.models.sftmd_variants import SFTMD, SFTResidualBlock, SftConvs
 
 Path = Tuple[str, ...]
-LEAF_TYPES = (Conv, Conv3d, Linear, BatchNorm)
+LEAF_TYPES = (Conv, Conv3d, ConvTranspose, Linear, BatchNorm)
 
 
 def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path, nn.Module]]:
@@ -189,6 +193,7 @@ def _convs(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path
 _LEAVES = {
     Conv: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     Conv3d: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    ConvTranspose: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     Linear: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     BatchNorm: {"scale": ("params", "scale"), "bias": ("params", "bias"),
                 "running_mean": ("batch_stats", "mean"),
@@ -214,6 +219,8 @@ def _to_port(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
         return arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if name == "weight" and isinstance(module, Conv3d):
         return arr.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
+    if name == "weight" and isinstance(module, ConvTranspose):
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO flipped -> (in, out, kh, kw)
     if name == "weight" and isinstance(module, Linear):
         return arr.T  # (in, out) -> (out, in)
     return arr
@@ -224,6 +231,8 @@ def _to_flax(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
         return arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
     if name == "weight" and isinstance(module, Conv3d):
         return arr.transpose(2, 3, 4, 1, 0)  # OIDHW -> DHWIO
+    if name == "weight" and isinstance(module, ConvTranspose):
+        return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
     if name == "weight" and isinstance(module, Linear):
         return arr.T
     return arr

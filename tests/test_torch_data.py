@@ -187,6 +187,45 @@ def test_data_setup_matches_jax(pairs):
     assert len(ttrain) == 3
 
 
+CELEBA_NAMES = [f"Attr_{i}" for i in range(38)] + ["Male", "Young"]
+
+
+@pytest.fixture(scope="module")
+def face_files(pairs, tmp_path_factory):
+    """Beside the pairs: a CelebA-format attribute table for their stems, a
+    blacklist CSV, a patch-location CSV (tuple and plain-name indexes),
+    masks named as the HR images (one smaller than its target), a
+    ``uvtex_mask.png`` next to the HR images (in a copy of the HR folder)
+    and a degradation-metadata CSV."""
+    root = tmp_path_factory.mktemp("face_files")
+    rng = np.random.default_rng(5)
+    names = sorted(os.listdir(pairs["png_lr"]))
+    rows = "".join(f"{os.path.splitext(n)[0]}.jpg " + " ".join(
+        str(v) for v in rng.choice([-1, 1], len(CELEBA_NAMES))) + "\n" for n in names)
+    (root / "attrs.txt").write_text(f"{len(names)}\n" + " ".join(CELEBA_NAMES) + "\n" + rows)
+    (root / "blacklist.csv").write_text("Images,reason\n" + f"{names[1]},blur\n{names[4]},x\n")
+    (root / "patches.csv").write_text(
+        ",high_entropy_patches_left_corner\n"
+        f"\"('{names[0]}', 0)\",\"[(3, 5), (10, 2)]\"\n{names[2]},\"[(20, 30)]\"\n")
+    masks = root / "masks"
+    hr_copy = root / "hr"
+    shutil.copytree(pairs["png_hr"], hr_copy)
+    os.makedirs(masks)
+    for k, n in enumerate(names):
+        shape = (60, 90) if k == 3 else (40 * SCALE + 2, 56 * SCALE + 2)
+        m = (rng.random(shape + (3,)) > 0.3).astype(np.uint8) * 255
+        Image.fromarray(m).save(masks / n)
+    Image.fromarray((rng.random((40 * SCALE, 56 * SCALE, 3)) > 0.5).astype(np.uint8) * 255
+                    ).save(hr_copy / "uvtex_mask.png")
+    lr = root / "lr"
+    shutil.copytree(pairs["png_lr"], lr)
+    (lr / "degradation_metadata.csv").write_text("image,QPI,0-blur-sigma\n" + "".join(
+        f"{n},{20 + 3 * i},{0.5 * i}\n" for i, n in enumerate(names)))
+    return {"attrs.csv": str(root / "attrs.txt"), "blacklist.csv": str(root / "blacklist.csv"),
+            "patches.csv": str(root / "patches.csv"), "masks": str(masks),
+            "hr_with_uvtex": str(hr_copy), "lr_with_csv": str(lr)}
+
+
 @pytest.mark.parametrize("kw", [
     dict(online_degradations=True, mask_data="masks"),
     dict(input="interp", attributes_loc="attrs.csv"),
@@ -195,10 +234,33 @@ def test_data_setup_matches_jax(pairs):
     dict(attributes_loc="attrs.csv"), dict(blacklist="blacklist.csv"),
     dict(predefined_patch_location="patches.csv"), dict(mask_data="masks"),
     dict(custom_mask_name="uvtex_mask.png")])
-def test_options_of_later_slices_raise(pairs, kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdata.SuperResImages(lr_dir=pairs["png_lr"], hr_dir=pairs["png_hr"],
-                             device="cpu", **kw)
+def test_options_of_the_face_slice_match_jax(pairs, face_files, kw):
+    """The options the face slice ported (they raised until then), each on
+    crops of 8 with augmentations (colour distortion stays off: its draws
+    differ by design), give the same items in both packages: listing,
+    crops, augment draws, masks, metadata vectors and keys."""
+    kw = {k: face_files.get(v, v) if isinstance(v, str) else v for k, v in kw.items()}
+    lr_dir, hr_dir = pairs["png_lr"], pairs["png_hr"]
+    if "metadata_file" in kw:
+        lr_dir = face_files["lr_with_csv"]
+        kw["metadata_file"] = "on_site"
+    if "custom_mask_name" in kw:
+        hr_dir = face_files["hr_with_uvtex"]
+    kw = dict(dict(crop=8, augmentations="use_random_colour_distort" not in kw, seed=3), **kw)
+    jds = jdata.SuperResImages(lr_dir=lr_dir, hr_dir=hr_dir, scale=SCALE, **kw)
+    tds = tdata.SuperResImages(lr_dir=lr_dir, hr_dir=hr_dir, scale=SCALE, device="cpu", **kw)
+    assert len(jds) == len(tds) == (4 if "blacklist" in kw else 6)
+    assert list(jds.metadata_keys) == list(tds.metadata_keys)
+    for i in range(len(jds)):
+        a, b = jds[i], tds[i]
+        assert set(a) == set(b) and a["tag"] == b["tag"]
+        assert ("mask" in b) == (("mask_data" in kw or "custom_mask_name" in kw)
+                                 and not kw.get("online_degradations"))
+        for k in ("lr", "hr", "mask", "metadata"):
+            if k in a:
+                assert np.asarray(a[k]).dtype == b[k].dtype
+                np.testing.assert_array_equal(np.asarray(a[k]), b[k])
+        assert list(a["metadata_keys"]) == list(b["metadata_keys"])
 
 
 def test_on_site_metadata_resolves_to_the_lr_folders_csv(pairs, tmp_path):
@@ -246,15 +308,8 @@ def test_entropy_positions_once_per_item(pairs, monkeypatch):
 
 
 def test_video_sampler_and_bad_files_raise(pairs, tmp_path):
-    with pytest.raises(NotImplementedError, match="VideoSequenceImages"):
-        tdata.VideoSequenceImages(lr_dir=pairs["png_lr"])
-    cfg = {"training_sets": {"d": {"lr_dir": pairs["png_lr"]}}}
-    with pytest.raises(NotImplementedError, match="sampler"):
-        tloader.sisr_data_setup(cfg, sampler_attributes={"name": "celebasplitsampler"},
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="VideoSequenceImages"):
-        tloader.sisr_data_setup(dict(cfg, multi_frame_config={"num_frames": 3}),
-                                device="cpu")
+    """A set with neither folder, and a .npy file that is no uint8 RGB
+    image, raise."""
     with pytest.raises(ValueError, match="lr_dir or hr_dir"):
         tdata.SuperResImages(device="cpu")
     np.save(tmp_path / "grey.npy", np.zeros((4, 4), np.uint8))

@@ -458,11 +458,19 @@ GAN_MODELS = {"esrgan": dict(nf=8, nb=1, gc=4, d_nf=4), "bsrgan": dict(nf=8, nb=
                                        init_ker_map=(0.0,) * 10),
               "contrastiveblindqrealesrgan": dict(nf=8, nb=1, gc=4, block_encoder_loading=True),
               "contrastiveblindmetabed": dict(num_features=8, block_encoder_loading=True)}
-# every name the port registers that builds: 36 of the JAX package's 59
+FACE_MODULES = ("models/face_models.py", "data/datasets.py", "data/loader.py",
+                "data/metadata.py", "training/trainer.py")
+# tiny widths for the build checks
+FACE_MODELS = {"sparnet": dict(min_ch=8, max_ch=16, in_size=32, out_size=32, res_depth=1),
+               "qsparnet": dict(metadata=["all"], min_ch=8, max_ch=16, in_size=32, out_size=32,
+                                res_depth=1),
+               "rcansplitceleb": dict(n_feats=16, n_resgroups=1, n_resblocks=1, reduction=4),
+               "facegan": dict(latent_dim=8, nf=8)}
+# every name the port registers that builds: 40 of the JAX package's 59
 BUILDING_MODELS = ("edsr", "rcan", "qrcan", "qedsr", "contrastiveblindqrcan",
                    "contrastiveblindqedsr", "srmd", "edsrmd", "sftmd", "moco", "supmoco",
                    "weakcon", "supcon", "degradationregressor", "dan", "ikc", "dasr",
-                   "dcls") + tuple(GENERATOR_MODELS) + tuple(GAN_MODELS)
+                   "dcls") + tuple(GENERATOR_MODELS) + tuple(GAN_MODELS) + tuple(FACE_MODELS)
 
 
 def _builds_and_runs(name):
@@ -482,8 +490,9 @@ def _builds_and_runs(name):
 def test_port_covers_the_bobw_generator_families():
     """The HAN, ELAN, SAN and GAN-group modules are in the package (so the
     import scans above read them, neither jax nor rumpy_tpu among their
-    imports) and the registry finds 36 names that build; the three that
-    raised naming item 9 until gan_models and metabed came build and run."""
+    imports) and the registry finds 40 names that build (the face group's
+    four among them); the three that raised naming item 9 until gan_models
+    and metabed came build and run."""
     from rumpy_tpu_torch.registry import available_models
     names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
     missing = [m for m in GENERATOR_MODULES + GAN_MODULES if m not in names]
@@ -492,7 +501,7 @@ def test_port_covers_the_bobw_generator_families():
         bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
         assert not bad, (m, bad)
     registered = set(available_models())
-    assert len(BUILDING_MODELS) == 36 and registered == set(BUILDING_MODELS)
+    assert len(BUILDING_MODELS) == 40 and registered == set(BUILDING_MODELS)
     for name in ("contrastiveblindqrealesrgan", "contrastiveblindmetabed"):
         _builds_and_runs(name)
 
@@ -546,4 +555,76 @@ def test_chip_smoke_drives_the_gan_group_phases():
     assert called.index("realesrgan_train_phase") > called.index("bobw_qhan_phase")
     text = (ROOT / "chip_smoke.py").read_text()
     for phase in ("realesrgan_train", "bobw_qrealesrgan", "gan_family", "metabed"):
+        assert f'"phase": "{phase}"' in text, phase
+
+
+def test_port_covers_the_face_group():
+    """The face slice's modules are in the package and import neither jax,
+    rumpy_tpu, pandas nor PIL at module level (the CelebA, blacklist and
+    patch readers use the stdlib); the registry finds sparnet, qsparnet,
+    rcansplitceleb and facegan, and each builds and runs on the CPU."""
+    from rumpy_tpu_torch.registry import available_models, get_model
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    assert not [m for m in FACE_MODULES if m not in names]
+    for m in FACE_MODULES:
+        path = ROOT / "rumpy_tpu_torch" / m
+        bad = [mod for mod, _ in _imported_roots(path) if mod in FORBIDDEN + ("pandas",)]
+        top = [mod for node in ast.parse(path.read_text()).body
+               if isinstance(node, (ast.Import, ast.ImportFrom))
+               for mod, _ in _imported_roots_of(node)]
+        assert not bad and not {"PIL", "pandas"} & set(top), (m, bad, top)
+    assert set(FACE_MODELS) <= set(available_models())
+    for name, kw in FACE_MODELS.items():
+        handler = get_model(name)(device="cpu", **kw)
+        assert handler.module is not None
+
+
+def _imported_roots_of(node):
+    if isinstance(node, ast.Import):
+        return [(a.name.split(".")[0], node.lineno) for a in node.names]
+    return [((node.module or "").split(".")[0], node.lineno)] if node.level == 0 else []
+
+
+@pytest.mark.parametrize("name", list(FACE_MODELS))
+def test_face_models_raise_without_cuda(monkeypatch, name):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(name)(**FACE_MODELS[name])
+
+
+def test_rcansplitceleb_step_reads_nothing_back():
+    """RCANSplitCeleb's gate, losses and update hook stay on the device: no
+    call in them waits for the card, and neither does the base step's
+    update hook (chip_smoke.py runs its step under sync debug "error")."""
+    tree = ast.parse((ROOT / "rumpy_tpu_torch" / "models" / "face_models.py").read_text())
+    cls = next(n for n in tree.body
+               if isinstance(n, ast.ClassDef) and n.name == "RCANSplitCelebHandler")
+    fns = [n for n in cls.body if isinstance(n, ast.FunctionDef)]
+    assert {"_gate", "apply", "compute_losses", "transform_updates"} <= {f.name for f in fns}
+    base = ast.parse((ROOT / "rumpy_tpu_torch" / "models" / "base.py").read_text())
+    fns += [n for n in ast.walk(base) if isinstance(n, ast.FunctionDef) and n.name == "_optimize"]
+    bad = [f"{f.name}:{n.lineno} .{n.func.attr}()" for f in fns for n in ast.walk(f)
+           if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+           and n.func.attr in SYNCING_CALLS]
+    casts = [f"{f.name}:{n.lineno} {n.func.id}()" for f in fns for n in ast.walk(f)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+             and n.func.id in ("float", "bool") and f.name != "_optimize"]
+    assert not bad and not casts, bad + casts
+
+
+def test_chip_smoke_drives_the_face_phases():
+    """chip_smoke.py drives the face slice's four phases from main(), after
+    the earlier ones, and prints a row for each."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    called = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    for phase in ("face_data", "rcansplit_train", "sparnet_train", "facegan_train",
+                  "realesrgan_train", "han_train", "launch_coverage"):
+        assert f"{phase}_phase" in called, phase
+    assert called.index("face_data_phase") > called.index("metabed_phase")
+    assert called.index("launch_coverage_phase") > called.index("rcansplit_train_phase")
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in ("face_data", "rcansplit_train", "sparnet_train", "facegan_train"):
         assert f'"phase": "{phase}"' in text, phase
