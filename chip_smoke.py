@@ -119,6 +119,23 @@ seeded random weights):
   cli.train_sisr), their BatchNorm statistics moving (``sparnet_train``);
   FaceGAN at its defaults through cli.train_sisr and steady steps, its
   images in [0, 1] (``facegan_train``);
+* the general-SR zoo's last models and the direct regressors (no RCAB
+  kernel: cuDNN convs and PyTorch ops; each phase fails on any RCAB
+  launch): the slice's main path, SwinIR-M x4 (embed 180, 6 RSTB x 6
+  blocks, 6 heads, window 8, pixelshuffle; bf16) through cli.train_sisr on
+  LR/HR pairs, validating each epoch, and cli.eval_sisr with PSNR, SSIM and
+  LPIPS from a seeded npz, steady steps, a DIV2K-sized forward's device ms,
+  peak memory and top kernels, LPIPS on the card against the CPU and one
+  step at SwinIR's defaults (``swinir_train``); SRCNN and VDSR at their
+  defaults on bicubic-upsampled Y input through both CLIs, VDSR's gradient
+  norm before its clip (``basic_train``); basicnn, resnet18, resnet50,
+  densenet, efficientnet and manet (kernel 21, x4, invariant kernel) at
+  their defaults on LR patches degraded on the card by bench.py's chain,
+  their predictions on the card against the CPU, and resnet18 through
+  cli.train_sisr with ``data.task_type = "regression"`` and a contrastive
+  evaluation (``regressor_train``); each with step ms, busy ms, idle share,
+  kernels, peak memory, a fixed batch's loss before and after and one step
+  under sync debug "error";
 * every RCAB kernel launch of the run, recorded by shape, dtype, direction
   and which gate inputs are per image: each one that no phase held against
   the plain version is held after the paths, in the directions launched,
@@ -2322,6 +2339,8 @@ def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
             shared_out = rcab.rcab_fused(*shared_leaves)
             row["shared_form_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 shared_out, shared_leaves, dout, retain_graph=True), iters)
+        if dtype == torch.bfloat16:  # one 3x3 conv's weight and input gradients
+            row.update(library_conv_backward_ms(shape))
         del leaves, s_leaf, out, grads, ref_out, shared_out, shared_leaves
     row["bit_identical_runs"] = identical
     print(json.dumps(row), flush=True)
@@ -5143,6 +5162,464 @@ def facegan_train_phase(rcab, card):
     shutil.rmtree(root)
     return row
 
+# SwinIR-M, the classical x4 setting of Liang et al. 2021 (KAIR
+# options/swinir/train_swinir_sr_classical.json): embed 180, 6 RSTB x 6
+# blocks, 6 heads, window 8, mlp 2, pixelshuffle with 64 features
+SWINIR_FULL = dict(scale=4, embed_dim=180, depths=[6] * 6, num_heads=[6] * 6, window_size=8,
+                   mlp_ratio=2.0, upsampler="pixelshuffle", num_feat=64)
+SWINIR_EXP = "swinir_x4_classical"
+# LPIPS on the card against the CPU, relative to the distance: two float32
+# AlexNet passes (TF32 off) whose sums run in different orders
+LPIPS_REL = 1e-4
+# Regressor predictions on the card against the CPU for one batch, relative
+# to the largest prediction: float32 convs (TF32 off) summed in other orders
+# through up to 169 layers
+REGRESSOR_REL = 1e-3
+REGRESSORS = {  # label: (handler, options); the defaults, MANet at kernel 21, x4, invariant
+    "basicnn": ("basicnn", {}), "resnet18": ("resnet", dict(model_type="resnet18")),
+    "resnet50": ("resnet", dict(model_type="resnet50")), "densenet": ("densenet", {}),
+    "efficientnet": ("efficientnet", {}),
+    "manet": ("manet", dict(kernel_size=21, sr_scale=TRAIN_SCALE, invariant_kernel=True))}
+REGRESSION_VIEWS = 8  # LR patches cut from each training HR image
+
+
+def seeded_lpips_npz(path, seed):
+    """LPIPS weights in the npz layout the port reads (AlexNet's
+    ``Conv_<i>/kernel`` HWIO and ``Conv_<i>/bias``, positive ``lin<i>``
+    heads), He-scaled normal draws from a seed: pretrained weights stay
+    gated."""
+    from rumpy_tpu_torch.utils.lpips import ALEX_CFG
+    rng = np.random.default_rng(seed)
+    out, cin = {}, 3
+    for i, (f, k, _, _) in enumerate(ALEX_CFG):
+        out[f"Conv_{i}/kernel"] = (rng.standard_normal((k, k, cin, f), dtype=np.float32)
+                                   * np.float32(np.sqrt(2.0 / (k * k * cin))))
+        out[f"Conv_{i}/bias"] = np.zeros(f, np.float32)
+        cin = f
+    for i, (f, _, _, _) in enumerate(ALEX_CFG):
+        out[f"lin{i}"] = (0.1 * rng.random((f, 1))).astype(np.float32)
+    np.savez(path, **out)
+    return path
+
+
+def step_without_sync(handler, state, batch):
+    """One train step under sync debug mode "error": it raises if the step
+    waits for the card. Returns its losses as floats."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, losses = handler.train_batch(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return {k: float(v) for k, v in losses.items()}
+
+
+def no_rcab(name, *launch_dicts):
+    """Fails if any of the phase's counts shows an RCAB launch."""
+    for d in launch_dicts:
+        if any(d.values()):
+            raise AssertionError(f"{name} launched RCAB kernels: {d}")
+
+
+def swinir_train_phase(rcab, card):
+    """The slice's main path: SwinIR-M x4 (embed 180, 6 RSTB x 6 blocks, 6
+    heads, window 8, pixelshuffle; bf16) through cli.train_sisr on LR/HR
+    pairs (batch 16, crop 48, 2 epochs of 2 steps, validating each epoch on
+    the 9 eval pairs), cli.eval_sisr on the run with -m PSNR SSIM LPIPS and
+    a seeded LPIPS npz; steady steps on a fixed batch and one under sync
+    debug "error"; a DIV2K-sized forward's device ms, peak memory and top
+    kernels; LPIPS's device ms on a DIV2K-sized pair and its values on the
+    card against the CPU; one step at the handler's defaults (embed 60,
+    4 x 6, float32). No RCAB kernel runs. Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+    from rumpy_tpu_torch.utils.lpips import LPIPS
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_swinir")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(160))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(161))
+    weights = seeded_lpips_npz(os.path.join(root, "lpips.npz"), 162)
+    internal = dict(SWINIR_FULL, dtype="bf16", lr=2e-4)
+    seed, exp_root = 8, os.path.join(root, "experiments")
+    cfg = {"experiment": SWINIR_EXP, "experiment_save_loc": exp_root,
+           "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "augmentations": True,
+                    "dataloader_threads": 4,
+                    "training_sets": {f"data_{i}": {"lr_dir": lr_dir, "hr_dir": hr_dir}
+                                      for i in range(TRAIN_SETS)},
+                    "eval_sets": {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr}}},
+           "model": {"name": "swinir", "internal_params": internal},
+           "training": {"num_epochs": TRAIN_EPOCHS, "batch_size": TRAIN_BATCH, "seed": seed}}
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    steps = TRAIN_EPOCHS * (TRAIN_IMAGES * TRAIN_SETS // TRAIN_BATCH)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_run = torch.cuda.max_memory_allocated()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    val = {k: [stats[e].get(k) for e in sorted(stats)] for k in ("val-PSNR", "val-SSIM")}
+    no_rcab("the SwinIR run", launches)
+    if (len(losses) != TRAIN_EPOCHS or len(forwards) != 2 * VALIDATION_FORWARDS
+            or not np.isfinite(losses + val["val-PSNR"] + val["val-SSIM"]).all()):
+        raise AssertionError(f"SwinIR run: losses {losses}, validation {val}, "
+                             f"{len(forwards)} validation forwards")
+
+    out = os.path.join(root, "eval")
+    images = len(EVAL_LR_SHAPES)
+    rcab.launches = 0
+    with watched(SISRInterface, "net_run") as eval_forwards:
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        eval_lr, "--hr_dir", eval_hr, "-m", "PSNR", "-m", "SSIM", "-m", "LPIPS",
+                        "--lpips_weights", weights, "-me", SWINIR_EXP, "best", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+    eval_launches = rcab.launches
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    want_cols = {(m, k) for m in ("bicubic", SWINIR_EXP) for k in ("PSNR", "SSIM", "LPIPS")}
+    if (len(values) != images or not want_cols <= set(columns) or eval_launches
+            or not np.isfinite(list(values.values())).all() or len(eval_forwards) != images):
+        raise AssertionError(f"eval_sisr of the SwinIR run: columns {columns}, {len(values)} "
+                             f"rows, {len(eval_forwards)} forwards, {eval_launches} launches")
+    mean = dict(zip([f"{m}>{k}" for m, k in columns],
+                    np.mean(list(values.values()), axis=0).tolist()))
+
+    handler = get_model("swinir")(device="cuda", seed=seed, **internal)
+    state = handler.init_state()
+    fixed = fixed_pair_batch(lr_dir, hr_dir, TRAIN_BATCH)
+    steps_row = phase_step_row(rcab, handler, state, fixed, "swinir x4 180 6x6 bf16",
+                               pair_loss(handler, fixed))
+    unsynced = step_without_sync(handler, state, fixed)
+    no_rcab("a SwinIR step", steps_row["launches_a_step"])
+    x = torch.from_numpy(np.load(os.path.join(eval_lr, sorted(os.listdir(eval_lr))[0]))
+                         .astype(np.float32) / 255.0)[None].cuda()
+    if tuple(x.shape[1:3]) != DIV2K_LR:
+        raise AssertionError(f"the first eval image is {tuple(x.shape)}")
+    forward = lambda: handler.run_eval(state, {"lr": x})
+    forward()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forward_ms = cuda_ms(forward, 2, warmup=1, backlog_s=0)
+    peak_forward = torch.cuda.max_memory_allocated()
+    trace = traced(forward, "swinir_div2k_forward_trace", 1, by_kernel=True)
+    top = sorted(trace["per_call_device_us_by_kernel"].items(), key=lambda kv: -kv[1])[:10]
+    n_params = sum(p.numel() for p in handler.module.parameters())
+    del handler, state
+    torch.cuda.empty_cache()
+
+    # LPIPS: one DIV2K-sized pair's device ms, and the Set5-sized HR images
+    # against their nearest x4 spread of the LR, card against CPU
+    names = sorted(os.listdir(eval_hr))
+    hr_imgs = [np.load(os.path.join(eval_hr, n)).astype(np.float32) / 255.0 for n in names]
+    lr_imgs = [np.load(os.path.join(eval_lr, n)).astype(np.float32) / 255.0 for n in names]
+    lp_card, lp_cpu = LPIPS(weights), LPIPS(weights, device="cpu")
+    a = torch.from_numpy(hr_imgs[0])[None].cuda()
+    b = torch.from_numpy(lr_imgs[0].repeat(TRAIN_SCALE, 0).repeat(TRAIN_SCALE, 1))[None].cuda()
+    lpips_ms = cuda_ms(lambda: lp_card(a, b), 3, warmup=1)
+    card_vals, cpu_vals = [], []
+    for hr_img, lr_img in list(zip(hr_imgs, lr_imgs))[EVAL_DIV2K:]:
+        near = lr_img.repeat(TRAIN_SCALE, 0).repeat(TRAIN_SCALE, 1)
+        pair = (torch.from_numpy(hr_img)[None], torch.from_numpy(near)[None])
+        card_vals.append(float(lp_card(*(t.cuda() for t in pair))[0]))
+        cpu_vals.append(float(lp_cpu(*pair)[0]))
+    lpips_rel = max(abs(c - p) / abs(p) for c, p in zip(card_vals, cpu_vals))
+
+    defaults = get_model("swinir")(device="cuda", seed=seed)
+    d_state = defaults.init_state()
+    default_row = step_row(rcab, defaults, d_state, fixed, "swinir x4 defaults 60 4x6 f32",
+                           steps=1)
+    no_rcab("a SwinIR step at the defaults", default_row["launches_a_step"])
+    del defaults, d_state
+    torch.cuda.empty_cache()
+
+    row = {"phase": "swinir_train", "model": "swinir x4 embed 180, 6 RSTB x 6, heads 6, "
+           "window 8, pixelshuffle 64, bf16", "card": card, "parameters": n_params,
+           "steps": steps, "batch": TRAIN_BATCH, "crop": TRAIN_CROP, "launches": launches,
+           "epoch_train_loss": losses, **val, "run_experiment_s": seconds,
+           "peak_memory_bytes_run": peak_run, "eval_sisr_s": cli_seconds,
+           "eval_images_per_s": images / cli_seconds, "eval_mean": mean,
+           "eval_rcab_launches": eval_launches, "fixed_batch": steps_row,
+           "step_under_sync_debug_error": unsynced,
+           "div2k_lr": DIV2K_LR, "div2k_padded_to": (344, 512),
+           "forward_div2k_ms": forward_ms, "forward_div2k_busy_ms": trace["busy_us"] / 1e3,
+           "forward_div2k_kernels": trace["kernels_per_call"],
+           "forward_div2k_peak_memory_bytes": peak_forward,
+           "forward_div2k_top_kernels_us": dict(top),
+           "lpips_div2k_pair_ms": lpips_ms, "lpips_card": card_vals, "lpips_cpu": cpu_vals,
+           "lpips_card_vs_cpu_rel": lpips_rel, "defaults_step": default_row}
+    print(json.dumps(row), flush=True)
+    if (lpips_rel > LPIPS_REL or not steps_row["loss_lower_after_steps"]
+            or not np.isfinite(list(unsynced.values())).all()):
+        raise AssertionError(f"SwinIR: LPIPS card against CPU {lpips_rel}, fixed-batch loss "
+                             f"{steps_row['fixed_batch_loss']}, unsynced step {unsynced}")
+    shutil.rmtree(root)
+    return row
+
+
+def interp_y_batch(lr_dir, hr_dir, batch):
+    """SRCNN's and VDSR's input: centre crops of TRAIN_CROP LR pixels
+    upsampled x4 by bicubic and the matching HR crops, both as the Y channel
+    (jpg-mode BT.601), on the card."""
+    import torch.nn.functional as F
+    from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
+    pair = fixed_pair_batch(lr_dir, hr_dir, batch)
+    up = F.interpolate(pair["lr"].permute(0, 3, 1, 2), scale_factor=TRAIN_SCALE,
+                       mode="bicubic", align_corners=False).clamp(0, 1).permute(0, 2, 3, 1)
+    return {"lr": rgb_to_ycbcr(up.contiguous(), y_only=True, im_type="jpg"),
+            "hr": rgb_to_ycbcr(pair["hr"], y_only=True, im_type="jpg")}
+
+
+def basic_train_phase(rcab, card):
+    """SRCNN (9-5-5, 64 and 32 features) and VDSR (20 3 x 3 convs of 64, the
+    global residual, the gradient clip at 0.1) at their defaults, float32,
+    through cli.train_sisr on LR/HR pairs (the data layer upsamples each LR
+    crop x4 by bicubic and takes the Y channel; batch 16, LR crop 48, one
+    epoch of 2 steps, validating on the 9 eval pairs) and cli.eval_sisr;
+    steady steps on a fixed Y batch, one under sync debug "error", and in
+    each of VDSR's steps the global gradient norm before and after its clip
+    (the clip runs in every VDSR step and none of SRCNN's). No RCAB kernel
+    runs.
+    Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.models import base
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_basic")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lr_dir, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(170))
+    eval_lr, eval_hr = write_eval_pairs(os.path.join(root, "eval_data"),
+                                        np.random.default_rng(171))
+    fixed = interp_y_batch(lr_dir, hr_dir, TRAIN_BATCH)
+    images = len(EVAL_LR_SHAPES)
+    rows = {}
+    for name in ("srcnn", "vdsr"):
+        exp_root = os.path.join(root, f"{name}_experiments")
+        cfg = {"experiment": f"{name}_x4", "experiment_save_loc": exp_root,
+               "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "augmentations": True,
+                        "dataloader_threads": 4,
+                        "training_sets": {f"data_{i}": {"lr_dir": lr_dir, "hr_dir": hr_dir}
+                                          for i in range(4)},
+                        "eval_sets": {"data_1": {"lr_dir": eval_lr, "hr_dir": eval_hr}}},
+               "model": {"name": name, "internal_params": {"lr": 1e-4}},
+               "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": 9}}
+        cfg_path = os.path.join(root, f"{name}.toml")
+        dump_toml(cfg, cfg_path)
+        rcab.launches = rcab.backward_launches = 0
+        t0 = time.perf_counter()
+        with watched(SISRInterface, "net_run") as forwards:
+            stats = train_sisr.main(["-p", cfg_path])
+        seconds = time.perf_counter() - t0
+        launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+        out = os.path.join(root, f"{name}_eval")
+        t0 = time.perf_counter()
+        eval_sisr.main(["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "--lr_dir",
+                        eval_lr, "--hr_dir", eval_hr, "-m", "PSNR", "-m", "SSIM",
+                        "-me", f"{name}_x4", "last", "--out_loc", out])
+        cli_seconds = time.perf_counter() - t0
+        columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+        no_rcab(f"the {name} runs", launches, {"eval": rcab.launches})
+        if (len(values) != images or (f"{name}_x4", "PSNR") not in columns
+                or len(forwards) != VALIDATION_FORWARDS
+                or not np.isfinite(sum(values.values(), [stats[0]["train-loss"],
+                                                         stats[0]["val-PSNR"]])).all()):
+            raise AssertionError(f"{name} through the CLIs: stats {stats}, columns {columns}, "
+                                 f"{len(values)} rows, {len(forwards)} validation forwards")
+
+        handler = get_model(name)(device="cuda", seed=9, lr=1e-4, scale=TRAIN_SCALE)
+        state = handler.init_state()
+        # each step's global gradient norm before and after the clip
+        # (VDSR's 0.1; SRCNN has none)
+        norms, clip = [], base.clip_by_global_norm
+
+        def clip_recorded(grads, max_norm):
+            grads = list(grads)
+            before = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            clip(grads, max_norm)
+            norms.append((before, torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))))
+
+        base.clip_by_global_norm = clip_recorded
+        try:
+            steps_row = phase_step_row(rcab, handler, state, fixed, f"{name} x4 defaults f32",
+                                       pair_loss(handler, fixed))
+            unsynced = step_without_sync(handler, state, fixed)
+        finally:
+            base.clip_by_global_norm = clip
+        no_rcab(f"a {name} step", steps_row["launches_a_step"])
+        norms = [(float(b), float(a)) for b, a in norms]
+        rows[name] = {"run_experiment_s": seconds, "epoch_train_loss": stats[0]["train-loss"],
+                      "val_psnr": stats[0]["val-PSNR"], "eval_sisr_s": cli_seconds,
+                      "eval_images_per_s": images / cli_seconds,
+                      "eval_mean": dict(zip([f"{m}>{k}" for m, k in columns],
+                                            np.mean(list(values.values()), axis=0).tolist())),
+                      "fixed_batch": steps_row, "step_under_sync_debug_error": unsynced,
+                      "clip_steps": len(norms), "grad_norm_before_after_clip": norms[:3],
+                      "parameters": sum(p.numel() for p in handler.module.parameters())}
+        if (name == "vdsr") != bool(norms) or any(
+                abs(a - min(b, 0.1)) > 1e-6 * max(b, 1e-3) for b, a in norms):
+            raise AssertionError(f"{name}: gradient norms before and after the clip {norms}")
+        del handler, state
+        torch.cuda.empty_cache()
+    row = {"phase": "basic_train", "card": card, "batch": TRAIN_BATCH,
+           "input": f"bicubic x4 of LR {TRAIN_CROP}, Y channel", **rows}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
+def write_regression_set(root, hr_dir, card_seed):
+    """LR patches for the regressors: REGRESSION_VIEWS crops of
+    TRAIN_CROP * 4 HR pixels an image, degraded in one pass on the card by
+    bench.py's chain (its blur also giving the full 21 x 21 kernels) and
+    saved as uint8 .npy files, with degradation_metadata.csv (image, then
+    the chain's scalar keys, sorted). Returns (lr_dir, the patches, the
+    metadata matrix and the kernels, on the card)."""
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    table = json.loads(json.dumps(BENCH_CHAIN))
+    table["deg_configs"]["b"]["request_full_kernels"] = True
+    pipe = ImagePipeline(table["pipeline"], deg_configs=table["deg_configs"], scale=TRAIN_SCALE)
+    side = TRAIN_CROP * TRAIN_SCALE
+    rng = np.random.default_rng(card_seed)
+    crops, names = [], []
+    for name in sorted(os.listdir(hr_dir)):
+        hr = np.load(os.path.join(hr_dir, name))
+        for v in range(REGRESSION_VIEWS):
+            top = int(rng.integers(0, hr.shape[0] - side))
+            left = int(rng.integers(0, hr.shape[1] - side))
+            crops.append(hr[top:top + side, left:left + side])
+            names.append(f"{os.path.splitext(name)[0]}_{v}.npy")
+    hr_t = torch.from_numpy(np.stack(crops).astype(np.float32) / 255.0).cuda()
+    with torch.no_grad():
+        lr, meta = pipe.degrade_batch(card_generator(card_seed), hr_t)
+    lr_u8 = (lr.clamp(0, 1) * 255.0).round().to(torch.uint8)
+    kernel_key = next(k for k in meta if k.endswith("unmodified_blur_kernel"))
+    keys = sorted(k for k in meta if k != kernel_key)
+    lr_dir = os.path.join(root, "lr")
+    os.makedirs(lr_dir)
+    for name, img in zip(names, lr_u8.cpu().numpy()):
+        np.save(os.path.join(lr_dir, name), img)
+    cols = [meta[k].float().cpu().numpy() for k in keys]
+    with open(os.path.join(lr_dir, "degradation_metadata.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["image"] + keys)
+        for i, name in enumerate(names):
+            w.writerow([name] + [repr(float(c[i])) for c in cols])
+    matrix = torch.stack([meta[k].float() for k in keys], dim=1)
+    return lr_dir, lr_u8.float() / 255.0, matrix, meta[kernel_key].float()
+
+
+def regressor_loss(handler, batch):
+    """The handler's loss on ``batch`` in train mode (the batch's BatchNorm
+    statistics, as the step's loss; the running ones put back)."""
+    def loss(state):
+        with buffers_kept(handler.module):
+            pred = without_grad(lambda: handler.apply(state.params, batch, train=True)[0])
+        return float(handler.compute_losses(pred, batch, {})["train-loss"])
+    return loss
+
+
+def regressor_train_phase(rcab, card):
+    """The direct degradation regressors at their defaults, float32: basicnn,
+    resnet (resnet18 and resnet50), densenet (169), efficientnet (b3) and
+    manet (kernel 21, x4, invariant kernel), each with steady steps on a
+    fixed batch of LR patches (batch 16, 48 x 48) degraded on the card by
+    bench.py's chain, their targets the chain's 13 metadata values (MANet's
+    its 21 x 21 blur kernel), one step under sync debug "error", and its
+    predictions for 4 patches on the card against the CPU; then resnet18
+    through cli.train_sisr with data.task_type = "regression" on those
+    patches and their metadata CSV (one epoch of 4 steps and one
+    contrastive evaluation of its predictions). No RCAB kernel runs.
+    Returns the row."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_regressors")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _, hr_dir = write_pairs(os.path.join(root, "data"), np.random.default_rng(180))
+    lr_dir, patches, matrix, kernels = write_regression_set(root, hr_dir, 181)
+    outputs = matrix.shape[1]
+    rows = {}
+    for label, (name, kw) in REGRESSORS.items():
+        kw = dict(kw, output_size=outputs) if name != "manet" else kw
+        handler = get_model(name)(device="cuda", seed=10, lr=1e-4, **kw)
+        state = handler.init_state()
+        batch = {"lr": patches[:TRAIN_BATCH].contiguous(),
+                 "metadata": (kernels if name == "manet" else matrix)[:TRAIN_BATCH].contiguous()}
+        stats0 = running_stats(handler.module)
+        step = phase_step_row(rcab, handler, state, dict(batch, hr=batch["lr"]),
+                              f"{label} defaults f32", regressor_loss(handler, batch))
+        unsynced = step_without_sync(handler, state, batch)
+        stats1 = running_stats(handler.module)
+        moved = sum(not torch.equal(stats0[k], stats1[k]) for k in stats0)
+        no_rcab(f"a {label} step", step["launches_a_step"])
+        cpu = get_model(name)(device="cpu", **kw)
+        cpu.module.load_state_dict({k: v.cpu() for k, v in handler.module.state_dict().items()})
+        x = batch["lr"][:4]
+        on_card = handler.run_eval(state, {"lr": x}).float().cpu()
+        on_cpu = cpu.run_eval(cpu._own_state(), {"lr": x.cpu()}).float()
+        rel = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+        del step["hr_megapixels_per_s"]  # the step reads LR patches, no HR image
+        step["patches_per_s"] = TRAIN_BATCH / (step["step_ms"] / 1e3)
+        rows[label] = dict(step, step_under_sync_debug_error=unsynced,
+                           running_stats=len(stats0), running_stats_moved=moved,
+                           predictions_shape=list(on_card.shape),
+                           card_vs_cpu_rel=rel, predictions_card=on_card[0, :4].flatten()
+                           .tolist() if name != "manet" else None,
+                           parameters=sum(p.numel() for p in handler.module.parameters()))
+        if (rel > REGRESSOR_REL or moved != len(stats0)
+                or not np.isfinite(list(unsynced.values())).all()):
+            raise AssertionError(f"{label}: {rows[label]}")
+        del handler, state, cpu
+        torch.cuda.empty_cache()
+
+    csv_path = os.path.join(lr_dir, "degradation_metadata.csv")
+    exp_root = os.path.join(root, "experiments")
+    cfg = {"experiment": "resnet18_regression", "experiment_save_loc": exp_root,
+           "data": {"task_type": "regression", "scale": TRAIN_SCALE, "crop": TRAIN_CROP,
+                    "dataloader_threads": 4,
+                    "training_sets": {"data_1": {"lr_dir": lr_dir, "metadata_file": csv_path}},
+                    "eval_sets": {"data_1": {"lr_dir": lr_dir, "crop": TRAIN_CROP,
+                                             "metadata_file": csv_path}}},
+           "model": {"name": "resnet", "internal_params": {
+               "model_type": "resnet18", "output_size": outputs, "lr": 1e-4}},
+           "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": 10}}
+    cfg_path = os.path.join(root, "regression.toml")
+    dump_toml(cfg, cfg_path)
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    stats = train_sisr.main(["-p", cfg_path])
+    seconds = time.perf_counter() - t0
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    dump = np.load(os.path.join(exp_root, "resnet18_regression", "result_outputs",
+                                "encodings_epoch_0.npz"))
+    cli = {"run_experiment_s": seconds, **{k: v for k, v in stats[0].items() if k != "epoch"},
+           "embeddings": list(dump["embeddings"].shape), "launches": launches}
+    no_rcab("the regression route", launches)
+    if (dump["embeddings"].shape != (patches.shape[0], outputs)
+            or not np.isfinite(dump["embeddings"]).all()
+            or not np.isfinite(stats[0]["train-loss"])):
+        raise AssertionError(f"resnet18 through the regression route: {cli}")
+    row = {"phase": "regressor_train", "card": card, "batch": TRAIN_BATCH, "patch": TRAIN_CROP,
+           "targets": outputs, "chain": "bench.py:133-143", **rows, "resnet18_cli": cli}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5213,6 +5690,11 @@ def main() -> int:
     split = rcansplit_train_phase(rcab, card)
     sparnet_train_phase(rcab, card)
     facegan_train_phase(rcab, card)
+    # slice 16: SwinIR (the main path), SRCNN/VDSR and the regressors launch
+    # no RCAB kernel: each phase fails on any
+    swinir = swinir_train_phase(rcab, card)
+    basic = basic_train_phase(rcab, card)
+    regressors = regressor_train_phase(rcab, card)
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],
@@ -5223,6 +5705,13 @@ def main() -> int:
                               for n, rows in gan_family["steps"].items()},
         "metabed_a_step": {n: {"rcab_fused": 0, "rcab_fused_backward": 0}
                            for n in metabed["meta_types"]}}
+    slice16_launches = {
+        "swinir_training_path": swinir["launches"],
+        "swinir_eval_path": swinir["eval_rcab_launches"],
+        "swinir_a_step": swinir["fixed_batch"]["launches_a_step"],
+        "basic_a_step": {n: basic[n]["fixed_batch"]["launches_a_step"] for n in ("srcnn", "vdsr")},
+        "regressors_a_step": {n: regressors[n]["launches_a_step"] for n in REGRESSORS},
+        "regression_route": regressors["resnet18_cli"]["launches"]}
     qrcab_rows += [r for r in launch_coverage_phase(rcab) if r["per_image"]]
     per_image = [{k: r[k] for k in (
         "shape", "dtype", "per_image", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",
@@ -5276,6 +5765,7 @@ def main() -> int:
         "launches_rcansplit_validation": split["launches"]["rcab_fused_validation"],
         "launches_rcansplit_eval_path": split["eval_rcab_launches"],
         "launches_rcansplit_a_step": split["fixed_batch"]["launches_a_step"]["rcab_fused"],
+        "launches_slice16": slice16_launches,
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -5322,6 +5812,7 @@ def main() -> int:
         "launches_rcansplit_training_path": split["launches"]["rcab_fused_backward"],
         "launches_rcansplit_a_step":
             split["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
+        "launches_slice16": slice16_launches,
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

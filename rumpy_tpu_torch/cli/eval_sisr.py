@@ -17,9 +17,12 @@ Config schema:
 
 ``--metadata_file`` (or ``metadata_file`` in ``[data]``) gives the images
 their degradation metadata from a CSV (``on_site``: the LR folder's
-``degradation_metadata.csv``). Options of later slices raise
-``NotImplementedError``: ``--lpips_weights`` (ROADMAP queue 1 item 9),
-``--gallery`` and the ``--fr_*`` face-recognition options (item 10).
+``degradation_metadata.csv``). ``-m LPIPS`` scores LPIPS with the npz
+given by ``--lpips_weights`` (``utils/lpips.py::convert_torch_lpips``
+writes one; without it LPIPS raises ``NotImplementedError``, as in the JAX
+package). Options of later slices raise ``NotImplementedError``:
+``--gallery`` and the ``--fr_*`` face-recognition options (ROADMAP queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ from typing import Optional, Sequence
 from rumpy_tpu_torch.config.loader import load_config, merge_overrides
 
 # option -> ROADMAP queue 1 item that ports it
-_LATER = {"lpips_weights": "9", "gallery": "10",
-          "fr_gallery": "10", "fr_extractor": "10", "fr_extractor_weights": "10"}
+_LATER = {"gallery": "10", "fr_gallery": "10", "fr_extractor": "10",
+          "fr_extractor_weights": "10"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -59,7 +62,7 @@ def _parser() -> argparse.ArgumentParser:
                    metavar=("EXPERIMENT", "EPOCH"),
                    help="Model experiment + epoch (best|last|N); repeatable.")
     p.add_argument("--metrics", "-m", action="append", default=[],
-                   help="Metric to compute (PSNR, SSIM, face_PSNR, true_face_PSNR); "
+                   help="Metric to compute (PSNR, SSIM, LPIPS, face_PSNR, true_face_PSNR); "
                         "repeatable.")
     p.add_argument("--save_im", action=flag, default=None)
     p.add_argument("--gallery", action=flag, default=None,
@@ -67,7 +70,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no_image_comparison", action="store_true", default=None)
     p.add_argument("--lanczos_upsample", action="store_true", default=None)
     p.add_argument("--time_models", action=flag, default=None)
-    p.add_argument("--lpips_weights", default=None)
+    p.add_argument("--lpips_weights", default=None,
+                   help="LPIPS weights npz (utils/lpips.py::convert_torch_lpips).")
     p.add_argument("--fr_gallery", default=None)
     p.add_argument("--fr_extractor", default=None)
     p.add_argument("--fr_extractor_weights", default=None)
@@ -134,6 +138,7 @@ def main(argv: Optional[Sequence[str]] = None):
         lanczos_upsample=bool(cfg.get("lanczos_upsample")),
         time_models=bool(cfg.get("time_models")),
         no_image_comparison=bool(cfg.get("no_image_comparison")),
+        lpips_weights=cfg.get("lpips_weights"),
         pad_to_bucket=cfg.get("pad_to_bucket"),
         device=args.device)
     table = hub.full_image_protocol()

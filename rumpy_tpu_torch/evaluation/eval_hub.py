@@ -13,8 +13,9 @@ Port of ``rumpy_tpu/evaluation/eval_hub.py`` without pandas:
   Pillow's arithmetic bit for bit, with its ``runtime`` (on the card its
   device time by CUDA events);
 * scores PSNR/SSIM on the Y channel of jpg-mode BT.601 YCbCr of the
-  outputs clipped to [0, 1], on the device, one copy of an image's metrics
-  to the host;
+  outputs clipped to [0, 1], and LPIPS (``lpips_weights``: an npz) on the
+  RGB outputs against the RGB HR image, on the device, one copy of an
+  image's metrics to the host;
 * writes ``individual_metrics.csv`` (rows images, two header rows model
   and metric, then ``image``) and ``average_metrics.csv`` (one ``mean``
   row) with the ``csv`` module in the layout pandas gives the JAX package,
@@ -22,7 +23,8 @@ Port of ``rumpy_tpu/evaluation/eval_hub.py`` without pandas:
 
 Not ported yet, and raising ``NotImplementedError``: comparison collages
 (``gallery``) and face recognition (``FR_rank``, ``fr_gallery``: ROADMAP
-queue 1 item 10); LPIPS (item 9, raised by ``utils/metrics.py``).
+queue 1 item 10). LPIPS without weights raises ``NotImplementedError``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -263,7 +265,8 @@ class EvalHub:
             values = {}
             for name, img in outputs.items():
                 res = self.metric_hub.compute(self._y_channel(img)[None], hr_y[None],
-                                              max_value=1.0, probe_names=[stem])
+                                              max_value=1.0, probe_names=[stem],
+                                              rgb_a=img[None], rgb_ref=hr[None])
                 values.update({f"{name}>{m}": v for m, v in res.items()})
             rows[tag].update({k: v[0] for k, v in metrics_mod.fetch(values).items()})
             for ref_name, (_, seconds) in refs.items():

@@ -10,7 +10,7 @@ read directly. Parameters are float32; ``dtype`` is the activation type
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -60,21 +60,27 @@ class Conv(nn.Module):
     draws N(0, 2 / fan_in) (the JAX package's ``HE_NORMAL_INIT``) and
     ``init="rrdb"`` N(0, 0.02 / fan_in), kaiming-normal x 0.1 (its
     ``RRDB_KERNEL_INIT``). ``reflect`` pads k // 2 by reflection instead of
-    zeros (an explicit reflect pad, then a 'VALID' conv)."""
+    zeros (an explicit reflect pad, then a 'VALID' conv). ``padding`` pads
+    that many zeros on every side in place of k // 2 (0: flax's 'VALID').
+    ``groups`` splits the channels as flax's ``feature_group_count`` does
+    (weight (features, in_features // groups, k, k); flax's kernel is
+    (k, k, in_features // groups, features))."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, dtype: torch.dtype = torch.float32,
                  stride: int = 1, flax_same: bool = False, init: str = "torch",
-                 reflect: bool = False):
+                 reflect: bool = False, padding: Optional[int] = None, groups: int = 1):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         self.kernel_size = kernel_size
+        self.groups = groups
         self.flax_same = flax_same and stride > 1
         self.reflect = reflect
-        self.padding = 0 if (self.flax_same or reflect) else kernel_size // 2
+        self.padding = (0 if (self.flax_same or reflect) else
+                        kernel_size // 2 if padding is None else padding)
         self.init_kind = init
-        self.weight = nn.Parameter(torch.empty(features, in_features,
+        self.weight = nn.Parameter(torch.empty(features, in_features // groups,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
@@ -108,13 +114,20 @@ class Conv(nn.Module):
         padding = self.padding
         if self.reflect and self.kernel_size > 1:
             x = F.pad(x, [self.kernel_size // 2] * 4, mode="reflect")
-        if self.flax_same:
+        stride = self.stride
+        if self.kernel_size == 1 and stride > 1 and not padding:
+            # the conv of every stride-th pixel at stride 1: the same sums (torch
+            # 2.13's CPU backward of a strided 1 x 1 conv on a channels_last
+            # input of even size corrupts the heap)
+            x, stride = x[:, :, ::stride, ::stride], 1
+        elif self.flax_same:
             pads = self._same_pads(x.shape[2:])
             if pads[0] == pads[1] and pads[2] == pads[3]:  # symmetric: the conv pads
                 padding = (pads[2], pads[0])
             else:
                 x = F.pad(x, pads)
-        return F.conv2d(x, w.to(self.dtype), b, stride=self.stride, padding=padding)
+        return F.conv2d(x, w.to(self.dtype), b, stride=stride, padding=padding,
+                        groups=self.groups)
 
     def as_linear(self, v):
         """A 1x1 conv applied to (N, in) vectors: (N, features), as the JAX
@@ -206,23 +219,37 @@ class Gamma(nn.Module):
         self.gamma.zero_()
 
 
+# flax's truncated_normal: a standard normal cut at +-2, scaled so that the
+# cut distribution has the asked standard deviation
+_TRUNC_STD = 0.87962566103423978
+
+
 class Linear(nn.Module):
     """Dense layer: the JAX package's ``TDense`` (weight (out, in) here,
     its kernel (in, out)), torch's U(+-1/sqrt(fan_in)) kernel init and a
-    zero bias; products in ``dtype``."""
+    zero bias; products in ``dtype``. ``init="trunc_normal"`` draws flax's
+    ``truncated_normal(stddev=0.02)`` instead (the JAX package's
+    ``TRUNC_NORMAL_INIT``, SwinIR's ``SDense``)."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32, use_bias: bool = True):
+                 dtype: torch.dtype = torch.float32, use_bias: bool = True,
+                 init: str = "torch"):
         super().__init__()
         self.dtype = dtype
+        self.init_kind = init
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        bound = 1.0 / math.sqrt(self.weight.shape[1])
-        self.weight.copy_(torch.empty(self.weight.shape).uniform_(
-            -bound, bound, generator=generator))
+        w = torch.empty(self.weight.shape)
+        if self.init_kind == "trunc_normal":
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            w.mul_(0.02 / _TRUNC_STD)
+        else:
+            bound = 1.0 / math.sqrt(self.weight.shape[1])
+            w.uniform_(-bound, bound, generator=generator)
+        self.weight.copy_(w)
         if self.bias is not None:
             self.bias.zero_()
 
@@ -281,6 +308,32 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis as flax's ``nn.LayerNorm``: epsilon 1e-6
+    (``torch.nn.LayerNorm``'s is 1e-5), the statistics and the output in
+    float32 whatever the activation type, rounded to ``dtype``. One
+    ``F.layer_norm`` on the float32 input: its variance is a two-pass
+    float32 sum where flax's is E[x^2] - E[x]^2, which differ by rounding
+    only (a dozen elementwise kernels a call would follow flax's formula
+    literally). ``weight`` and ``bias`` are flax's ``scale`` and ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias,
+                            self.eps).to(self.dtype)
 
 
 class MeanShift(nn.Module):

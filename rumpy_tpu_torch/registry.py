@@ -17,6 +17,7 @@ _TOOL_REGISTRY: Dict[str, Any] = {}
 _MODEL_MODULES = [
     "rumpy_tpu_torch.models.advanced",
     "rumpy_tpu_torch.models.attention_manipulators",
+    "rumpy_tpu_torch.models.basic",
     "rumpy_tpu_torch.models.blind_sr",
     "rumpy_tpu_torch.models.contrastive",
     "rumpy_tpu_torch.models.dan",
@@ -26,8 +27,10 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.han_elan",
     "rumpy_tpu_torch.models.ikc",
     "rumpy_tpu_torch.models.metabed",
+    "rumpy_tpu_torch.models.regressors",
     "rumpy_tpu_torch.models.san",
     "rumpy_tpu_torch.models.sftmd_variants",
+    "rumpy_tpu_torch.models.swinir",
 ]
 _TOOL_MODULES = [
     "rumpy_tpu_torch.degradations.blur",

@@ -2,13 +2,17 @@
 
 Port of ``rumpy_tpu/training/regression_trainer.py``: trains the
 contrastive encoders (MoCo / SupMoCo / WeakCon / SupCon) and the direct
-regressor on degraded LR patches, with contrastive evaluation every
+regressors (``models/regressors.py``) on degraded LR patches, with
+contrastive evaluation every
 ``eval_frequency`` epochs (embeddings, clustering scores, an embedding
 dump; no scatter plots: ROADMAP queue 1 item 10) and an optional warm start
 from an earlier experiment or a packaged network.
 
 A dataset item holds ``crop_count`` = positives + 1 patches of one image,
-the query and its keys. With a metadata CSV the classes (and WeakCon's
+the query and its keys; for a direct regressor it holds one patch, and the
+step regresses the item's metadata row from it (the JAX trainer gives it
+two, and its step fails: ``ROADMAP.md`` section 3). The contrastive
+evaluation reads a direct regressor's predictions as its embeddings. With a metadata CSV the classes (and WeakCon's
 vectors) come from each image's metadata row; with
 ``[data.online_degradations]`` the items are HR crops and the step
 degrades all views of a batch in one pass on the device, the views of one
@@ -55,6 +59,16 @@ def _default_positives(model_name: str):
     return None
 
 
+def _direct_regressor(model_name: str) -> bool:
+    """Whether the handler registered as ``model_name`` regresses the
+    degradation directly (``models/regressors.py``)."""
+    from rumpy_tpu_torch.registry import get_model
+    try:
+        return bool(getattr(get_model(model_name or ""), "direct_regressor", False))
+    except KeyError:
+        return False
+
+
 def _state_group(key: str) -> str:
     """The JAX package's state entry a port state_dict key belongs to:
     ``network``, ``key_params``, ``q_bstats``, ``k_bstats`` or a queue
@@ -80,16 +94,25 @@ class RegressionTrainingHandler(TrainingHandler):
         # 2-crop batch would break SupMoCo's (n, positives, dim) reshape)
         positives = internal.get("positives_per_class") or internal.get("positives")
         cfg_crops = data_cfg.get("crop_count")
-        if not positives and cfg_crops:
-            positives = int(cfg_crops) - 1
-        if not positives:
-            positives = _default_positives(model_cfg.get("name"))
-        self._positives = int(positives or 1)
-        if cfg_crops and int(cfg_crops) != self._positives + 1:
-            raise ValueError(
-                f"data.crop_count={cfg_crops} conflicts with "
-                f"positives_per_class={self._positives}: contrastive batches need "
-                f"crop_count = positives + 1 = {self._positives + 1}")
+        if _direct_regressor(model_cfg.get("name")):
+            # one crop an item, which the step takes as it is: the JAX
+            # trainer gives a direct regressor two, and its step then finds
+            # no "lr" (ROADMAP.md section 3)
+            if cfg_crops and int(cfg_crops) != 1:
+                raise ValueError(f"data.crop_count={cfg_crops}: a direct regressor trains "
+                                 "on one crop an item")
+            self._positives = 0
+        else:
+            if not positives and cfg_crops:
+                positives = int(cfg_crops) - 1
+            if not positives:
+                positives = _default_positives(model_cfg.get("name"))
+            self._positives = int(positives or 1)
+            if cfg_crops and int(cfg_crops) != self._positives + 1:
+                raise ValueError(
+                    f"data.crop_count={cfg_crops} conflicts with "
+                    f"positives_per_class={self._positives}: contrastive batches need "
+                    f"crop_count = positives + 1 = {self._positives + 1}")
         data_cfg["crop_count"] = self._positives + 1
         # SimCLR colour jitter on the views, independent draws per view
         self._colour_distort = bool(data_cfg.get("colour_distort"))

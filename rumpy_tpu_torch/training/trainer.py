@@ -295,7 +295,8 @@ class TrainingHandler:
                 sr_y = ycc[..., :1].clamp(0.0, 1.0)
                 values = metrics_mod.fetch(self.metric_hub.compute(
                     sr_y, hr_y, max_value=self.max_im_val,
-                    probe_names=[it[3] for it in part]))
+                    probe_names=[it[3] for it in part], rgb_a=rgb,
+                    rgb_ref=hr if hr.shape[-1] == 3 else None))
                 for k, v in values.items():
                     agg[f"val-{k}"].extend(v)
                 if sample:

@@ -8,6 +8,9 @@ Port of ``rumpy_tpu/utils/metrics.py``, with its semantics:
   with symmetric padding (numpy's ``"symmetric"``: the edge pixel repeats),
   the population covariance, a crop of 5 pixels from each side before the
   mean, and the mean over channels.
+* LPIPS (``utils/lpips.py``, AlexNet, weights from an npz): the RGB images
+  where given (``rgb_a``/``rgb_ref``), else the scored pair, over
+  ``max_value``.
 
 Everything runs where the images lie, in float32, and nothing reads a value
 back to the host: :meth:`Metrics.compute` returns device tensors and
@@ -25,6 +28,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from rumpy_tpu_torch.device import true_div
 
 
 def _f32(x) -> torch.Tensor:
@@ -232,10 +237,11 @@ def fetch(values: Dict[str, torch.Tensor]) -> Dict[str, List[float]]:
 class Metrics:
     """Batch metrics calculator with the JAX package's keys: channel-last
     float images in [0, max_value]; keys ``<key_prefix><delimeter><metric>``
-    or the metric's name. LPIPS and FR_rank come with later slices and
-    raise ``NotImplementedError``."""
+    or the metric's name. LPIPS needs ``lpips_weights`` (an npz; it raises
+    ``NotImplementedError`` without one); FR_rank comes with a later slice
+    and raises ``NotImplementedError``."""
 
-    SUPPORTED = ("PSNR", "SSIM", "face_PSNR", "true_face_PSNR")
+    SUPPORTED = ("PSNR", "SSIM", "LPIPS", "face_PSNR", "true_face_PSNR")
 
     def __init__(self, metrics: Sequence[str] = ("PSNR", "SSIM"),
                  delimeter: str = "-", lpips_weights: Optional[str] = None,
@@ -243,11 +249,11 @@ class Metrics:
         self.metrics = list(metrics)
         self.delimeter = delimeter
         self.boundary_data = None
+        self.lpips = None
         for m in self.metrics:
             if m == "LPIPS":
-                raise NotImplementedError(
-                    "LPIPS is not ported yet: it comes with utils/lpips_jax.py "
-                    "(ROADMAP queue 1 item 9)")
+                from rumpy_tpu_torch.utils.lpips import LPIPS
+                self.lpips = LPIPS(lpips_weights, device="cpu")  # raises without weights
             if m == "FR_rank":
                 raise NotImplementedError(
                     "FR_rank is not ported yet: face recognition comes with "
@@ -264,14 +270,21 @@ class Metrics:
         return f"{key_prefix}{self.delimeter}{m}" if key_prefix else m
 
     def compute(self, im_a, im_ref, max_value: float = 1.0,
-                key_prefix: Optional[str] = None,
-                probe_names=None) -> Dict[str, torch.Tensor]:
+                key_prefix: Optional[str] = None, probe_names=None,
+                rgb_a=None, rgb_ref=None) -> Dict[str, torch.Tensor]:
         """Each metric of an (N, H, W, C) pair as an (N,) tensor on the
-        images' device; nothing is read back."""
+        images' device; nothing is read back. LPIPS scores ``rgb_a`` against
+        ``rgb_ref`` where given (the RGB images of a Y-channel pair)."""
         im_a, im_ref = _f32(im_a), _f32(im_ref)
         out: Dict[str, torch.Tensor] = {}
         for m in self.metrics:
-            if m in ("face_PSNR", "true_face_PSNR"):
+            if m == "LPIPS":
+                la = im_a if rgb_a is None else _f32(rgb_a)
+                lb = im_ref if rgb_ref is None else _f32(rgb_ref)
+                if self.lpips.shift.device != la.device:
+                    self.lpips.to(la.device)
+                vals = self.lpips(true_div(la, max_value), true_div(lb, max_value))
+            elif m in ("face_PSNR", "true_face_PSNR"):
                 if probe_names is None:
                     raise ValueError("Need probe names to extract face boundaries")
                 fn = face_psnr if m == "face_PSNR" else true_face_psnr
@@ -287,6 +300,6 @@ class Metrics:
                     key_prefix: Optional[str] = None, probe_names=None,
                     rgb_a=None, rgb_ref=None) -> Dict[str, List[float]]:
         """Per-image metric values for an (N, H, W, C) batch pair, as lists
-        of floats (``rgb_a``/``rgb_ref`` feed the RGB-domain metrics of
-        later slices and are unused here)."""
-        return fetch(self.compute(im_a, im_ref, max_value, key_prefix, probe_names))
+        of floats (``rgb_a``/``rgb_ref``: the RGB images LPIPS scores)."""
+        return fetch(self.compute(im_a, im_ref, max_value, key_prefix, probe_names,
+                                  rgb_a, rgb_ref))

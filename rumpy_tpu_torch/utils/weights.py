@@ -22,9 +22,15 @@ HAN, QHAN, ELAN, QELAN, SAN, QSAN and their blocks; RRDBNet and QRRDBNet,
 the VGG-128 and U-Net SN discriminators and the GAN handlers'
 ``generator``/``discriminator`` pair; Metabed and its metadata layers; the
 VGG extractors' ``Conv_<i>``; SPARNet and QSPARNet, RCANSplitCeleb's
-``expert_a``/``expert_b`` and FaceGAN's pair). A module with a
+``expert_a``/``expert_b`` and FaceGAN's pair; SRCNN/VDSR's ``TConv_<i>``;
+SwinIR's ``RSTB_<i>/SwinBlock_<j>/WindowAttention_0/SDense_<k>`` and
+``LayerNorm_<k>`` (flax's ``scale`` is the port's ``weight``); LPIPS's
+AlexNet ``Conv_<i>``; the regressors' ``TConv_<i>``, ``TDense_<i>``,
+``BatchNorm_<i>``, ``_ResBlock_<i>``, ``_MBConv_<i>``, ``MABlock_<i>``,
+``MAConv_<i>`` and ``TConvTranspose_0``). A module with a
 parameter of its own beside its children (``flax_leaves``: the scalar
-``gamma`` of LAM, CSAM and SAN) maps it at its own path, or at a path of
+``gamma`` of LAM, CSAM and SAN; SwinIR's ``relative_position_bias``)
+maps it at its own path, or at a path of
 keys below it (a spectral-norm conv's ``u`` and ``sigma`` are the
 ``batch_stats`` leaves ``SpectralNorm_<i>/'TConv_<j>/kernel/u'``); SAN's shared
 non-local block is one flax submodule and one port module. A 3-D conv
@@ -54,12 +60,12 @@ from rumpy_tpu_torch.models.attention_manipulators import (QEDSR, QRCAB, QRCAN, 
                                                            QCALayer, QResidualGroup, SFTLayer)
 from rumpy_tpu_torch.models.blind_sr import BlindSRPipeline, EncodingReducer
 from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Conv3d,
-                                           ConvTranspose, Linear, ResBlock, Upsampler)
+                                           ConvTranspose, LayerNorm, Linear, ResBlock, Upsampler)
 from rumpy_tpu_torch.models.contrastive import DASREncoder
 from rumpy_tpu_torch.models.sftmd_variants import SFTMD, SFTResidualBlock, SftConvs
 
 Path = Tuple[str, ...]
-LEAF_TYPES = (Conv, Conv3d, ConvTranspose, Linear, BatchNorm)
+LEAF_TYPES = (Conv, Conv3d, ConvTranspose, Linear, BatchNorm, LayerNorm)
 
 
 def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path, nn.Module]]:
@@ -198,6 +204,7 @@ _LEAVES = {
     BatchNorm: {"scale": ("params", "scale"), "bias": ("params", "bias"),
                 "running_mean": ("batch_stats", "mean"),
                 "running_var": ("batch_stats", "var")},
+    LayerNorm: {"weight": ("params", "scale"), "bias": ("params", "bias")},
 }
 
 

@@ -284,7 +284,9 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
     since, score as the JAX package does instead: ``metadata_file`` =
     "on_site" (the LR folder has no CSV) through EvalHub, and a CSV given
     by ``--metadata_file`` through eval_sisr (RCAN takes none of its
-    columns, so it is read and not used)."""
+    columns, so it is read and not used). LPIPS, ported since, raises
+    without weights as the JAX package does, and ``--lpips_weights`` goes
+    to its npz reader (tests/test_torch_lpips.py scores with one)."""
     model_loc, _ = experiment
     lr_dir, hr_dir = data
     if option == "metadata_file":
@@ -319,7 +321,8 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
         "fr_gallery": lambda: EvalHub(fr_gallery=str(tmp_path), **base),
         "FR_rank": lambda: EvalHub(metrics=["PSNR", "FR_rank"], **base),
         "LPIPS": lambda: EvalHub(metrics=["PSNR", "LPIPS"], **base),
-        "cli_lpips_weights": lambda: eval_sisr.main(flags + ["--lpips_weights", "w.npz"]),
+        "cli_lpips_weights": lambda: eval_sisr.main(
+            flags + ["-m", "LPIPS", "--lpips_weights", str(tmp_path / "absent.npz")]),
         "cli_gallery": lambda: eval_sisr.main(flags + ["--gallery"]),
         "cli_fr_gallery": lambda: eval_sisr.main(flags + ["--fr_gallery", "g"]),
         "cli_fr_extractor_weights": lambda: eval_sisr.main(
@@ -328,7 +331,12 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
             model_loc=model_loc, experiment=EXP, mode="train", load_epoch="last",
             no_directories=True, device="cpu"),
     }
-    with pytest.raises(NotImplementedError, match="item|later slice|not ported yet"):
+    if option == "cli_lpips_weights":
+        with pytest.raises(FileNotFoundError, match="absent.npz"):
+            cases[option]()
+        return
+    with pytest.raises(NotImplementedError,
+                       match="weights" if option == "LPIPS" else "item|later slice|not ported yet"):
         cases[option]()
 
 

@@ -466,11 +466,22 @@ FACE_MODELS = {"sparnet": dict(min_ch=8, max_ch=16, in_size=32, out_size=32, res
                                 res_depth=1),
                "rcansplitceleb": dict(n_feats=16, n_resgroups=1, n_resblocks=1, reduction=4),
                "facegan": dict(latent_dim=8, nf=8)}
-# every name the port registers that builds: 40 of the JAX package's 59
+SLICE16_MODULES = ("models/basic.py", "models/swinir.py", "models/regressors.py",
+                   "utils/lpips.py", "training/regression_trainer.py")
+# tiny widths for the build-and-run checks
+SLICE16_MODELS = {"srcnn": {}, "vdsr": {},
+                  "swinir": dict(embed_dim=8, depths=(2,), num_heads=(2,), num_feat=8),
+                  "basicnn": dict(output_size=3), "resnet": dict(output_size=3, width=8),
+                  "densenet": dict(output_size=3, block_config=(1, 1), growth_rate=4,
+                                   init_features=8),
+                  "efficientnet": dict(output_size=3, width_mult=0.25, depth_mult=0.25),
+                  "manet": dict(kernel_size=3, nc=(8, 16))}
+# every name the port registers that builds: 48 of the JAX package's 59
 BUILDING_MODELS = ("edsr", "rcan", "qrcan", "qedsr", "contrastiveblindqrcan",
                    "contrastiveblindqedsr", "srmd", "edsrmd", "sftmd", "moco", "supmoco",
                    "weakcon", "supcon", "degradationregressor", "dan", "ikc", "dasr",
-                   "dcls") + tuple(GENERATOR_MODELS) + tuple(GAN_MODELS) + tuple(FACE_MODELS)
+                   "dcls") + tuple(GENERATOR_MODELS) + tuple(GAN_MODELS) + tuple(FACE_MODELS) \
+    + tuple(SLICE16_MODELS)
 
 
 def _builds_and_runs(name):
@@ -490,9 +501,9 @@ def _builds_and_runs(name):
 def test_port_covers_the_bobw_generator_families():
     """The HAN, ELAN, SAN and GAN-group modules are in the package (so the
     import scans above read them, neither jax nor rumpy_tpu among their
-    imports) and the registry finds 40 names that build (the face group's
-    four among them); the three that raised naming item 9 until gan_models
-    and metabed came build and run."""
+    imports) and the registry finds 48 names that build (the face group's
+    four and slice 16's eight among them); the three that raised naming
+    item 9 until gan_models and metabed came build and run."""
     from rumpy_tpu_torch.registry import available_models
     names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
     missing = [m for m in GENERATOR_MODULES + GAN_MODULES if m not in names]
@@ -501,7 +512,7 @@ def test_port_covers_the_bobw_generator_families():
         bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
         assert not bad, (m, bad)
     registered = set(available_models())
-    assert len(BUILDING_MODELS) == 40 and registered == set(BUILDING_MODELS)
+    assert len(BUILDING_MODELS) == 48 and registered == set(BUILDING_MODELS)
     for name in ("contrastiveblindqrealesrgan", "contrastiveblindmetabed"):
         _builds_and_runs(name)
 
@@ -628,3 +639,58 @@ def test_chip_smoke_drives_the_face_phases():
     text = (ROOT / "chip_smoke.py").read_text()
     for phase in ("face_data", "rcansplit_train", "sparnet_train", "facegan_train"):
         assert f'"phase": "{phase}"' in text, phase
+
+
+def test_port_covers_slice_16():
+    """SwinIR, SRCNN/VDSR, LPIPS and the regressors are in the package and
+    import neither jax nor rumpy_tpu; the registry finds the slice's eight
+    names, and each builds on the CPU at a tiny width and runs on a 32 x 32
+    input: SwinIR super-resolves it x4, SRCNN and VDSR (whose input is
+    interpolated beforehand) keep its size, a regressor predicts its
+    outputs, MANet spreads its kernel map x4."""
+    from rumpy_tpu_torch.registry import available_models, get_model
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    assert not [m for m in SLICE16_MODULES if m not in names]
+    for m in SLICE16_MODULES:
+        bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
+        assert not bad, (m, bad)
+    assert set(SLICE16_MODELS) <= set(available_models())
+    for name, kw in SLICE16_MODELS.items():
+        handler = get_model(name)(device="cpu", **kw)
+        c = handler.in_features
+        out = handler.run_eval(handler.init_state(), {"lr": np.full((1, 32, 32, c), 0.5, np.float32)})
+        want = {"basicnn": (1, 3), "resnet": (1, 3), "densenet": (1, 3), "efficientnet": (1, 3),
+                "manet": (1, 128, 128, 9), "srcnn": (1, 32, 32, 1),
+                "vdsr": (1, 32, 32, 1)}.get(name, (1, 128, 128, c))
+        assert tuple(out.shape) == want and bool(torch.isfinite(out).all()), name
+
+
+@pytest.mark.parametrize("name", list(SLICE16_MODELS))
+def test_slice_16_models_raise_without_cuda(monkeypatch, name):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(name)(**SLICE16_MODELS[name])
+
+
+def test_chip_smoke_drives_the_slice_16_phases():
+    """chip_smoke.py drives the slice's three phases from main(), after the
+    face group's, each printing its row and failing on an RCAB launch; the
+    kernels line keeps its four entries."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    called = [n.func.id for n in ast.walk(fns["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    for phase in ("swinir_train", "basic_train", "regressor_train", "facegan_train",
+                  "rcansplit_train", "launch_coverage"):
+        assert f"{phase}_phase" in called, phase
+    assert called.index("swinir_train_phase") > called.index("facegan_train_phase")
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in ("swinir_train", "basic_train", "regressor_train"):
+        assert f'"phase": "{phase}"' in text, phase
+        body = {n.func.id for n in ast.walk(fns[f"{phase}_phase"])
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+        assert {"no_rcab", "step_without_sync"} <= body, phase
+    kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
+               and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
+    assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
