@@ -186,6 +186,7 @@ import csv
 import dataclasses
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -5621,6 +5622,392 @@ def regressor_train_phase(rcab, card):
     return row
 
 
+# -- slice 17: DIC, the wavelet family and the FSSR family -----------------------------
+
+DIC_CONFIG = os.path.join("examples", "train_dic_face_x4.toml")
+WAVELET_CONFIG = os.path.join("examples", "train_waveletsrnet_x4.toml")
+# the DIC example's widths (examples/train_dic_face_x4.toml)
+DIC_FULL = dict(scale=4, num_steps=4, num_features=48, num_groups=6, hg_num_feature=256,
+                hg_num_keypoints=68, num_fusion_block=7)
+# parameters of the full-width networks, counted in the JAX package from
+# jax.eval_shape of each flax init (the port's counts must equal them)
+DIC_PARAMETERS = {4: 17269577, 8: 21803849}
+WAVELET_PARAMETERS = 51353968
+# CelebA-format faces: HR 128 x 128, LR 32 x 32 at x4 (the examples' LR crop
+# is the whole image, so the landmarks line up), 16 an epoch, 4 to evaluate
+FACE_SIDE, SLICE17_IMAGES, SLICE17_EVAL_IMAGES = 128, 16, 4
+
+
+def write_landmarks(path, names, rng):
+    """A landmarks pickle {image name: (68, 2) HR-pixel (x, y)}, the points
+    drawn from a seed inside the face's middle 70 %."""
+    marks = {n: (FACE_SIDE * (0.15 + 0.7 * rng.random((68, 2)))).astype(np.float32)
+             for n in names}
+    with open(path, "wb") as f:
+        pickle.dump(marks, f)
+    return marks
+
+
+def face_set(root, rng, images):
+    """A CelebA-format set of ``images`` 128 x 128 faces and their x4
+    decimations: (lr_dir, hr_dir, names)."""
+    lr_dir, hr_dir, _, _ = write_celeba_set(root, rng, images, images // 2,
+                                            hr_shape=(FACE_SIDE, FACE_SIDE))
+    return lr_dir, hr_dir, sorted(os.listdir(hr_dir))
+
+
+def whole_faces(lr_dir, hr_dir, names, scale=TRAIN_SCALE, tags=False):
+    """The faces ``names`` whole on the card, LR and HR (at x8 the LR is
+    every 8th HR pixel), with their tags where asked."""
+    hr = np.stack([np.load(os.path.join(hr_dir, n)) for n in names])
+    lr = (np.stack([np.load(os.path.join(lr_dir, n)) for n in names]) if scale == TRAIN_SCALE
+          else np.ascontiguousarray(hr[:, ::scale, ::scale]))
+    out = {"lr": torch.from_numpy(lr.astype(np.float32) / 255.0).cuda(),
+           "hr": torch.from_numpy(hr.astype(np.float32) / 255.0).cuda()}
+    if tags:
+        out["tags"] = list(names)
+    return out
+
+
+def dic_loss(handler, batch):
+    """DIC's loss on a fixed batch (every step's L1 and the heatmaps' MSE
+    against the landmarks its tags look up), without an update."""
+    coords = torch.from_numpy(np.stack([handler._lookup_landmarks(t)
+                                        for t in batch["tags"]])).cuda()
+
+    def loss(state):
+        with torch.no_grad():
+            sr, aux, _ = handler.apply(state.params, batch, train=True)
+            return float(handler.compute_losses(sr, dict(batch, landmarks=coords), aux)
+                         ["train-loss"])
+    return loss
+
+
+def train_and_score(rcab, cfg, root, eval_lr, eval_hr, name):
+    """``cfg`` through cli.train_sisr (validating each epoch on the eval
+    faces), then cli.eval_sisr on its best epoch with PSNR and SSIM: host
+    seconds, epoch losses, validation, the CSV's mean row, images/s and
+    the RCAB launches of each (the phase fails on any)."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.interface import SISRInterface
+    cfg_path = os.path.join(root, f"{name}.toml")
+    dump_toml(cfg, cfg_path)
+    exp, exp_root = cfg["experiment"], cfg["experiment_save_loc"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    with watched(SISRInterface, "net_run") as forwards:
+        stats = train_sisr.main(["-p", cfg_path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    losses = [stats[e]["train-loss"] for e in sorted(stats)]
+    val = {k: [stats[e].get(k) for e in sorted(stats)] for k in ("val-PSNR", "val-SSIM")}
+    epochs = cfg["training"]["num_epochs"]
+    no_rcab(f"the {name} run", launches)
+    if (len(losses) != epochs or len(forwards) != epochs * -(-SLICE17_EVAL_IMAGES // VAL_CHUNK)
+            or not np.isfinite(losses + val["val-PSNR"] + val["val-SSIM"]).all()):
+        raise AssertionError(f"{name} run: losses {losses}, validation {val}, "
+                             f"{len(forwards)} validation forwards")
+    out = os.path.join(root, f"{name}_eval")
+    rcab.launches = 0
+    t0 = time.perf_counter()
+    eval_sisr.main(["--model_loc", exp_root, "--scale", str(cfg["data"]["scale"]), "--lr_dir",
+                    eval_lr, "--hr_dir", eval_hr, "-m", "PSNR", "-m", "SSIM", "-me", exp, "best",
+                    "--out_loc", out])
+    cli_seconds = time.perf_counter() - t0
+    columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+    no_rcab(f"eval_sisr of the {name} run", {"rcab_fused": rcab.launches})
+    if (len(values) != SLICE17_EVAL_IMAGES or not {(exp, "PSNR"), (exp, "SSIM")} <= set(columns)
+            or not np.isfinite(list(values.values())).all()):
+        raise AssertionError(f"eval_sisr of the {name} run: columns {columns}, {len(values)} rows")
+    return {"run_experiment_s": seconds, "peak_memory_bytes_run": peak, "launches": launches,
+            "epoch_train_loss": losses, **val, "eval_sisr_s": cli_seconds,
+            "eval_images_per_s": len(values) / cli_seconds,
+            "eval_mean": dict(zip([f"{m}>{k}" for m, k in columns],
+                                  np.mean(list(values.values()), axis=0).tolist()))}
+
+
+def dic_train_phase(rcab, card):
+    """The slice's main path: DIC x4 at examples/train_dic_face_x4.toml's
+    widths (4 steps, 48 features, 6 groups, a 256-feature hourglass, 68
+    landmarks, 7 fusion blocks; float32, batch 8, the LR crop 32 the whole
+    face) through cli.train_sisr on 16 seeded CelebA-format faces with a
+    seeded landmarks pickle (2 epochs of 2 steps, validating each epoch),
+    cli.eval_sisr with PSNR and SSIM; steady steps on a fixed batch (its
+    loss before and after, the hourglass held by its gradient gate), one
+    step under sync debug "error", eval images/s; one step at x8 (LR 16,
+    HR 128: the stride-2 hourglass and the 12/8/2 projections). No RCAB
+    kernel runs. Returns the row."""
+    from rumpy_tpu_torch.config.loader import load_config
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_dic")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(170)
+    lr_dir, hr_dir, names = face_set(os.path.join(root, "data"), rng, SLICE17_IMAGES)
+    eval_lr, eval_hr, _ = face_set(os.path.join(root, "eval_data"), rng, SLICE17_EVAL_IMAGES)
+    landmarks = os.path.join(root, "landmarks.pkl")
+    write_landmarks(landmarks, names, rng)
+    cfg = load_config(os.path.join(ROOT, DIC_CONFIG)).as_plain()
+    internal = cfg["model"]["internal_params"]
+    batch = cfg["training"]["batch_size"]
+    if ({k: internal[k] for k in DIC_FULL} != DIC_FULL or batch != 8
+            or cfg["data"]["crop"] * TRAIN_SCALE != FACE_SIDE):
+        raise AssertionError(f"{DIC_CONFIG} is not DIC x4 at batch 8, crop 32: {internal}")
+    cfg["experiment_save_loc"] = os.path.join(root, "experiments")
+    cfg["data"]["training_sets"]["data_1"].update(lr_dir=lr_dir, hr_dir=hr_dir)
+    cfg["data"]["eval_sets"]["data_1"].update(lr_dir=eval_lr, hr_dir=eval_hr)
+    internal["landmarks_file"] = landmarks
+    cfg["training"].update(num_epochs=2)
+    cli = train_and_score(rcab, cfg, root, eval_lr, eval_hr, "dic")
+
+    seed = cfg["training"].get("seed", 0)
+    handler = get_model("dic")(device="cuda", seed=seed, **internal)
+    state = handler.init_state()
+    n_params = sum(p.numel() for p in handler.module.parameters())
+    fixed = whole_faces(lr_dir, hr_dir, names[:batch], tags=True)
+    hg0 = {k: v.clone() for k, v in state.params.items() if k.startswith("hg.")}
+    rest0 = {k: v.clone() for k, v in state.params.items() if not k.startswith("hg.")}
+    steps_row = phase_step_row(rcab, handler, state, fixed, "dic x4 48x6 hg256 f32",
+                               dic_loss(handler, fixed))
+    unsynced = step_without_sync(handler, state, fixed)
+    no_rcab("a DIC step", steps_row["launches_a_step"])
+    hg_moved = sum(not torch.equal(v, state.params[k]) for k, v in hg0.items())
+    rest_moved = sum(not torch.equal(v, state.params[k]) for k, v in rest0.items())
+    evals = eval_images(handler, state, eval_lr, SLICE17_EVAL_IMAGES)
+    del handler, state
+    torch.cuda.empty_cache()
+
+    h8 = get_model("dic")(device="cuda", seed=seed, **dict(internal, scale=8))
+    state8 = h8.init_state()
+    n_params8 = sum(p.numel() for p in h8.module.parameters())
+    fixed8 = whole_faces(lr_dir, hr_dir, names[:batch], scale=8, tags=True)
+    x8_row = step_row(rcab, h8, state8, fixed8, "dic x8 48x6 hg256 f32", steps=1)
+    no_rcab("a DIC x8 step", x8_row["launches_a_step"])
+    del h8, state8
+    torch.cuda.empty_cache()
+
+    row = {"phase": "dic_train", "model": "dic x4 4 steps, 48 features, 6 groups, hourglass "
+           "256, 68 landmarks, 7 fusion blocks, f32", "card": card, "parameters": n_params,
+           "parameters_x8": n_params8, "batch": batch, "crop": cfg["data"]["crop"],
+           "steps": 2 * SLICE17_IMAGES // batch, "cli": cli, "fixed_batch": steps_row,
+           "hourglass_leaves_moved": hg_moved, "other_leaves_moved": rest_moved,
+           "other_leaves": len(rest0), "step_under_sync_debug_error": unsynced, **evals,
+           "x8_step": x8_row}
+    print(json.dumps(row), flush=True)
+    if (n_params != DIC_PARAMETERS[4] or n_params8 != DIC_PARAMETERS[8]
+            or not steps_row["loss_lower_after_steps"] or hg_moved or rest_moved != len(rest0)
+            or not np.isfinite(list(unsynced.values())).all()):
+        raise AssertionError(f"DIC: {row}")
+    shutil.rmtree(root)
+    return row
+
+
+def seeded_lightcnn_npz(path, seed):
+    """LightCNN weights for a grey input in the npz layout the port reads
+    (``Conv_<i>/kernel`` HWIO, ``Conv_<i>/bias``), He-scaled normal draws
+    from a seed: pretrained weights stay gated."""
+    from rumpy_tpu_torch.models.feature_extractors import LightCNNFeatures
+    rng = np.random.default_rng(seed)
+    out, cin = {}, 1
+    for i, (f, k, _) in enumerate(LightCNNFeatures.SPEC):
+        out[f"Conv_{i}/kernel"] = (rng.standard_normal((k, k, cin, 2 * f), dtype=np.float32)
+                                   * np.float32(np.sqrt(2.0 / (k * k * cin))))
+        out[f"Conv_{i}/bias"] = np.zeros(2 * f, np.float32)
+        cin = f
+    np.savez(path, **out)
+    return path
+
+
+def params_moved(module, before):
+    return sum(not torch.equal(v, p) for v, p in zip(before, module.parameters()))
+
+
+def wavelet_train_phase(rcab, card):
+    """WaveletSRNet x4 at examples/train_waveletsrnet_x4.toml (the fixed
+    64-1024 trunk, 2 residual blocks a width, wavelet_c 32; float32, batch
+    16, LR crop 32) through cli.train_sisr on the seeded faces (2 epochs of
+    one step, validating each) and cli.eval_sisr; steady steps on a fixed
+    batch (its loss before and after; every BatchNorm statistic moved), one
+    step under sync debug "error", eval images/s; then WaveletSRGAN with
+    training_switch 1 and a seeded LightCNN npz: steps of epoch 0 (the
+    bands' MSE, the discriminator still) and epoch 1 (adversarial, with the
+    identity term), one of them under sync debug "error". No RCAB kernel
+    runs. Returns the row."""
+    from rumpy_tpu_torch.config.loader import load_config
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_wavelet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(171)
+    lr_dir, hr_dir, names = face_set(os.path.join(root, "data"), rng, SLICE17_IMAGES)
+    eval_lr, eval_hr, _ = face_set(os.path.join(root, "eval_data"), rng, SLICE17_EVAL_IMAGES)
+    cfg = load_config(os.path.join(ROOT, WAVELET_CONFIG)).as_plain()
+    internal = cfg["model"]["internal_params"]
+    batch = cfg["training"]["batch_size"]
+    if internal != {"scale": 4, "num_layers_res": 2} or batch != TRAIN_BATCH \
+            or cfg["data"]["crop"] * TRAIN_SCALE != FACE_SIDE:
+        raise AssertionError(f"{WAVELET_CONFIG} is not WaveletSRNet x4 at batch 16: {internal}")
+    cfg["experiment_save_loc"] = os.path.join(root, "experiments")
+    cfg["data"]["training_sets"]["data_1"].update(lr_dir=lr_dir, hr_dir=hr_dir)
+    cfg["data"]["eval_sets"]["data_1"].update(lr_dir=eval_lr, hr_dir=eval_hr)
+    cfg["training"].update(num_epochs=2)
+    cli = train_and_score(rcab, cfg, root, eval_lr, eval_hr, "waveletsrnet")
+
+    seed = cfg["training"].get("seed", 0)
+    handler = get_model("waveletsrnet")(device="cuda", seed=seed, **internal)
+    state = handler.init_state()
+    n_params = sum(p.numel() for p in handler.module.parameters())
+    fixed = whole_faces(lr_dir, hr_dir, names[:batch])
+    stats0 = running_stats(handler.module)
+    steps_row = phase_step_row(rcab, handler, state, fixed, "waveletsrnet x4 f32",
+                               pair_loss(handler, fixed))
+    unsynced = step_without_sync(handler, state, fixed)
+    stats1 = running_stats(handler.module)
+    moved = sum(not torch.equal(stats0[k], stats1[k]) for k in stats0)
+    no_rcab("a WaveletSRNet step", steps_row["launches_a_step"])
+    evals = eval_images(handler, state, eval_lr, SLICE17_EVAL_IMAGES)
+    del handler, state
+    torch.cuda.empty_cache()
+
+    npz = seeded_lightcnn_npz(os.path.join(root, "lightcnn.npz"), 173)
+    gan = get_model("waveletsrgan")(device="cuda", seed=seed, training_switch=1,
+                                    identity_weights=npz, **internal)
+    gstate = gan.init_state()
+    gan_rows = {}
+    for epoch, phase in enumerate(("bands", "adversarial")):
+        gan.set_epoch(epoch)
+        d0 = [p.clone() for p in gan.discriminator.parameters()]
+        r = phase_step_row(rcab, gan, gstate, fixed, f"waveletsrgan x4 {phase}",
+                           pair_loss(gan, fixed))
+        r["discriminator_leaves_moved"] = params_moved(gan.discriminator, d0)
+        r["step_under_sync_debug_error"] = step_without_sync(gan, gstate, fixed)
+        no_rcab(f"a WaveletSRGAN {phase} step", r["launches_a_step"])
+        gan_rows[phase] = r
+    del gan, gstate
+    torch.cuda.empty_cache()
+
+    row = {"phase": "wavelet_train", "model": "waveletsrnet x4 num_layers_res 2, wavelet_c 32, "
+           "f32", "card": card, "parameters": n_params, "batch": batch,
+           "crop": cfg["data"]["crop"], "cli": cli, "fixed_batch": steps_row,
+           "running_stats": len(stats0), "running_stats_moved": moved,
+           "step_under_sync_debug_error": unsynced, **evals, "waveletsrgan": gan_rows}
+    print(json.dumps(row), flush=True)
+    d_leaves = len(list(get_model("waveletsrgan")(device="cpu", include_id_loss=False,
+                                                  **internal).discriminator.parameters()))
+    if (n_params != WAVELET_PARAMETERS or not steps_row["loss_lower_after_steps"]
+            or moved != len(stats0) or not stats0
+            or gan_rows["bands"]["discriminator_leaves_moved"]
+            or gan_rows["adversarial"]["discriminator_leaves_moved"] != d_leaves
+            or not np.isfinite([v for r in [unsynced] + [g["step_under_sync_debug_error"]
+                                                         for g in gan_rows.values()]
+                                for v in r.values()]).all()
+            or not gan_rows["adversarial"]["step_under_sync_debug_error"]["id_loss"] > 0):
+        raise AssertionError(f"wavelet: {row}")
+    shutil.rmtree(root)
+    return row
+
+
+def dsgan_losses(handler, batch):
+    """FSSR-DSGAN's generator terms on a fixed batch (the colour L1 against
+    the input's low band, the discriminator's texture term in eval mode)
+    and the discriminator's loss, in train mode with its statistics put
+    back, as floats."""
+    from rumpy_tpu_torch.models.fssr import low_pass
+
+    def losses(state):
+        g, d, eps = handler.module.generator, handler.discriminator, handler.eps
+        x = batch["lr"].permute(0, 3, 1, 2)
+        y = batch["hr"].permute(0, 3, 1, 2)
+        with torch.no_grad():
+            out = g(x)
+            col = (low_pass(out, padding=False) - low_pass(x, padding=False)).abs().mean()
+            tex = -torch.log(d(out) + eps).mean()
+            with buffers_kept(d):
+                d_loss = (-torch.log(d(y, train=True) + eps).mean()
+                          - torch.log(1 - d(out, train=True) + eps).mean())
+        return float(col), float(tex), float(d_loss)
+    return losses
+
+
+def fssr_train_phase(rcab, card):
+    """ESRGAN-FS at the ESRGAN defaults (RRDBNet 23 x 64, gc 32; VGG-128
+    discriminator, 64 features; float32) with pretrain_epochs 1 on the
+    seeded faces (batch 16, LR 32, HR 128): the L1 pre-train steps (the
+    fixed batch's L1 lower after them) and the adversarial steps (the
+    low-pass pixel term, the high band to the discriminator), one under
+    sync debug "error"; then FSSR-DSGAN at its defaults (8 residual
+    blocks, scale 1) on 128-pixel faces against another set's, a seeded
+    LPIPS npz: steps (both networks moving), the fixed batch's colour,
+    texture and discriminator losses before and after, one step under sync
+    debug "error", eval images/s. No RCAB kernel runs. Returns the row."""
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_fssr")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(172)
+    lr_dir, hr_dir, names = face_set(os.path.join(root, "data"), rng, SLICE17_IMAGES)
+    fixed = whole_faces(lr_dir, hr_dir, names[:TRAIN_BATCH])
+    seed = 17
+    esr = get_model("esrganfs")(device="cuda", seed=seed, pretrain_epochs=1)
+    estate = esr.init_state()
+    n_params = sum(p.numel() for p in esr.module.generator.parameters())
+    esr_rows = gan_phase_rows(rcab, esr, estate, fixed, "esrganfs x4 23x64 f32", fixed,
+                              epochs=(0, 1))
+    esr_unsynced = step_without_sync(esr, estate, fixed)
+    del esr, estate
+    torch.cuda.empty_cache()
+
+    lpips = seeded_lpips_npz(os.path.join(root, "lpips.npz"), 174)
+    dsgan = get_model("fssrdsgan")(device="cuda", seed=seed, lpips_weights=lpips)
+    dstate = dsgan.init_state()
+    target = fixed["hr"][torch.arange(TRAIN_BATCH - 1, -1, -1, device="cuda")]
+    dbatch = {"lr": fixed["hr"], "hr": target}  # the clean faces to another set's domain
+    losses_of = dsgan_losses(dsgan, dbatch)
+    before = losses_of(dstate)
+    g0 = [p.clone() for p in dsgan.module.generator.parameters()]
+    d0 = [p.clone() for p in dsgan.discriminator.parameters()]
+    ds_row = phase_step_row(rcab, dsgan, dstate, dbatch, "fssrdsgan 8 blocks 128 px f32",
+                            lambda st: losses_of(st)[0])  # the colour L1
+    ds_row.update(fixed_batch_color_texture_d_loss=[before, losses_of(dstate)],
+                  generator_leaves_moved=params_moved(dsgan.module.generator, g0),
+                  discriminator_leaves_moved=params_moved(dsgan.discriminator, d0),
+                  lr_factor=dsgan._lr_factor())
+    ds_unsynced = step_without_sync(dsgan, dstate, dbatch)
+    no_rcab("an FSSR-DSGAN step", ds_row["launches_a_step"])
+    n_eval = min(8, fixed["hr"].shape[0])
+    dsgan.run_eval(dstate, {"lr": fixed["hr"][:1]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [dsgan.run_eval(dstate, {"lr": fixed["hr"][i:i + 1]}) for i in range(n_eval)]
+    torch.cuda.synchronize()
+    ds_row["eval_images_per_s"] = n_eval / (time.perf_counter() - t0)
+    finite = all(bool(torch.isfinite(o).all()) and o.shape == (1, FACE_SIDE, FACE_SIDE, 3)
+                 for o in outs)
+    row = {"phase": "fssr_train", "card": card, "batch": TRAIN_BATCH,
+           "esrganfs": {"model": "esrganfs x4 RRDBNet 23x64 gc 32, VGG-128 64, f32",
+                        "generator_parameters": n_params, **esr_rows,
+                        "step_under_sync_debug_error": esr_unsynced},
+           "fssrdsgan": dict(ds_row, step_under_sync_debug_error=ds_unsynced)}
+    print(json.dumps(row), flush=True)
+    n_g, n_d = len(g0), len(d0)
+    if (not finite or ds_row["generator_leaves_moved"] != n_g
+            or ds_row["discriminator_leaves_moved"] != n_d
+            or not np.isfinite([v for r in (esr_unsynced, ds_unsynced) for v in r.values()]
+                               + list(before) + list(losses_of(dstate))).all()
+            or not ds_unsynced["perceptual-loss"] > 0):
+        raise AssertionError(f"fssr: {row}")
+    shutil.rmtree(root)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5695,6 +6082,11 @@ def main() -> int:
     swinir = swinir_train_phase(rcab, card)
     basic = basic_train_phase(rcab, card)
     regressors = regressor_train_phase(rcab, card)
+    # slice 17: DIC (the main path), the wavelet family and the FSSR family
+    # launch no RCAB kernel: each phase fails on any
+    dic = dic_train_phase(rcab, card)
+    wavelet = wavelet_train_phase(rcab, card)
+    fssr = fssr_train_phase(rcab, card)
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],
@@ -5712,6 +6104,17 @@ def main() -> int:
         "basic_a_step": {n: basic[n]["fixed_batch"]["launches_a_step"] for n in ("srcnn", "vdsr")},
         "regressors_a_step": {n: regressors[n]["launches_a_step"] for n in REGRESSORS},
         "regression_route": regressors["resnet18_cli"]["launches"]}
+    print(json.dumps({
+        "phase": "slice17_launches", "dic_training_path": dic["cli"]["launches"],
+        "dic_a_step": dic["fixed_batch"]["launches_a_step"],
+        "dic_x8_step": dic["x8_step"]["launches_a_step"],
+        "waveletsrnet_training_path": wavelet["cli"]["launches"],
+        "waveletsrnet_a_step": wavelet["fixed_batch"]["launches_a_step"],
+        "waveletsrgan_a_step": {p: r["launches_a_step"]
+                                for p, r in wavelet["waveletsrgan"].items()},
+        "esrganfs_a_step": {p: fssr["esrganfs"][p]["launches_a_step"]
+                            for p in ("pretrain", "adversarial")},
+        "fssrdsgan_a_step": fssr["fssrdsgan"]["launches_a_step"]}), flush=True)
     qrcab_rows += [r for r in launch_coverage_phase(rcab) if r["per_image"]]
     per_image = [{k: r[k] for k in (
         "shape", "dtype", "per_image", "ms", "shared_form_ms", "plain_ms", "bound_ms", "max_abs_err",

@@ -169,6 +169,26 @@ def clip_by_global_norm(grads, max_norm: float) -> None:
     torch._foreach_mul_(grads, scale)
 
 
+def optimizer_update(opt: torch.optim.Optimizer, params, loss, clip: Optional[float] = None,
+                     lr: Optional[float] = None) -> None:
+    """One update of ``opt`` from ``loss``: gradients (set to none first,
+    zeros where a parameter got none, as optax updates every leaf), optax's
+    global-norm clipping where ``clip`` is set, the lr where given, the
+    step."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if clip is not None:
+        clip_by_global_norm([p.grad for p in params], float(clip))
+    if lr is not None:
+        for group in opt.param_groups:
+            group["lr"] = float(lr)
+    opt.step()
+
+
 PIXEL_LOSSES: Dict[str, Callable] = {
     "l1": lambda a, b: (a - b).abs().mean(),
     "l2": lambda a, b: ((a - b) ** 2).mean(),
@@ -483,6 +503,10 @@ class BaseHandler:
         return self._own_state(int(np.asarray(loaded["step"])))
 
     def _jax_state_dict(self, loaded) -> Dict[str, torch.Tensor]:
-        """The module's state_dict from a JAX-written checkpoint's trees."""
+        """The module's state_dict from a JAX-written checkpoint's trees: its
+        params and, where the JAX handler keeps them in
+        ``extra.vars.batch_stats`` (SPARNet, ELAN, WaveletSRNet), the
+        BatchNorm running statistics."""
         from rumpy_tpu_torch.utils.weights import state_dict_from_jax
-        return state_dict_from_jax(loaded["network"], self.module)
+        stats = ((loaded.get("extra") or {}).get("vars") or {}).get("batch_stats")
+        return state_dict_from_jax(loaded["network"], self.module, batch_stats=stats or None)

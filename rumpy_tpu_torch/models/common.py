@@ -57,7 +57,8 @@ class Conv(nn.Module):
 
     Initialised as torch's own default kernel init, U(+-1/sqrt(fan_in)),
     with a zero bias, as the JAX package's ``TConv`` does; ``init="he_normal"``
-    draws N(0, 2 / fan_in) (the JAX package's ``HE_NORMAL_INIT``) and
+    draws N(0, 2 / fan_in) (the JAX package's ``HE_NORMAL_INIT``),
+    ``init="he_fanout"`` N(0, 2 / (k k features)) (its ``HE_FANOUT_INIT``) and
     ``init="rrdb"`` N(0, 0.02 / fan_in), kaiming-normal x 0.1 (its
     ``RRDB_KERNEL_INIT``). ``reflect`` pads k // 2 by reflection instead of
     zeros (an explicit reflect pad, then a 'VALID' conv). ``padding`` pads
@@ -88,7 +89,10 @@ class Conv(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         fan_in = self.weight[0].numel()
         w = torch.empty(self.weight.shape)
-        if self.init_kind in ("he_normal", "rrdb"):
+        if self.init_kind == "he_fanout":
+            fan_out = self.weight.shape[0] * self.weight[0, 0].numel()
+            w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+        elif self.init_kind in ("he_normal", "rrdb"):
             var = 2.0 if self.init_kind == "he_normal" else 0.02
             w.normal_(0.0, math.sqrt(var / fan_in), generator=generator)
         else:

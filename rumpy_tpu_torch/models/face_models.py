@@ -41,10 +41,10 @@ from torch import nn
 from rumpy_tpu_torch.device import true_div
 from rumpy_tpu_torch.models.advanced import RCAN
 from rumpy_tpu_torch.models.attention_manipulators import ParaCALayer, QModelHandler
-from rumpy_tpu_torch.models.base import BaseHandler, TrainState, build_optimizer
+from rumpy_tpu_torch.models.base import BaseHandler, TrainState, optimizer_update
 from rumpy_tpu_torch.models.common import BatchNorm, Conv, ConvTranspose, Linear
 from rumpy_tpu_torch.models.contrastive import device_batch
-from rumpy_tpu_torch.models.gan_models import GANPair, frozen
+from rumpy_tpu_torch.models.gan_models import GANPair, PairedGANHandler, frozen
 from rumpy_tpu_torch.registry import register_model
 
 
@@ -305,11 +305,6 @@ class _BNHandlerMixin:
         sr = self.module(x, meta, train=train)
         return sr.permute(0, 2, 3, 1), {}, extra
 
-    def _jax_state_dict(self, loaded):
-        from rumpy_tpu_torch.utils.weights import state_dict_from_jax
-        stats = ((loaded.get("extra") or {}).get("vars") or {}).get("batch_stats")
-        return state_dict_from_jax(loaded["network"], self.module, batch_stats=stats or None)
-
 
 _SPARNET_DEFAULTS = dict(min_ch=32, max_ch=128, in_size=128, out_size=128, min_feat_size=16,
                          res_depth=10, bottleneck_size=4, att_name="spar", norm_type="bn",
@@ -498,7 +493,7 @@ class GANFaceDiscriminator(nn.Module):
 
 
 @register_model("facegan")
-class FaceGANHandler(BaseHandler):
+class FaceGANHandler(PairedGANHandler):
     """Unconditional face GAN: reports ``train-loss`` (the generator's),
     ``d-loss-real``, ``d-loss-fake`` and the discriminator's accuracies on
     real and fake images. The module is a ``GANPair``; the generator's
@@ -512,58 +507,15 @@ class FaceGANHandler(BaseHandler):
     im_input = "unmodified"
     eps = 1e-7
 
-    def __init__(self, latent_dim=100, discriminator_lr=None, nf=128, **kwargs):
+    def __init__(self, latent_dim=100, nf=128, **kwargs):
         self.latent_dim = latent_dim
         self.nf = nf
-        self._d_lr = discriminator_lr
-        self._d_optimizer = None
         super().__init__(**kwargs)
 
     def build_module(self, **kw):
         return GANPair(GANGenerator(latent_dim=self.latent_dim, nf=self.nf, dtype=self.dtype,
                                     **kw),
                        GANFaceDiscriminator(nf=self.nf, dtype=self.dtype))
-
-    @property
-    def discriminator(self) -> nn.Module:
-        return self.module.discriminator
-
-    def trainable_parameters(self):
-        return self.module.generator.parameters()
-
-    def init_state(self, seed: Optional[int] = None) -> TrainState:
-        self._d_optimizer = None
-        return super().init_state(seed)
-
-    def d_optimizer(self) -> torch.optim.Optimizer:
-        if self._d_optimizer is None:
-            self._d_optimizer = build_optimizer(self.discriminator.parameters(),
-                                                self._d_lr or self.lr)
-        return self._d_optimizer
-
-    def optimizer_state(self):
-        if self._optimizer is None and self._d_optimizer is None:
-            return None
-        return {"generator": None if self._optimizer is None else self._optimizer.state_dict(),
-                "discriminator": (None if self._d_optimizer is None
-                                  else self._d_optimizer.state_dict())}
-
-    def load_optimizer_state(self, saved) -> None:
-        self._optimizer = self._d_optimizer = None
-        if saved is None:
-            return
-        if saved.get("generator") is not None:
-            self.optimizer().load_state_dict(saved["generator"])
-        if saved.get("discriminator") is not None:
-            self.d_optimizer().load_state_dict(saved["discriminator"])
-
-    def _jax_state_dict(self, loaded):
-        """``params`` {generator, discriminator} and the discriminator's
-        BatchNorm statistics, ``extra["d_bstats"]``."""
-        from rumpy_tpu_torch.utils.weights import state_dict_from_jax
-        stats = (loaded.get("extra") or {}).get("d_bstats")
-        return state_dict_from_jax(loaded["network"], self.module,
-                                   batch_stats={"discriminator": stats} if stats else None)
 
     def apply(self, params, batch, train=False, rng=None, extra=None):
         self._use_params(params)
@@ -616,32 +568,13 @@ class FaceGANHandler(BaseHandler):
                                                                   device=self.device))
             loss_real = -torch.log(pred_real + eps).mean()
             loss_fake = -torch.log(1.0 - pred_fake + eps).mean()
-            self._step(self.d_optimizer(), d.parameters(), loss_real + loss_fake, None, None)
+            optimizer_update(self.d_optimizer(), d.parameters(), loss_real + loss_fake)
             with frozen(d):
                 gen = g(torch.as_tensor(draws["z_g"], device=self.device))
                 g_loss = -torch.log(d(gen, train=False) + eps).mean()
-                self._step(self.optimizer(), g.parameters(), g_loss,
-                           self.grad_clip, self.schedule(int(state.step)))
+                optimizer_update(self.optimizer(), g.parameters(), g_loss,
+                                 self.grad_clip, self.schedule(int(state.step)))
         return {"train-loss": g_loss.detach(), "d-loss-real": loss_real.detach(),
                 "d-loss-fake": loss_fake.detach(),
                 "d-acc-real": (pred_real > 0.5).float().mean(),
                 "d-acc-fake": (pred_fake <= 0.5).float().mean()}
-
-    @staticmethod
-    def _step(opt, params, loss, clip, lr) -> None:
-        """Gradients of ``loss`` (zeros where a parameter got none, as optax
-        updates every leaf), optax's clipping where set, the scheduled lr
-        where given, the update."""
-        from rumpy_tpu_torch.models.base import clip_by_global_norm
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        params = list(params)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if clip is not None:
-            clip_by_global_norm([p.grad for p in params], float(clip))
-        if lr is not None:
-            for group in opt.param_groups:
-                group["lr"] = float(lr)
-        opt.step()

@@ -48,7 +48,7 @@ from torch import nn
 from rumpy_tpu_torch.models.attention_manipulators import (ParaCALayer, compute_num_metadata,
                                                            select_metadata_columns)
 from rumpy_tpu_torch.models.base import (BaseHandler, TrainState, build_optimizer,
-                                         build_schedule, clip_by_global_norm)
+                                         build_schedule, optimizer_update)
 from rumpy_tpu_torch.models.common import (BatchNorm, Conv, Linear, pixel_unshuffle,
                                            upsample_nearest)
 from rumpy_tpu_torch.models.contrastive import device_batch
@@ -303,6 +303,61 @@ def frozen(module: nn.Module):
 # Handlers
 # ---------------------------------------------------------------------------
 
+class PairedGANHandler(BaseHandler):
+    """A handler whose module is a ``GANPair`` with two optimizers, as the
+    JAX handlers' ``tx`` and ``d_tx``: the handler's own (its lr, scheduler
+    and clipping) over the generator, and an Adam at ``discriminator_lr``
+    (default the handler's lr) without a schedule over the discriminator.
+    A JAX checkpoint's BatchNorm statistics are its ``extra["g_bstats"]``
+    and ``extra["d_bstats"]``, where present."""
+
+    def __init__(self, discriminator_lr=None, **kwargs):
+        self._d_lr = discriminator_lr
+        self._d_optimizer = None
+        super().__init__(**kwargs)
+
+    @property
+    def discriminator(self) -> nn.Module:
+        return self.module.discriminator
+
+    def trainable_parameters(self):
+        return self.module.generator.parameters()
+
+    def init_state(self, seed: Optional[int] = None) -> TrainState:
+        self._d_optimizer = None
+        return super().init_state(seed)
+
+    def d_optimizer(self) -> torch.optim.Optimizer:
+        if self._d_optimizer is None:
+            self._d_optimizer = build_optimizer(self.discriminator.parameters(),
+                                                self._d_lr or self.lr)
+        return self._d_optimizer
+
+    def optimizer_state(self):
+        if self._optimizer is None and self._d_optimizer is None:
+            return None
+        return {"generator": None if self._optimizer is None else self._optimizer.state_dict(),
+                "discriminator": (None if self._d_optimizer is None
+                                  else self._d_optimizer.state_dict())}
+
+    def load_optimizer_state(self, saved) -> None:
+        self._optimizer = self._d_optimizer = None
+        if saved is None:
+            return
+        if saved.get("generator") is not None:
+            self.optimizer().load_state_dict(saved["generator"])
+        if saved.get("discriminator") is not None:
+            self.d_optimizer().load_state_dict(saved["discriminator"])
+
+    def _jax_state_dict(self, loaded):
+        from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+        extra = loaded.get("extra") or {}
+        stats = {part: extra[key] for part, key in (("generator", "g_bstats"),
+                                                    ("discriminator", "d_bstats"))
+                 if extra.get(key)}
+        return state_dict_from_jax(loaded["network"], self.module, batch_stats=stats or None)
+
+
 def _bce(logits, target: float):
     return F.binary_cross_entropy_with_logits(logits, torch.full_like(logits, target))
 
@@ -487,23 +542,12 @@ class BaseGANHandler(BaseHandler):
     # -- train ---------------------------------------------------------------
 
     def _update(self, name: str, loss) -> None:
-        """Gradients of ``loss`` (set to none first), zeros where a
-        parameter got none, the pre-train optimizer's clipping, the lr of
-        this optimizer's own step count, the step."""
+        """An update of optimizer ``name`` from ``loss`` (``optimizer_update``:
+        the pre-train optimizer's clipping, the lr of this optimizer's own
+        step count)."""
         opt = self._opt(name)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        params = [p for g in opt.param_groups for p in g["params"]]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip = self._opt_specs[name][4]
-        if clip is not None:
-            clip_by_global_norm([p.grad for p in params], float(clip))
-        lr = float(self._schedules[name](self._opt_counts[name]))
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        optimizer_update(opt, (p for g in opt.param_groups for p in g["params"]), loss,
+                         self._opt_specs[name][4], self._schedules[name](self._opt_counts[name]))
         self._opt_counts[name] += 1
 
     def train_batch(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:

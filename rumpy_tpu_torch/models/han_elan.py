@@ -369,16 +369,6 @@ QELAN = ELAN  # meta-attention engaged by num_metadata > 0
 # Handlers
 # ---------------------------------------------------------------------------
 
-class _BatchStatsCheckpoint:
-    """A JAX-written ELAN checkpoint holds GMSA's running statistics in
-    ``extra.vars.batch_stats``: they load into the BatchNorm buffers."""
-
-    def _jax_state_dict(self, loaded):
-        from rumpy_tpu_torch.utils.weights import state_dict_from_jax
-        stats = ((loaded.get("extra") or {}).get("vars") or {}).get("batch_stats")
-        return state_dict_from_jax(loaded["network"], self.module, batch_stats=stats)
-
-
 @register_model("han")
 class HANHandler(BaseHandler):
     loss_type = "l1"
@@ -394,7 +384,7 @@ class HANHandler(BaseHandler):
 
 
 @register_model("elan")
-class ELANHandler(_BatchStatsCheckpoint, BaseHandler):
+class ELANHandler(BaseHandler):
     """ELAN; a train step normalises GMSA's BatchNorm by the batch's
     statistics and updates the running ones, evaluation reads them."""
 
@@ -435,7 +425,7 @@ class QHANHandler(QModelHandler):
 
 
 @register_model("qelan")
-class QELANHandler(_BatchStatsCheckpoint, QModelHandler):
+class QELANHandler(QModelHandler):
     """QELAN: ELAN with a ParaCALayer of the metadata every ``meta_every``
     blocks; BatchNorm as in ``elan``."""
 

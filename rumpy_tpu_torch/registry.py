@@ -22,7 +22,9 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.contrastive",
     "rumpy_tpu_torch.models.dan",
     "rumpy_tpu_torch.models.dasr",
+    "rumpy_tpu_torch.models.dic",
     "rumpy_tpu_torch.models.face_models",
+    "rumpy_tpu_torch.models.fssr",
     "rumpy_tpu_torch.models.gan_models",
     "rumpy_tpu_torch.models.han_elan",
     "rumpy_tpu_torch.models.ikc",
@@ -31,6 +33,7 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.san",
     "rumpy_tpu_torch.models.sftmd_variants",
     "rumpy_tpu_torch.models.swinir",
+    "rumpy_tpu_torch.models.wavelet",
 ]
 _TOOL_MODULES = [
     "rumpy_tpu_torch.degradations.blur",

@@ -89,16 +89,17 @@ class LPIPS(nn.Module):
                 np.asarray(v, np.float32).reshape(-1)), persistent=False)
         self.register_buffer("shift", torch.tensor(_SHIFT)[:, None, None], persistent=False)
         self.register_buffer("scale", torch.tensor(_SCALE)[:, None, None], persistent=False)
-        self.to(resolve_device(device)).eval()
+        self.to(resolve_device(device)).eval().requires_grad_(False)
 
     def forward(self, a, b):
         return self.distance(a, b)
 
-    @torch.no_grad()
     def distance(self, a, b, params=None, lins: Optional[Sequence] = None) -> torch.Tensor:
         """(N,) distances of two (N, H, W, 3) batches in [0, 1]. ``params``
         (a flax tree ``{Conv_<i>: {kernel, bias}}``) and ``lins`` (the
-        heads) replace the loaded weights where given."""
+        heads) replace the loaded weights where given. The weights take no
+        gradient; the images do, where they carry one (FSSR-DSGAN's
+        perceptual loss)."""
         backbone = self.backbone
         dev = self.shift.device
         if params is not None:
@@ -107,7 +108,7 @@ class LPIPS(nn.Module):
             backbone.load_state_dict(state_dict_from_jax(
                 {k: {n: np.asarray(v) for n, v in leaf.items()} for k, leaf in params.items()},
                 backbone))
-            backbone = backbone.to(dev)
+            backbone = backbone.to(dev).requires_grad_(False)
         heads = [getattr(self, f"lin_{i}") for i in range(self.num_heads)] if lins is None else [
             torch.as_tensor(np.asarray(v, np.float32).reshape(-1), device=dev) for v in lins]
         x = torch.cat([torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)])

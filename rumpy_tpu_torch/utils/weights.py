@@ -27,7 +27,9 @@ SwinIR's ``RSTB_<i>/SwinBlock_<j>/WindowAttention_0/SDense_<k>`` and
 ``LayerNorm_<k>`` (flax's ``scale`` is the port's ``weight``); LPIPS's
 AlexNet ``Conv_<i>``; the regressors' ``TConv_<i>``, ``TDense_<i>``,
 ``BatchNorm_<i>``, ``_ResBlock_<i>``, ``_MBConv_<i>``, ``MABlock_<i>``,
-``MAConv_<i>`` and ``TConvTranspose_0``). A module with a
+``MAConv_<i>`` and ``TConvTranspose_0``; DIC's explicit layer names;
+WaveletSRNet's, the wavelet discriminator's and DSGAN's, with their grouped
+convs and BatchNorm). A module with a
 parameter of its own beside its children (``flax_leaves``: the scalar
 ``gamma`` of LAM, CSAM and SAN; SwinIR's ``relative_position_bias``)
 maps it at its own path, or at a path of
@@ -36,8 +38,10 @@ keys below it (a spectral-norm conv's ``u`` and ``sigma`` are the
 non-local block is one flax submodule and one port module. A 3-D conv
 kernel (``Conv3d``, CSAM's) goes DHWIO -> OIDHW; a transposed conv's
 (``ConvTranspose``) is flipped in both spatial axes and goes HWIO -> (in,
-out, kh, kw); a PReLU's ``alpha`` is the flax leaf ``prelu`` or
-``preact_prelu`` at its owner's path. Flax names a compact
+out, kh, kw), while a ``TorchConvTranspose``'s (torch's transposed conv,
+stored (kh, kw, out, in) by the JAX package) is transposed only; a PReLU's
+``alpha`` is the flax leaf ``prelu`` or ``preact_prelu`` at its owner's
+path, a ``PRelu``'s ``weight`` the leaf ``prelu`` at its own. Flax names a compact
 module's children in the order they are constructed, and an outer conv
 is constructed before its inner one: an ``SFTLayer``'s ``TConv_0`` is
 its scale branch's second conv. Any unused or missing
@@ -62,10 +66,11 @@ from rumpy_tpu_torch.models.blind_sr import BlindSRPipeline, EncodingReducer
 from rumpy_tpu_torch.models.common import (RCAB, BatchNorm, CALayer, Conv, Conv3d,
                                            ConvTranspose, LayerNorm, Linear, ResBlock, Upsampler)
 from rumpy_tpu_torch.models.contrastive import DASREncoder
+from rumpy_tpu_torch.models.face_attribute_gans import TorchConvTranspose
 from rumpy_tpu_torch.models.sftmd_variants import SFTMD, SFTResidualBlock, SftConvs
 
 Path = Tuple[str, ...]
-LEAF_TYPES = (Conv, Conv3d, ConvTranspose, Linear, BatchNorm, LayerNorm)
+LEAF_TYPES = (Conv, Conv3d, ConvTranspose, TorchConvTranspose, Linear, BatchNorm, LayerNorm)
 
 
 def _entries(module: nn.Module, port: str, flax: Path) -> Iterator[Tuple[str, Path, nn.Module]]:
@@ -200,6 +205,7 @@ _LEAVES = {
     Conv: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     Conv3d: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     ConvTranspose: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    TorchConvTranspose: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     Linear: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     BatchNorm: {"scale": ("params", "scale"), "bias": ("params", "bias"),
                 "running_mean": ("batch_stats", "mean"),
@@ -228,6 +234,8 @@ def _to_port(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
         return arr.transpose(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
     if name == "weight" and isinstance(module, ConvTranspose):
         return arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO flipped -> (in, out, kh, kw)
+    if name == "weight" and isinstance(module, TorchConvTranspose):
+        return arr.transpose(3, 2, 0, 1)  # (kh, kw, out, in) -> (in, out, kh, kw)
     if name == "weight" and isinstance(module, Linear):
         return arr.T  # (in, out) -> (out, in)
     return arr
@@ -240,6 +248,8 @@ def _to_flax(arr: np.ndarray, module: nn.Module, name: str) -> np.ndarray:
         return arr.transpose(2, 3, 4, 1, 0)  # OIDHW -> DHWIO
     if name == "weight" and isinstance(module, ConvTranspose):
         return arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if name == "weight" and isinstance(module, TorchConvTranspose):
+        return arr.transpose(2, 3, 1, 0)
     if name == "weight" and isinstance(module, Linear):
         return arr.T
     return arr
@@ -348,7 +358,8 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
     as a flax tree of ``collection`` ("params", or "batch_stats" for the
     BatchNorm running statistics), nested dicts of float32 numpy arrays
     (conv kernels OIHW -> HWIO, dense weights (out, in) -> (in, out)), so
-    parameters can be compared leaf for leaf."""
+    parameters can be compared leaf for leaf. The arrays are copies: a
+    later in-place update of the module leaves them as they were."""
     tree: Dict[str, Any] = {}
     used = set()
     for port, flax, mod in _entries(module, "", ()):
@@ -362,7 +373,7 @@ def jax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor],
             for k in path[:-1]:
                 node = node.setdefault(k, {})
             arr = state_dict[key].detach().cpu().float().numpy()
-            node[path[-1]] = np.ascontiguousarray(_to_flax(arr, mod, name))
+            node[path[-1]] = np.array(_to_flax(arr, mod, name), order="C")  # a copy
     unused = sorted(set(state_dict) - used)
     if unused:
         raise ValueError(f"state_dict entries with no flax leaf: {unused}")

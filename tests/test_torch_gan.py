@@ -3,16 +3,13 @@
 conjugations of ``dan.py`` and ``blind_sr.py``): RRDBNet and QRRDBNet at
 scales 4, 2 and 1; flax's spectral norm (outputs, ``u`` and ``sigma`` after
 one and three train calls, eval calls that leave them); the VGG-128
-discriminator with BatchNorm in train mode; one pre-train step and one
-adversarial step for each ``gan_mode`` against ``_pretrain_step_impl`` and
-``_gan_step_impl`` (losses, generator and discriminator parameters, the
-discriminator's state after its four updates), the VGG-19 content term
-included; the discriminator without gradient from the generator loss; the
-VGG-19 taps and ``PerceptualMechanism`` at seeded npz weights, and both
-packages refusing to build them without weights; ``danv1qrealesrgan`` and
+discriminator with BatchNorm in train mode; the VGG-19 taps and
+``PerceptualMechanism`` at seeded npz weights, and both packages refusing to
+build them without weights; ``danv1qrealesrgan`` and
 ``contrastiveblindqrealesrgan`` steps; a JAX-written GAN checkpoint scored
 in the port; and a tiny ``realesrgan`` through both CLIs with a resume bit
-for bit.
+for bit. The handler's steps are in ``test_torch_gan_handler.py``, which
+takes this file's helpers.
 
 Flax params are carried over by the weight bridge (biases jittered off
 zero), inputs come from a numpy seed. Tolerances: f32 outputs within 1e-5 of
@@ -72,6 +69,117 @@ def _close(got, want, rel=F32_REL):
     want = np.asarray(want, np.float64)
     err = np.abs(np.asarray(got, np.float64) - want).max()
     assert err <= rel * max(np.abs(want).max(), 1e-30), err
+
+
+def _jnp(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _assert_losses(got, want):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w = float(w)
+        assert abs(float(got[k]) - w) <= F32_REL * max(abs(w), 1e-6), (k, float(got[k]), w)
+
+
+def _assert_gan_step(jh, js, th, batch, moves=True):
+    """One adversarial step in both packages: the losses, both networks'
+    updates (unless ``moves`` is False) and the discriminator's state."""
+    state = th._own_state()
+    before = jax.tree_util.tree_map(np.copy, jax_tree_from_state_dict(state.params, th.module))
+    js2, jl = jh.train_batch(jax.tree_util.tree_map(jnp.copy, js), _jnp(batch))
+    state2, tl = th.train_batch(state, batch)
+    _assert_losses(tl, jl)
+    for part in ("generator", "discriminator") if moves else ():
+        prefix = f"{part}."
+        _assert_moves(getattr(th.module, part),
+                      {k[len(prefix):]: v for k, v in state2.params.items()
+                       if k.startswith(prefix)}, before[part], js2.params[part])
+    got = jax_tree_from_state_dict(state2.params, th.module, collection="batch_stats")
+    want = _np(js2.extra["d_vars"]["batch_stats"])
+    for (path, w), g, b in zip(jax.tree_util.tree_flatten_with_path(want)[0],
+                               jax.tree_util.tree_leaves(got["discriminator"]),
+                               jax.tree_util.tree_leaves(_np(js.extra["d_vars"]["batch_stats"]))):
+        np.testing.assert_allclose(g, w, atol=STAT_TOL, rtol=STAT_TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+        assert not np.array_equal(w, b) or w.ndim == 0, jax.tree_util.keystr(path)
+    return tl
+
+
+def _assert_moves(module, params_after, before, want_after, rel=F32_GRAD_REL, ulps=PARAM_ULPS):
+    """Each leaf's move under SGD at lr 1 within ``rel`` of the JAX move
+    plus ``ulps`` (two float32 ulps of a parameter below 1; leaves in
+    flax's order)."""
+    after = jax_tree_from_state_dict(params_after, module)
+    largest = 0.0
+    for (path, w), g, b in zip(jax.tree_util.tree_flatten_with_path(_np(want_after))[0],
+                               jax.tree_util.tree_leaves(after), jax.tree_util.tree_leaves(before)):
+        move = np.abs(w - b).max()
+        largest = max(largest, move)
+        assert np.abs(g - w).max() <= rel * move + ulps, jax.tree_util.keystr(path)
+    assert largest > 0
+
+
+# shared by the handler tests in test_torch_gan_handler.py
+
+VGG_CFG_CONVS = [c for c in jfe.VGG19_CFG if c != "M"]
+
+
+@functools.lru_cache(maxsize=None)
+def _vgg_npz(tmp_dir):
+    """Seeded random VGG-19 weights in the flax-layout npz (He-scaled, so
+    features stay O(1) to conv5_4)."""
+    rng = np.random.default_rng(19)
+    out, cin = {}, 3
+    for i, c in enumerate(VGG_CFG_CONVS):
+        out[f"Conv_{i}/kernel"] = (rng.standard_normal((3, 3, cin, c))
+                                   * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        out[f"Conv_{i}/bias"] = (0.01 * rng.standard_normal(c)).astype(np.float32)
+        cin = c
+    path = os.path.join(tmp_dir, "vgg19_seeded.npz")
+    np.savez(path, **out)
+    return path
+
+
+@pytest.fixture(scope="module")
+def vgg_npz(tmp_path_factory):
+    return _vgg_npz(str(tmp_path_factory.mktemp("vgg")))
+
+
+# (handler, gan_mode, lr side); esrgan runs the VGG-128 discriminator (HR 128)
+# and the VGG-19 content term
+STEP_CASES = {"lsgan": ("realesrgan", "lsgan", 8), "bce": ("bsrgan", "bce", 8),
+              "relativistic": ("esrgan", "relativistic", 32)}
+
+
+def _gan_kwargs(vgg=None):
+    kw = dict(SMALL, **SGD, main_lr=1.0, d_lr=1.0, pretrain_epochs=1)
+    if vgg is not None:
+        kw.update(vgg_weights=vgg, lambda_vgg=1.0)
+    return kw
+
+
+def _gan_pair(case, vgg=None):
+    name, mode, _ = STEP_CASES[case]
+    kw = _gan_kwargs(vgg)
+    jh = jax_model(name)(**kw)
+    jh.gan_mode = mode
+    js = jh.init_state()
+    params = _jitter(js.params, len(case))
+    js = js.replace(params=jax.tree_util.tree_map(jnp.asarray, params))
+    th = torch_model(name)(device="cpu", **kw)
+    th.gan_mode = mode
+    stats = _np(js.extra["d_vars"]["batch_stats"])
+    th.module.load_state_dict(state_dict_from_jax(params, th.module,
+                                                  batch_stats={"discriminator": stats}))
+    return jh, js, th
+
+
+def _gan_batch(case, seed=0, n=2):
+    side = STEP_CASES[case][2]
+    rng = np.random.default_rng(seed)
+    return {"lr": rng.random((n, side, side, 3)).astype(np.float32),
+            "hr": rng.random((n, 4 * side, 4 * side, 3)).astype(np.float32)}
 
 
 # -- generator ---------------------------------------------------------------------
@@ -217,385 +325,6 @@ def test_vgg128_discriminator_matches_flax():
         _close(tm(_nchw(x), train=False).numpy(), want)
 
 
-# -- the GAN handler ---------------------------------------------------------------
-
-VGG_CFG_CONVS = [c for c in jfe.VGG19_CFG if c != "M"]
-
-
-@functools.lru_cache(maxsize=None)
-def _vgg_npz(tmp_dir):
-    """Seeded random VGG-19 weights in the flax-layout npz (He-scaled, so
-    features stay O(1) to conv5_4)."""
-    rng = np.random.default_rng(19)
-    out, cin = {}, 3
-    for i, c in enumerate(VGG_CFG_CONVS):
-        out[f"Conv_{i}/kernel"] = (rng.standard_normal((3, 3, cin, c))
-                                   * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
-        out[f"Conv_{i}/bias"] = (0.01 * rng.standard_normal(c)).astype(np.float32)
-        cin = c
-    path = os.path.join(tmp_dir, "vgg19_seeded.npz")
-    np.savez(path, **out)
-    return path
-
-
-@pytest.fixture(scope="module")
-def vgg_npz(tmp_path_factory):
-    return _vgg_npz(str(tmp_path_factory.mktemp("vgg")))
-
-
-# (handler, gan_mode, lr side); esrgan runs the VGG-128 discriminator (HR 128)
-# and the VGG-19 content term
-STEP_CASES = {"lsgan": ("realesrgan", "lsgan", 8), "bce": ("bsrgan", "bce", 8),
-              "relativistic": ("esrgan", "relativistic", 32)}
-
-
-def _gan_kwargs(vgg=None):
-    kw = dict(SMALL, **SGD, main_lr=1.0, d_lr=1.0, pretrain_epochs=1)
-    if vgg is not None:
-        kw.update(vgg_weights=vgg, lambda_vgg=1.0)
-    return kw
-
-
-def _gan_pair(case, vgg=None):
-    name, mode, _ = STEP_CASES[case]
-    kw = _gan_kwargs(vgg)
-    jh = jax_model(name)(**kw)
-    jh.gan_mode = mode
-    js = jh.init_state()
-    params = _jitter(js.params, len(case))
-    js = js.replace(params=jax.tree_util.tree_map(jnp.asarray, params))
-    th = torch_model(name)(device="cpu", **kw)
-    th.gan_mode = mode
-    stats = _np(js.extra["d_vars"]["batch_stats"])
-    th.module.load_state_dict(state_dict_from_jax(params, th.module,
-                                                  batch_stats={"discriminator": stats}))
-    return jh, js, th
-
-
-def _gan_batch(case, seed=0, n=2):
-    side = STEP_CASES[case][2]
-    rng = np.random.default_rng(seed)
-    return {"lr": rng.random((n, side, side, 3)).astype(np.float32),
-            "hr": rng.random((n, 4 * side, 4 * side, 3)).astype(np.float32)}
-
-
-def _jnp(batch):
-    return {k: jnp.asarray(v) for k, v in batch.items()}
-
-
-def _assert_moves(module, params_after, before, want_after, rel=F32_GRAD_REL, ulps=PARAM_ULPS):
-    """Each leaf's move under SGD at lr 1 within ``rel`` of the JAX move
-    plus ``ulps`` (two float32 ulps of a parameter below 1; leaves in
-    flax's order)."""
-    after = jax_tree_from_state_dict(params_after, module)
-    largest = 0.0
-    for (path, w), g, b in zip(jax.tree_util.tree_flatten_with_path(_np(want_after))[0],
-                               jax.tree_util.tree_leaves(after), jax.tree_util.tree_leaves(before)):
-        move = np.abs(w - b).max()
-        largest = max(largest, move)
-        assert np.abs(g - w).max() <= rel * move + ulps, jax.tree_util.keystr(path)
-    assert largest > 0
-
-
-def _jax_f64_step(name, mode, kw, js, batch):
-    """The JAX handler's adversarial step in float64 from the same state:
-    its modules rebuilt with dtype float64 (flax casts params and inputs to
-    it). Returns the params after it, in float64."""
-    f64 = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), t)
-    with jax.enable_x64(True):
-        h = jax_model(name)(**kw)
-        h.gan_mode = mode
-        h.set_epoch(1)
-        h.dtype = jnp.float64
-        h.module = h.build_module(**h.model_kwargs)
-        h.discriminator = h.build_discriminator()
-        if h.vgg_module is not None:
-            h.vgg_module = jfe.VGG19Features(tap=h.vgg_module.tap, dtype=jnp.float64)
-            h._vgg_params = f64(h._vgg_params)
-        params = f64(_np(js.params))
-        opt = {"generator": h.main_tx.init(params["generator"]),
-               "discriminator": h.d_tx.init(params["discriminator"])}
-        state = jax.tree_util.tree_map(jnp.copy, js).replace(
-            params=params, opt_state=opt, extra={"d_vars": f64(_np(js.extra["d_vars"]))})
-        out, _ = h.train_batch(state, {k: jnp.asarray(v, jnp.float64) for k, v in batch.items()})
-        return _np(out.params)
-
-
-def _port_f64_step(th, batch, monkeypatch):
-    """The port handler's step in float64 from its current state: its
-    modules in float64 and every ``Tensor.float()`` (the losses' and
-    BatchNorm's float32 statistics) widened to float64. Returns the
-    params before and after it, in flax's tree, in float64."""
-    monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
-    th.module.double()
-    for m in th.module.modules():
-        if hasattr(m, "dtype"):
-            m.dtype = torch.float64
-    th._optimizers = {}
-    state = th._own_state()
-    before = jax.tree_util.tree_map(np.copy, jax_tree_from_state_dict(state.params, th.module))
-    state2, _ = th.train_batch(state, {k: torch.from_numpy(v).double() for k, v in batch.items()})
-    return before, jax_tree_from_state_dict(state2.params, th.module)
-
-
-def _assert_losses(got, want):
-    assert set(got) == set(want)
-    for k, w in want.items():
-        w = float(w)
-        assert abs(float(got[k]) - w) <= F32_REL * max(abs(w), 1e-6), (k, float(got[k]), w)
-
-
-@pytest.mark.parametrize("case", list(STEP_CASES))
-def test_pretrain_step_matches_jax(case):
-    """Epoch 0 of 1 pre-training epoch: the L1 step on the pre-train
-    optimizer, the discriminator untouched, the loss keys of the JAX step."""
-    jh, js, th = _gan_pair(case)
-    state = th._own_state()
-    batch = _gan_batch(case, 1)
-    jh.set_epoch(0)
-    th.set_epoch(0)
-    before = jax.tree_util.tree_map(np.copy, jax_tree_from_state_dict(state.params, th.module))
-    js2, jl = jh.train_batch(jax.tree_util.tree_map(jnp.copy, js), _jnp(batch))
-    state2, tl = th.train_batch(state, batch)
-    _assert_losses(tl, jl)
-    _assert_moves(th.module.generator, {k[len("generator."):]: v for k, v in
-                                        state2.params.items() if k.startswith("generator.")},
-                  before["generator"], js2.params["generator"])
-    d_after = jax_tree_from_state_dict(state2.params, th.module)["discriminator"]
-    for g, b in zip(jax.tree_util.tree_leaves(d_after),
-                    jax.tree_util.tree_leaves(before["discriminator"])):
-        np.testing.assert_array_equal(g, b)
-    assert set(th._optimizers) == {"generator_pre"}
-
-
-def _assert_gan_step(jh, js, th, batch, moves=True):
-    """One adversarial step in both packages: the losses, both networks'
-    updates (unless ``moves`` is False) and the discriminator's state."""
-    state = th._own_state()
-    before = jax.tree_util.tree_map(np.copy, jax_tree_from_state_dict(state.params, th.module))
-    js2, jl = jh.train_batch(jax.tree_util.tree_map(jnp.copy, js), _jnp(batch))
-    state2, tl = th.train_batch(state, batch)
-    _assert_losses(tl, jl)
-    for part in ("generator", "discriminator") if moves else ():
-        prefix = f"{part}."
-        _assert_moves(getattr(th.module, part),
-                      {k[len(prefix):]: v for k, v in state2.params.items()
-                       if k.startswith(prefix)}, before[part], js2.params[part])
-    got = jax_tree_from_state_dict(state2.params, th.module, collection="batch_stats")
-    want = _np(js2.extra["d_vars"]["batch_stats"])
-    for (path, w), g, b in zip(jax.tree_util.tree_flatten_with_path(want)[0],
-                               jax.tree_util.tree_leaves(got["discriminator"]),
-                               jax.tree_util.tree_leaves(_np(js.extra["d_vars"]["batch_stats"]))):
-        np.testing.assert_allclose(g, w, atol=STAT_TOL, rtol=STAT_TOL,
-                                   err_msg=jax.tree_util.keystr(path))
-        assert not np.array_equal(w, b) or w.ndim == 0, jax.tree_util.keystr(path)
-    return tl
-
-
-@pytest.mark.parametrize("case", list(STEP_CASES))
-def test_gan_step_matches_jax(case, monkeypatch):
-    """Past pre-training: one adversarial step per gan_mode (lsgan, bce
-    against the U-Net SN discriminator; relativistic against VGG-128): the
-    losses, both networks' updates and the discriminator's state after its
-    four train-mode calls.
-
-    VGG-128's last BatchNorms normalise 2 x 4 x 4 values a channel by
-    E[x^2] - E[x]^2, on the generator's near-flat output too, which
-    amplifies float32 rounding: JAX's float32 step stands percents of a
-    move off its float64 step in the discriminator, the port's in the
-    generator's tail (the test prints both). So for relativistic the
-    float32 step holds the losses and the statistics, and both packages'
-    steps in float64 hold the updates: within 1e-9 of each move."""
-    jh, js, th = _gan_pair(case)
-    jh.set_epoch(1)
-    th.set_epoch(1)
-    batch = _gan_batch(case, 2)
-    tl = _assert_gan_step(jh, js, th, batch, moves=case != "relativistic")
-    assert set(tl) == {"train-loss", "l1-loss", "gan-loss", "vgg-loss", "d-loss-real",
-                       "d-loss-fake"}
-    assert float(tl["vgg-loss"]) == 0.0
-    assert set(th._optimizers) == {"generator", "discriminator"}
-    if case == "relativistic":
-        name, mode, _ = STEP_CASES[case]
-        truth = _jax_f64_step(name, mode, _gan_kwargs(), js, batch)
-        js32, _ = jh.train_batch(jax.tree_util.tree_map(jnp.copy, js), _jnp(batch))
-        port32 = jax_tree_from_state_dict(th._own_state().params, th.module)
-        _, _, th = _gan_pair(case)
-        th.set_epoch(1)
-        before, after = _port_f64_step(th, batch, monkeypatch)
-        for part in ("generator", "discriminator"):
-            off = {"jax f32": 0.0, "port f32": 0.0, "port f64": 0.0}
-            for (path, w), g, b, j32, p32 in zip(
-                    jax.tree_util.tree_flatten_with_path(truth[part])[0],
-                    *(jax.tree_util.tree_leaves(t[part]) for t in (
-                        after, before, _np(js32.params), port32))):
-                move = np.abs(w - b).max()
-                err = np.abs(g - w).max()
-                assert move > 0 and err <= 1e-9 * move, jax.tree_util.keystr(path)
-                for k, v in (("jax f32", j32), ("port f32", p32), ("port f64", g)):
-                    off[k] = max(off[k], float(np.abs(v - w).max() / move))
-            print(f"{part}: largest distance from JAX's float64 step, in moves: {off}")
-
-
-def test_vgg_content_term_matches_jax(vgg_npz, monkeypatch):
-    """ESRGAN with the VGG-19 conv5_4 content term from the seeded npz: the
-    step's losses (``vgg-loss`` among them) against JAX's; the term's
-    gradient with respect to SR in float64 in both packages, within 1e-9 of
-    its largest entry. In float32 that gradient passes 16 ReLUs and 4 max
-    pools whose masks the rounding of CPU conv algorithms flips: the port's
-    stands about 4e-3 in relative L2 off the float64 one (the test prints
-    both packages'); it is
-    held within 1e-2."""
-    jh, js, th = _gan_pair("relativistic", vgg=vgg_npz)
-    jh.set_epoch(1)
-    th.set_epoch(1)
-    batch = _gan_batch("relativistic", 2)
-    _, jl = jh.train_batch(jax.tree_util.tree_map(jnp.copy, js), _jnp(batch))
-    _, tl = th.train_batch(th._own_state(), batch)
-    _assert_losses(tl, jl)
-    assert float(tl["vgg-loss"]) > 0
-    sr, hr = (np.random.default_rng(s).random((2, 128, 128, 3)).astype(np.float32)
-              for s in (15, 16))
-    params = jfe.load_extractor_params(vgg_npz)
-
-    def content(s, dtype):
-        m = jfe.VGG19Features(tap="conv5_4", dtype=dtype)
-        p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), params)
-        real = jax.lax.stop_gradient(m.apply({"params": p}, jnp.asarray(hr, dtype)))
-        return jnp.mean(jnp.abs(m.apply({"params": p}, s) - real))
-
-    with jax.enable_x64(True):
-        g64 = np.asarray(jax.grad(lambda v: content(v, jnp.float64))(
-            jnp.asarray(sr, jnp.float64)))
-
-    def port_grad(module, dtype):
-        x = torch.from_numpy(sr).to(dtype).requires_grad_(True)
-        gen = module(x.permute(0, 3, 1, 2))
-        with torch.no_grad():
-            real = module(_nchw(hr).to(dtype))
-        (gen - real).abs().mean().backward()
-        return x.grad.numpy()
-
-    g32 = port_grad(th.vgg_module, torch.float32)
-    with jax.enable_x64(False):
-        jax32 = np.asarray(jax.grad(lambda v: content(v, jnp.float32))(jnp.asarray(sr)))
-    rel = lambda g: float(np.linalg.norm(g - g64) / np.linalg.norm(g64))
-    print(f"content gradient, relative L2 from float64: port f32 {rel(g32):.3g}, "
-          f"JAX f32 {rel(jax32):.3g}")
-    assert rel(g32) <= 1e-2
-    monkeypatch.setattr(torch.Tensor, "float", torch.Tensor.double)
-    vgg = th.vgg_module.double()
-    for m in vgg.convs:
-        m.dtype = torch.float64
-    assert np.abs(port_grad(vgg, torch.float64) - g64).max() <= 1e-9 * np.abs(g64).max()
-
-
-def test_discriminator_takes_no_gradient_from_the_generator_loss(monkeypatch):
-    """At the generator update every discriminator parameter's ``.grad`` is
-    None; the discriminator's own update sees only its loss's gradients,
-    which equal a fresh backward of that loss alone."""
-    _, _, th = _gan_pair("lsgan")
-    th.set_epoch(1)
-    seen = {}
-    real = tgan.BaseGANHandler._update
-
-    def spy(self, name, loss):
-        real(self, name, loss)
-        if name == "generator":
-            seen["d_grads"] = [p.grad for p in self.discriminator.parameters()]
-            seen["d_requires_grad"] = [p.requires_grad for p in self.discriminator.parameters()]
-        else:
-            seen["d_update_grads"] = [p.grad.clone() for p in self.discriminator.parameters()]
-
-    monkeypatch.setattr(tgan.BaseGANHandler, "_update", spy)
-    th.train_batch(th._own_state(), _gan_batch("lsgan", 3))
-    assert seen["d_grads"] and all(g is None for g in seen["d_grads"])
-    assert not any(seen["d_requires_grad"])
-    assert all(p.requires_grad for p in th.discriminator.parameters())
-    assert any(float(g.abs().max()) > 0 for g in seen["d_update_grads"])
-
-
-def test_discriminator_state_advances_four_times_a_step():
-    """Every spectral-norm ``u`` is written by the two generator-pass and
-    the two discriminator-pass calls: four writes a step."""
-    _, _, th = _gan_pair("lsgan")
-    th.set_epoch(1)
-    writes = []
-    hooks = [m.register_forward_hook(lambda m, a, o: writes.append(m))
-             for m in th.discriminator.sn]
-    th.train_batch(th._own_state(), _gan_batch("lsgan", 4))
-    for h in hooks:
-        h.remove()
-    assert len(writes) == 4 * len(th.discriminator.sn)
-
-
-# -- feature extractors and the perceptual loss ---------------------------------------
-
-@pytest.mark.parametrize("tap", ["conv1_1", "relu2_2", "pool3", "conv54", "conv5_4"])
-def test_vgg19_taps_match_jax(tap, vgg_npz):
-    """Each tap (pre-activation at a conv, both spellings), only the layers
-    up to it built, ImageNet normalisation, from the seeded npz."""
-    x = np.random.default_rng(6).random((2, 32, 32, 3)).astype(np.float32)
-    want = np.asarray(jfe.VGG19Features(tap=tap).apply(
-        {"params": jfe.load_extractor_params(vgg_npz)}, jnp.asarray(x)))
-    tm = tfe.VGG19Features.from_npz(vgg_npz, tap=tap, device="cpu")
-    with torch.no_grad():
-        got = _nhwc(tm(_nchw(x)))
-    n_convs = sum(1 for s in tm.plan if isinstance(s, int))
-    assert len(tm.convs) == n_convs
-    _close(got, want)
-
-
-def test_perceptual_mechanism_matches_jax(vgg_npz):
-    rng = np.random.default_rng(7)
-    sr, y = (rng.random((2, 32, 32, 3)).astype(np.float32) for _ in range(2))
-    want = float(jlosses.PerceptualMechanism(weights_path=vgg_npz)(jnp.asarray(sr),
-                                                                   jnp.asarray(y)))
-    mech = tlosses.PerceptualMechanism(weights_path=vgg_npz, device="cpu")
-    got = float(mech(torch.from_numpy(sr), torch.from_numpy(y)))
-    assert abs(got - want) <= F32_REL * abs(want)
-    feats = tfe.perceptual_loss_mechanism("vgg", weights=vgg_npz, device="cpu")(
-        torch.from_numpy(sr))
-    _close(feats.detach().numpy(), jfe.perceptual_loss_mechanism("vgg", weights=vgg_npz)(
-        jnp.asarray(sr)))
-
-
-def test_perceptual_paths_raise_without_weights():
-    """No weights, no extractor: both packages raise NotImplementedError,
-    and a GAN handler without ``vgg_weights`` drops the content term."""
-    for mod in (jlosses, tlosses):
-        with pytest.raises(NotImplementedError, match="weights"):
-            mod.PerceptualMechanism()
-    for mod in (jfe, tfe):
-        with pytest.raises(NotImplementedError, match="weights"):
-            mod.perceptual_loss_mechanism("vgg")
-    th = torch_model("esrgan")(device="cpu", **SMALL)
-    assert th.lambda_vgg == 0.0 and th.vgg_module is None
-
-
-def test_convert_torch_vgg19_writes_the_npz_both_packages_read(tmp_path):
-    """A torchvision-layout state dict converts to the same npz in both
-    packages, which the port's extractor loads."""
-    rng = np.random.default_rng(8)
-    sd, cin, idx = {}, 3, 0
-    for spec in jfe.VGG19_CFG:
-        if spec == "M":
-            idx += 1
-            continue
-        sd[f"features.{idx}.weight"] = torch.from_numpy(
-            rng.standard_normal((spec, cin, 3, 3)).astype(np.float32))
-        sd[f"features.{idx}.bias"] = torch.from_numpy(rng.standard_normal(spec).astype(np.float32))
-        cin, idx = spec, idx + 2
-    a = tfe.convert_torch_vgg19(sd, str(tmp_path / "port.npz"))
-    b = jfe.convert_torch_vgg19({k: v.numpy() for k, v in sd.items()}, str(tmp_path / "jax.npz"))
-    pa, pb = tfe.load_extractor_params(a), jfe.load_extractor_params(b)
-    assert set(pa) == set(pb) == {f"Conv_{i}" for i in range(16)}
-    for k in pa:
-        for leaf in ("kernel", "bias"):
-            np.testing.assert_array_equal(pa[k][leaf], np.asarray(pb[k][leaf]))
-    tfe.VGG19Features.from_npz(a, tap="relu1_1", device="cpu")
-
-
 # -- conjugations ---------------------------------------------------------------------
 
 DAN_GAN = dict(nf=16, nb=1, gc=8, d_nf=4, loop=2, scale=2, pretrain_epochs=1, **SGD,
@@ -683,6 +412,73 @@ def test_contrastiveblindqrealesrgan_matches_jax():
     _assert_moves(th.module.generator,
                   {k[len("generator."):]: v for k, v in state2.params.items()
                    if k.startswith("generator.")}, before, js2.params["generator"])
+
+
+# -- feature extractors and the perceptual loss ---------------------------------------
+
+@pytest.mark.parametrize("tap", ["conv1_1", "relu2_2", "pool3", "conv54", "conv5_4"])
+def test_vgg19_taps_match_jax(tap, vgg_npz):
+    """Each tap (pre-activation at a conv, both spellings), only the layers
+    up to it built, ImageNet normalisation, from the seeded npz."""
+    x = np.random.default_rng(6).random((2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jfe.VGG19Features(tap=tap).apply(
+        {"params": jfe.load_extractor_params(vgg_npz)}, jnp.asarray(x)))
+    tm = tfe.VGG19Features.from_npz(vgg_npz, tap=tap, device="cpu")
+    with torch.no_grad():
+        got = _nhwc(tm(_nchw(x)))
+    n_convs = sum(1 for s in tm.plan if isinstance(s, int))
+    assert len(tm.convs) == n_convs
+    _close(got, want)
+
+
+def test_perceptual_mechanism_matches_jax(vgg_npz):
+    rng = np.random.default_rng(7)
+    sr, y = (rng.random((2, 32, 32, 3)).astype(np.float32) for _ in range(2))
+    want = float(jlosses.PerceptualMechanism(weights_path=vgg_npz)(jnp.asarray(sr),
+                                                                   jnp.asarray(y)))
+    mech = tlosses.PerceptualMechanism(weights_path=vgg_npz, device="cpu")
+    got = float(mech(torch.from_numpy(sr), torch.from_numpy(y)))
+    assert abs(got - want) <= F32_REL * abs(want)
+    feats = tfe.perceptual_loss_mechanism("vgg", weights=vgg_npz, device="cpu")(
+        torch.from_numpy(sr))
+    _close(feats.detach().numpy(), jfe.perceptual_loss_mechanism("vgg", weights=vgg_npz)(
+        jnp.asarray(sr)))
+
+
+def test_perceptual_paths_raise_without_weights():
+    """No weights, no extractor: both packages raise NotImplementedError,
+    and a GAN handler without ``vgg_weights`` drops the content term."""
+    for mod in (jlosses, tlosses):
+        with pytest.raises(NotImplementedError, match="weights"):
+            mod.PerceptualMechanism()
+    for mod in (jfe, tfe):
+        with pytest.raises(NotImplementedError, match="weights"):
+            mod.perceptual_loss_mechanism("vgg")
+    th = torch_model("esrgan")(device="cpu", **SMALL)
+    assert th.lambda_vgg == 0.0 and th.vgg_module is None
+
+
+def test_convert_torch_vgg19_writes_the_npz_both_packages_read(tmp_path):
+    """A torchvision-layout state dict converts to the same npz in both
+    packages, which the port's extractor loads."""
+    rng = np.random.default_rng(8)
+    sd, cin, idx = {}, 3, 0
+    for spec in jfe.VGG19_CFG:
+        if spec == "M":
+            idx += 1
+            continue
+        sd[f"features.{idx}.weight"] = torch.from_numpy(
+            rng.standard_normal((spec, cin, 3, 3)).astype(np.float32))
+        sd[f"features.{idx}.bias"] = torch.from_numpy(rng.standard_normal(spec).astype(np.float32))
+        cin, idx = spec, idx + 2
+    a = tfe.convert_torch_vgg19(sd, str(tmp_path / "port.npz"))
+    b = jfe.convert_torch_vgg19({k: v.numpy() for k, v in sd.items()}, str(tmp_path / "jax.npz"))
+    pa, pb = tfe.load_extractor_params(a), jfe.load_extractor_params(b)
+    assert set(pa) == set(pb) == {f"Conv_{i}" for i in range(16)}
+    for k in pa:
+        for leaf in ("kernel", "bias"):
+            np.testing.assert_array_equal(pa[k][leaf], np.asarray(pb[k][leaf]))
+    tfe.VGG19Features.from_npz(a, tap="relu1_1", device="cpu")
 
 
 # -- checkpoints and the CLIs -----------------------------------------------------------

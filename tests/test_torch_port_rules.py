@@ -476,12 +476,22 @@ SLICE16_MODELS = {"srcnn": {}, "vdsr": {},
                                    init_features=8),
                   "efficientnet": dict(output_size=3, width_mult=0.25, depth_mult=0.25),
                   "manet": dict(kernel_size=3, nc=(8, 16))}
-# every name the port registers that builds: 48 of the JAX package's 59
+SLICE17_MODULES = ("models/dic.py", "models/wavelet.py", "models/fssr.py",
+                   "models/face_attribute_gans.py")
+SLICE17_MODELS = {
+    "dic": dict(num_steps=2, num_features=8, num_groups=2, hg_num_feature=16, num_fusion_block=1),
+    "dicnet": dict(nf=8, iterations=1, num_groups=1, hg_num_feature=16, num_fusion_block=1),
+    "waveletsrnet": dict(num_layers_res=1, wavelet_c=2),
+    "waveletnet": dict(num_layers_res=1, wavelet_c=2),
+    "waveletsrgan": dict(num_layers_res=1, wavelet_c=2, include_id_loss=False),
+    "esrganfs": dict(nf=8, nb=1, gc=4, d_nf=4), "fssr": dict(nf=8, nb=1, gc=4, d_nf=4),
+    "fssrdsgan": dict(n_res_blocks=1, use_perceptual_loss=False)}
+# every name the port registers that builds: 56 of the JAX package's 59
 BUILDING_MODELS = ("edsr", "rcan", "qrcan", "qedsr", "contrastiveblindqrcan",
                    "contrastiveblindqedsr", "srmd", "edsrmd", "sftmd", "moco", "supmoco",
                    "weakcon", "supcon", "degradationregressor", "dan", "ikc", "dasr",
                    "dcls") + tuple(GENERATOR_MODELS) + tuple(GAN_MODELS) + tuple(FACE_MODELS) \
-    + tuple(SLICE16_MODELS)
+    + tuple(SLICE16_MODELS) + tuple(SLICE17_MODELS)
 
 
 def _builds_and_runs(name):
@@ -501,8 +511,8 @@ def _builds_and_runs(name):
 def test_port_covers_the_bobw_generator_families():
     """The HAN, ELAN, SAN and GAN-group modules are in the package (so the
     import scans above read them, neither jax nor rumpy_tpu among their
-    imports) and the registry finds 48 names that build (the face group's
-    four and slice 16's eight among them); the three that raised naming
+    imports) and the registry finds 56 names that build (the face group's
+    four, slice 16's eight and slice 17's eight among them); the three that raised naming
     item 9 until gan_models and metabed came build and run."""
     from rumpy_tpu_torch.registry import available_models
     names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
@@ -512,7 +522,7 @@ def test_port_covers_the_bobw_generator_families():
         bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
         assert not bad, (m, bad)
     registered = set(available_models())
-    assert len(BUILDING_MODELS) == 48 and registered == set(BUILDING_MODELS)
+    assert len(BUILDING_MODELS) == 56 and registered == set(BUILDING_MODELS)
     for name in ("contrastiveblindqrealesrgan", "contrastiveblindmetabed"):
         _builds_and_runs(name)
 
@@ -687,6 +697,77 @@ def test_chip_smoke_drives_the_slice_16_phases():
     assert called.index("swinir_train_phase") > called.index("facegan_train_phase")
     text = (ROOT / "chip_smoke.py").read_text()
     for phase in ("swinir_train", "basic_train", "regressor_train"):
+        assert f'"phase": "{phase}"' in text, phase
+        body = {n.func.id for n in ast.walk(fns[f"{phase}_phase"])
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+        assert {"no_rcab", "step_without_sync"} <= body, phase
+    kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
+               and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
+    assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
+
+
+def test_port_covers_slice_17():
+    """DIC, the wavelet family, the FSSR family and the two layers they take
+    from face_attribute_gans are in the package and import neither jax nor
+    rumpy_tpu; the registry finds the slice's eight names, and each builds on
+    the CPU at a tiny width and runs on a 16 x 16 input: x4, or its own size
+    for the scale-1 DSGAN."""
+    from rumpy_tpu_torch.registry import available_models, get_model
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    assert not [m for m in SLICE17_MODULES if m not in names]
+    for m in SLICE17_MODULES:
+        bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
+        assert not bad, (m, bad)
+    assert set(SLICE17_MODELS) <= set(available_models())
+    for name, kw in SLICE17_MODELS.items():
+        handler = get_model(name)(device="cpu", **kw)
+        out = handler.run_eval(handler.init_state(), {"lr": np.full((1, 16, 16, 3), 0.5,
+                                                                    np.float32)})
+        want = (1, 16, 16, 3) if name == "fssrdsgan" else (1, 64, 64, 3)
+        assert tuple(out.shape) == want and bool(torch.isfinite(out).all()), name
+
+
+@pytest.mark.parametrize("name", list(SLICE17_MODELS))
+def test_slice_17_models_raise_without_cuda(monkeypatch, name):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(name)(**SLICE17_MODELS[name])
+
+
+def test_slice_17_steps_read_nothing_back():
+    """The slice's train steps and hooks call nothing that waits for the
+    card (chip_smoke.py runs a step of each under sync debug "error"); DIC's
+    landmarks go up through ``to_device``, its hourglass gate reads the
+    handler's own step count."""
+    calls = []
+    for m, cls_names in (("models/dic.py", ("DICHandler",)),
+                         ("models/wavelet.py", ("WaveletSRNetHandler", "WaveletSRGANHandler")),
+                         ("models/fssr.py", ("FSSRDSGANHandler",))):
+        tree = ast.parse((ROOT / "rumpy_tpu_torch" / m).read_text())
+        for cls in (n for n in tree.body if isinstance(n, ast.ClassDef) and n.name in cls_names):
+            fns = [n for n in cls.body if isinstance(n, ast.FunctionDef)]
+            calls += [f"{cls.name}.{f.name}:{n.lineno} .{n.func.attr}()" for f in fns
+                      for n in ast.walk(f) if isinstance(n, ast.Call)
+                      and isinstance(n.func, ast.Attribute) and n.func.attr in SYNCING_CALLS]
+    assert not calls, calls
+
+
+def test_chip_smoke_drives_the_slice_17_phases():
+    """chip_smoke.py drives the slice's three phases from main(), after the
+    regressors, each printing its row, failing on an RCAB launch and taking
+    a step under sync debug "error"; the kernels line keeps its four
+    entries."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    called = [n.func.id for n in ast.walk(fns["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    for phase in ("dic_train", "wavelet_train", "fssr_train", "regressor_train",
+                  "launch_coverage"):
+        assert f"{phase}_phase" in called, phase
+    assert called.index("dic_train_phase") > called.index("regressor_train_phase")
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in ("dic_train", "wavelet_train", "fssr_train"):
         assert f'"phase": "{phase}"' in text, phase
         body = {n.func.id for n in ast.walk(fns[f"{phase}_phase"])
                 if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
