@@ -5808,13 +5808,13 @@ def dic_train_phase(rcab, card):
     return row
 
 
-def seeded_lightcnn_npz(path, seed):
-    """LightCNN weights for a grey input in the npz layout the port reads
-    (``Conv_<i>/kernel`` HWIO, ``Conv_<i>/bias``), He-scaled normal draws
-    from a seed: pretrained weights stay gated."""
+def seeded_lightcnn_npz(path, seed, cin=1):
+    """LightCNN weights for a grey (or ``cin``-channel) input in the npz
+    layout the port reads (``Conv_<i>/kernel`` HWIO, ``Conv_<i>/bias``),
+    He-scaled normal draws from a seed: pretrained weights stay gated."""
     from rumpy_tpu_torch.models.feature_extractors import LightCNNFeatures
     rng = np.random.default_rng(seed)
-    out, cin = {}, 1
+    out = {}
     for i, (f, k, _) in enumerate(LightCNNFeatures.SPEC):
         out[f"Conv_{i}/kernel"] = (rng.standard_normal((k, k, cin, 2 * f), dtype=np.float32)
                                    * np.float32(np.sqrt(2.0 / (k * k * cin))))
@@ -6008,6 +6008,374 @@ def fssr_train_phase(rcab, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Slice 19: the tools (offline degradation, BiSeNet parsing, FR evaluation)
+# ---------------------------------------------------------------------------
+
+DIV2K_HR = (1356, 2040)  # a DIV2K HR image: 2040 wide; x4 gives 339 x 510
+OFFLINE_IMAGES, OFFLINE_MULTIPLES = 8, 2
+OFFLINE_CHAIN = {
+    "pipeline": [["realesrganblur", "b"], ["downsample", "d"], ["realesrgannoise", "n"],
+                 ["jmcompress", "j"]],
+    "deg_configs": {"b": {"kernel_range": ["iso", "aniso"], "request_kernel_metadata": True},
+                    "d": {"scale": TRAIN_SCALE},
+                    "n": {"gaussian_noise_sigma_range": [1, 30]},
+                    "j": {"random_compression": True}},
+    "output_extension": ".npy"}
+CELEBA_FACE = (218, 178)  # CelebA's aligned faces
+# a few hundred faces a tool run, so that the per-image work, not the
+# loads, sets images/s; the FR gallery holds CelebA's 10,177 identities
+SEGMENT_FACES, FR_EVAL_FACES, FR_CPU_FACES, CELEBA_IDENTITIES = 256, 200, 16, 10177
+
+
+def textured_image(shape, rng):
+    """A photo-like uint8 (H, W, 3) image: smooth bands under noise."""
+    h, w = shape
+    yy, xx = np.ogrid[:h, :w]
+    base = 128.0 + 70.0 * np.sin(xx / 37.0 + rng.random() * 6) * np.cos(yy / 29.0)
+    noise = 14.0 * rng.standard_normal((h, w, 3), dtype=np.float32)
+    return np.clip(base[..., None] + noise, 0, 255).astype(np.uint8)
+
+
+def host_draw_checks(op_card, op_cpu, img, kind):
+    """An op's host call on the card and on the CPU with the same draws,
+    made by a CPU generator: uint8 images within 1 level on <= 0.5 % of
+    pixels, metadata within 1e-5. Returns the worst figures."""
+    from rumpy_tpu_torch.degradations.noise import NoiseDraws
+    from rumpy_tpu_torch.ops import blur_kernels as bk
+    from rumpy_tpu_torch.ops import noise as noise_ops
+    gen = torch.Generator().manual_seed(191)
+    cases = []
+    if kind == "blur":
+        for _ in range(2):
+            d = bk.draw_kernel_params(gen, 1, op_cpu.cfg)
+            cases.append((d, dataclasses.replace(
+                d, **{f.name: getattr(d, f.name).cuda() for f in dataclasses.fields(d)
+                      if getattr(d, f.name) is not None})))
+    else:
+        x = torch.from_numpy(img.astype(np.float32) / 255.0)[None]
+        rounded, gray_img, vals_c, vals_g = noise_ops.poisson_rates(x)
+        lo, hi = op_cpu.gaussian_noise_sigma_range
+        for use_gauss in (True, False):
+            d = NoiseDraws(
+                use_gauss=torch.tensor([use_gauss]),
+                sigma=lo + (hi - lo) * torch.rand(1, generator=gen),
+                gaussian_gray=(torch.rand(1, generator=gen) < 0.4).float(),
+                field=torch.randn(x.shape, generator=gen),
+                scale=torch.rand(1, generator=gen),
+                poisson_gray=(torch.rand(1, generator=gen) < 0.4).float(),
+                sample_c=torch.poisson(rounded * vals_c, generator=gen),
+                sample_g=torch.poisson(gray_img * vals_g, generator=gen))
+            cases.append((d, dataclasses.replace(
+                d, **{f.name: getattr(d, f.name).cuda() for f in dataclasses.fields(d)})))
+    worst = {"max_level_diff": 0, "share_off": 0.0, "metadata_max_abs_err": 0.0}
+    for d_cpu, d_card in cases:
+        (got, got_m), (want, want_m) = op_card(img, draws=d_card), op_cpu(img, draws=d_cpu)
+        diff = np.abs(got.astype(np.int64) - want)
+        worst["max_level_diff"] = max(worst["max_level_diff"], int(diff.max()))
+        worst["share_off"] = max(worst["share_off"], float((diff > 0).mean()))
+        worst["metadata_max_abs_err"] = max(
+            worst["metadata_max_abs_err"],
+            max(float(np.abs(np.subtract(got_m[k], want_m[k])).max()) for k in want_m))
+        if sorted(got_m) != sorted(want_m):
+            raise AssertionError(f"{kind} host call metadata keys {sorted(got_m)}")
+    if (worst["max_level_diff"] > 1 or worst["share_off"] > 5e-3
+            or worst["metadata_max_abs_err"] > 1e-5):
+        raise AssertionError(f"{kind} host call, card against the CPU: {worst}")
+    return worst
+
+
+def offline_degrade_phase(rcab, card):
+    """Offline degradation through cli.image_manipulate on the card: 8
+    seeded DIV2K-sized HR images (.npy, 1356 x 2040), 2 degraded copies
+    each, through realesrganblur (iso/aniso), downsample x4 (jm: an even LR
+    size), realesrgannoise (sigma 1-30) and jmcompress at a random qpi on the
+    native H.264 codec (built from native/rumpy_native.cpp with g++):
+    images/s, each op's ms on one image, the outputs and CSV rows checked;
+    the blur's and the noise's host calls on the card held against the same
+    calls on the CPU with the same draws. No RCAB kernel runs. Returns the
+    row."""
+    from rumpy_tpu_torch import native
+    from rumpy_tpu_torch.cli import image_manipulate
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_offline")
+    shutil.rmtree(root, ignore_errors=True)
+    src, out = os.path.join(root, "hr"), os.path.join(root, "lr")
+    os.makedirs(src)
+    rng = np.random.default_rng(190)
+    images = [textured_image(DIV2K_HR, rng) for _ in range(OFFLINE_IMAGES)]
+    for k, img in enumerate(images):
+        np.save(os.path.join(src, f"{k + 1:04d}.npy"), img)
+    cfg_path = os.path.join(root, "chain.toml")
+    dump_toml(OFFLINE_CHAIN, cfg_path)
+    t0 = time.perf_counter()
+    native._load()
+    build_s = time.perf_counter() - t0
+
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    image_manipulate.main(["-p", cfg_path, "-s", src, "-o", out, "--seed", "19",
+                           "--multiples", str(OFFLINE_MULTIPLES)])
+    seconds = time.perf_counter() - t0
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    no_rcab("offline_degrade", launches)
+    names = sorted(n for n in os.listdir(out) if n.endswith(".npy"))
+    lr_shape = ((DIV2K_HR[0] // TRAIN_SCALE // 2) * 2, (DIV2K_HR[1] // TRAIN_SCALE // 2) * 2, 3)
+    outs = [np.load(os.path.join(out, n)) for n in names]
+    with open(os.path.join(out, "degradation_metadata.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    n_out = OFFLINE_IMAGES * OFFLINE_MULTIPLES
+    if (len(names) != n_out or any(o.shape != lr_shape or o.dtype != np.uint8 for o in outs)
+            or len(rows) != n_out + 1 or rows[0][0] != "image"
+            or not {"3-jmcompress-qpi", "0-realesrganblur-sigma_x"} <= set(rows[0])
+            or np.array_equal(outs[0], outs[1])):
+        raise AssertionError(f"image_manipulate wrote {len(names)} images "
+                             f"{set(o.shape for o in outs)}, {len(rows)} CSV rows {rows[0]}")
+
+    # each op's host call on one image, the chain's own ops on the card
+    pipe = ImagePipeline(OFFLINE_CHAIN["pipeline"], deg_configs=OFFLINE_CHAIN["deg_configs"],
+                         seed=19, device="cuda")
+    for op in pipe.pipeline.values():
+        op.bind_host("cuda", pipe.rng)
+    op_ms, flux = {}, images[0]
+    for (step, name), op in pipe.pipeline.items():
+        op(flux)  # warm: kernels, matrices and generators
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            nxt, _ = op(flux)
+            times.append((time.perf_counter() - t1) * 1e3)
+        op_ms[f"{step}-{name}"] = {"ms": float(np.median(times)), "input": list(flux.shape)}
+        flux = nxt
+
+    # the card against the CPU with the same draws
+    cpu_pipe = ImagePipeline(OFFLINE_CHAIN["pipeline"], deg_configs=OFFLINE_CHAIN["deg_configs"])
+    for op in cpu_pipe.pipeline.values():
+        op.bind_host("cpu")
+    card_ops, cpu_ops = list(pipe.pipeline.values()), list(cpu_pipe.pipeline.values())
+    checks = {"blur_hr": host_draw_checks(card_ops[0], cpu_ops[0], images[1], "blur"),
+              "noise_lr": host_draw_checks(card_ops[2], cpu_ops[2], outs[0], "noise")}
+    row = {"phase": "offline_degrade", "card": card, "images": OFFLINE_IMAGES,
+           "multiples": OFFLINE_MULTIPLES, "hr_shape": list(DIV2K_HR), "lr_shape": list(lr_shape),
+           "chain": [p[0] for p in OFFLINE_CHAIN["pipeline"]], "native_build_s": build_s,
+           "image_manipulate_s": seconds, "degraded_images_per_s": n_out / seconds,
+           "op_ms": op_ms, "card_against_cpu": checks, "launches": launches}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
+def seeded_bisenet_npz(path, seed):
+    """BiSeNet weights in the flax-layout npz the port reads, from a seed:
+    He-scaled kernels, BatchNorm scales and variances in [0.5, 1.5], small
+    biases and means (pretrained weights stay gated)."""
+    from rumpy_tpu_torch.utils.face_segmentation import BiSeNet
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, t in BiSeNet().state_dict().items():
+        *path_, last = name.split(".")
+        base = "/".join(path_)
+        if last == "num_batches_tracked":
+            continue
+        if last == "weight" and t.dim() == 4:
+            o, i, kh, kw = t.shape
+            flat[f"params/{base}/kernel"] = (rng.standard_normal((kh, kw, i, o), dtype=np.float32)
+                                             * np.float32(np.sqrt(2.0 / (kh * kw * i))))
+        elif last == "weight":
+            flat[f"params/{base}/scale"] = rng.uniform(0.5, 1.5, t.shape).astype(np.float32)
+        elif last == "bias":
+            flat[f"params/{base}/bias"] = (0.1 * rng.standard_normal(t.shape)).astype(np.float32)
+        elif last == "running_mean":
+            flat[f"batch_stats/{base}/mean"] = (0.1 * rng.standard_normal(t.shape)).astype(
+                np.float32)
+        else:
+            flat[f"batch_stats/{base}/var"] = rng.uniform(0.5, 1.5, t.shape).astype(np.float32)
+    np.savez(path, **flat)
+    return path
+
+
+def face_segment_phase(rcab, card):
+    """BiSeNet face parsing through cli.face_cli face_segment on the card at
+    seeded npz weights: SEGMENT_FACES CelebA-sized faces (.npy, 218 x 178),
+    parsed at 512 x 512 and written back at their size with the superimposed
+    blends; the CLI's set-up (the segmenter's construction: npz load, upload)
+    apart from its images/s over the loop, the parse's ms an image
+    (Pillow-exact bilinear to 512, normalisation, ResNet-18 BiSeNet, argmax),
+    and the class maps held against a CPU run (>= 99.9 % of pixels agree).
+    No RCAB kernel runs. Returns the row."""
+    from rumpy_tpu_torch.cli import face_cli
+    from rumpy_tpu_torch.utils import face_segmentation
+    from rumpy_tpu_torch.utils.face_segmentation import BiSeNetSegmenter
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_face_segment")
+    shutil.rmtree(root, ignore_errors=True)
+    src, out = os.path.join(root, "faces"), os.path.join(root, "parsed")
+    os.makedirs(src)
+    rng = np.random.default_rng(192)
+    faces = [textured_image(CELEBA_FACE, rng) for _ in range(SEGMENT_FACES)]
+    for k, face in enumerate(faces):
+        np.save(os.path.join(src, f"{k + 1:06d}.npy"), face)
+    weights = seeded_bisenet_npz(os.path.join(root, "bisenet.npz"), 193)
+
+    rcab.launches = rcab.backward_launches = 0
+    with watched(face_segmentation, "BiSeNetSegmenter") as setup_s:
+        t0 = time.perf_counter()
+        count = face_cli.face_segment(["-i", src, "-o", out, "--weights", weights,
+                                       "--save_superimposed_images"])
+        seconds = time.perf_counter() - t0
+    loop_s = seconds - sum(setup_s)
+    launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    no_rcab("face_segment", launches)
+    written = sorted(os.listdir(out))
+    if count != SEGMENT_FACES or len(written) != 2 * SEGMENT_FACES or any(
+            np.load(os.path.join(out, n)).shape != (*CELEBA_FACE, 3) for n in written):
+        raise AssertionError(f"face_segment wrote {written}")
+
+    seg = BiSeNetSegmenter(weights)
+    x = torch.from_numpy(faces[0]).cuda()
+    parse_ms = cuda_ms(lambda: seg.parse_tensor(x), iters=10)
+    cpu = BiSeNetSegmenter(weights, device="cpu")
+    agree, classes = [], []
+    for face in faces[:2]:
+        got, want = seg.parse(face), cpu.parse(face)
+        agree.append(float((got == want).mean()))
+        classes.append(int(np.unique(want).size))
+    row = {"phase": "face_segment", "card": card, "faces": SEGMENT_FACES,
+           "face_shape": list(CELEBA_FACE), "parse_side": 512, "cli_s": seconds,
+           "cli_setup_s": sum(setup_s), "cli_loop_s": loop_s,
+           "cli_images_per_s": SEGMENT_FACES / loop_s, "parse_ms_an_image": parse_ms,
+           "class_map_agreement_with_cpu": agree, "classes_in_map": classes,
+           "launches": launches}
+    print(json.dumps(row), flush=True)
+    if min(agree) < 0.999:
+        raise AssertionError(f"face_segment class maps against the CPU: {row}")
+    shutil.rmtree(root)
+    return row
+
+
+def fr_eval_phase(rcab, card):
+    """Face recognition in evaluation at the scale users run it: SPARNet (the
+    face group's model without RCAB; its defaults, float32) trained through
+    cli.train_sisr for one epoch on seeded 128 x 128 faces, then
+    cli.eval_sisr with -m FR_rank over FR_EVAL_FACES probe faces against a
+    features gallery of CelebA's 10,177 identities (LightCNN at seeded
+    weights over the probes' HR, and random card images for the rest) on
+    the card. The run's set-up (model, extractor and gallery loads), its
+    per-image loop (forwards, metrics, extraction and each output's rank)
+    and the CMC/ROC report are timed apart, the loop by part (the model's
+    forward, each extraction with its read-back, each rank); the FR_rank
+    column of the first FR_CPU_FACES probes is held equal to a CPU run of
+    the same command over them (a probe's rank depends on it and the
+    gallery alone). No RCAB kernel runs. Returns the row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.evaluation.eval_hub import EvalHub
+    from rumpy_tpu_torch.models.feature_extractors import perceptual_loss_mechanism
+    from rumpy_tpu_torch.utils.face_recognition import FaceRecognizer
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_fr")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(194)
+    lr_dir, hr_dir, _ = face_set(os.path.join(root, "data"), rng, SLICE17_IMAGES)
+    eval_lr, eval_hr, names = face_set(os.path.join(root, "eval_data"), rng, FR_EVAL_FACES)
+    cpu_lr, cpu_hr = os.path.join(root, "cpu_data", "lr"), os.path.join(root, "cpu_data", "hr")
+    for src, dst in ((eval_lr, cpu_lr), (eval_hr, cpu_hr)):
+        os.makedirs(dst)
+        for n in names[:FR_CPU_FACES]:
+            shutil.copy(os.path.join(src, n), dst)
+    exp_root = os.path.join(root, "experiments")
+    cfg = {"experiment": "sparnet_faces", "experiment_save_loc": exp_root,
+           "data": {"scale": TRAIN_SCALE, "crop": SPARNET_SIDE, "dataloader_threads": 4,
+                    "training_sets": {"data_1": {"lr_dir": lr_dir, "hr_dir": hr_dir}}},
+           "model": {"name": "sparnet", "internal_params": {"lr": 1e-4}},
+           "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": 6}}
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    rcab.launches = rcab.backward_launches = 0
+    t0 = time.perf_counter()
+    stats = train_sisr.main(["-p", cfg_path])
+    train_s = time.perf_counter() - t0
+    train_launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    no_rcab("fr_eval's SPARNet run", train_launches)
+
+    weights = seeded_lightcnn_npz(os.path.join(root, "lightcnn.npz"), 195, cin=3)
+    extractor = perceptual_loss_mechanism("lightcnn", weights=weights)
+    hr = np.stack([np.load(os.path.join(eval_hr, n)) for n in names])
+    others = CELEBA_IDENTITIES - FR_EVAL_FACES
+    gen = card_generator(196)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        feats = [extractor(torch.from_numpy(hr.astype(np.float32) / 255.0).cuda())]
+        for k in range(0, others, 512):
+            faces = torch.rand((min(512, others - k), FACE_SIDE, FACE_SIDE, 3),
+                               generator=gen, device="cuda")
+            feats.append(extractor(faces))
+        feats = torch.cat(feats).cpu().numpy()
+    gallery_s = time.perf_counter() - t0
+    gallery = os.path.join(root, "gallery.npz")
+    np.savez(gallery, out_stack=feats,
+             id_stack=np.array([os.path.splitext(n)[0] for n in names]
+                               + [f"other{k}" for k in range(others)]))
+
+    flags = ["--model_loc", exp_root, "--scale", str(TRAIN_SCALE), "-me", "sparnet_faces",
+             "last", "-m", "PSNR", "-m", "FR_rank", "--fr_gallery", gallery,
+             "--fr_extractor", "lightcnn", "--fr_extractor_weights", weights]
+    rcab.launches = 0
+    with watched(EvalHub, "full_image_protocol") as protocol_s, \
+            watched(EvalHub, "face_recognition_calculations") as report_s, \
+            watched(FaceRecognizer, "fr_rank") as rank_s, \
+            watched(FaceRecognizer, "_extract") as extract_s, \
+            watched(EvalHub, "_model_output") as model_s:
+        t0 = time.perf_counter()
+        eval_sisr.main(flags + ["--lr_dir", eval_lr, "--hr_dir", eval_hr,
+                                "--out_loc", os.path.join(root, "card")])
+        eval_s = time.perf_counter() - t0
+    eval_launches = {"rcab_fused": rcab.launches}
+    no_rcab("fr_eval's eval_sisr", eval_launches)
+    loop_s = sum(protocol_s) - sum(report_s)
+    eval_sisr.main(flags + ["--lr_dir", cpu_lr, "--hr_dir", cpu_hr,
+                            "--out_loc", os.path.join(root, "cpu"), "--device", "cpu"])
+    columns, card_vals = read_metrics_csv(os.path.join(root, "card", "individual_metrics.csv"))
+    _, cpu_vals = read_metrics_csv(os.path.join(root, "cpu", "individual_metrics.csv"))
+    fr_cols = [i for i, (_, m) in enumerate(columns) if m == "FR_rank"]
+    card_ranks = {img: [v[i] for i in fr_cols] for img, v in card_vals.items()}
+    cpu_ranks = {img: [v[i] for i in fr_cols] for img, v in cpu_vals.items()}
+    with open(os.path.join(root, "card", "fr_metrics", "extra_fr_metrics.csv"), newline="") as f:
+        extra = list(csv.reader(f))
+    with open(os.path.join(root, "card", "fr_metrics", "cmc_fr_metrics.csv"), newline="") as f:
+        cmc_rows = sum(1 for _ in f) - 1
+    rank_values = [r for v in card_ranks.values() for r in v]
+    row = {"phase": "fr_eval", "card": card, "model": "sparnet 128 f32, 1 epoch",
+           "train_loss": stats[0]["train-loss"], "train_s": train_s,
+           "eval_faces": FR_EVAL_FACES, "gallery_identities": len(feats),
+           "gallery_features_s": gallery_s, "eval_sisr_s": eval_s,
+           "eval_setup_s": eval_s - sum(protocol_s), "eval_loop_s": loop_s,
+           "eval_images_per_s": FR_EVAL_FACES / loop_s,
+           "fr_rank_calls": len(rank_s), "fr_rank_s": sum(rank_s),
+           "extract_s": sum(extract_s), "model_output_s": sum(model_s),
+           "fr_report_s": sum(report_s), "cmc_rows": cmc_rows,
+           "fr_columns": [columns[i] for i in fr_cols],
+           "ranks_first": {img: card_ranks[img] for img in sorted(card_ranks)[:FR_CPU_FACES]},
+           "mean_rank": [float(np.mean([v[j] for v in card_ranks.values()]))
+                         for j in range(len(fr_cols))],
+           "cpu_faces": len(cpu_ranks),
+           "ranks_equal_cpu": all(card_ranks.get(img) == r for img, r in cpu_ranks.items()),
+           "extra_fr_metrics": extra,
+           "launches": {"training": train_launches, "eval": eval_launches}}
+    print(json.dumps(row), flush=True)
+    if (len(card_vals) != FR_EVAL_FACES or len(fr_cols) != 2 or len(cpu_ranks) != FR_CPU_FACES
+            or not row["ranks_equal_cpu"] or not np.isfinite(stats[0]["train-loss"])
+            or cmc_rows != CELEBA_IDENTITIES or len(rank_s) != 2 * FR_EVAL_FACES
+            or not all(1 <= r <= len(feats) for r in rank_values)):
+        raise AssertionError(f"fr_eval: {row}")
+    shutil.rmtree(root)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6087,6 +6455,13 @@ def main() -> int:
     dic = dic_train_phase(rcab, card)
     wavelet = wavelet_train_phase(rcab, card)
     fssr = fssr_train_phase(rcab, card)
+    # slice 19: the tools launch no RCAB kernel either: each phase fails on one
+    offline = offline_degrade_phase(rcab, card)
+    segment = face_segment_phase(rcab, card)
+    fr = fr_eval_phase(rcab, card)
+    print(json.dumps({"phase": "slice19_launches", "offline_degrade": offline["launches"],
+                      "face_segment": segment["launches"], "fr_eval": fr["launches"]}),
+          flush=True)
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],

@@ -20,9 +20,11 @@ their degradation metadata from a CSV (``on_site``: the LR folder's
 ``degradation_metadata.csv``). ``-m LPIPS`` scores LPIPS with the npz
 given by ``--lpips_weights`` (``utils/lpips.py::convert_torch_lpips``
 writes one; without it LPIPS raises ``NotImplementedError``, as in the JAX
-package). Options of later slices raise ``NotImplementedError``:
-``--gallery`` and the ``--fr_*`` face-recognition options (ROADMAP queue 1
-item 10).
+package). ``-m FR_rank`` ranks every output against ``--fr_gallery`` (a
+features npz or a folder of ``<identity>`` images) with the
+``--fr_extractor`` (default ``lightcnn``) of ``--fr_extractor_weights``.
+``--gallery`` comes with a later slice and raises ``NotImplementedError``
+(ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -33,8 +35,7 @@ from typing import Optional, Sequence
 from rumpy_tpu_torch.config.loader import load_config, merge_overrides
 
 # option -> ROADMAP queue 1 item that ports it
-_LATER = {"gallery": "10", "fr_gallery": "10", "fr_extractor": "10",
-          "fr_extractor_weights": "10"}
+_LATER = {"gallery": "10"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -62,8 +63,8 @@ def _parser() -> argparse.ArgumentParser:
                    metavar=("EXPERIMENT", "EPOCH"),
                    help="Model experiment + epoch (best|last|N); repeatable.")
     p.add_argument("--metrics", "-m", action="append", default=[],
-                   help="Metric to compute (PSNR, SSIM, LPIPS, face_PSNR, true_face_PSNR); "
-                        "repeatable.")
+                   help="Metric to compute (PSNR, SSIM, LPIPS, face_PSNR, true_face_PSNR, "
+                        "FR_rank); repeatable.")
     p.add_argument("--save_im", action=flag, default=None)
     p.add_argument("--gallery", action=flag, default=None,
                    help="Per-image comparison collages (not ported yet).")
@@ -72,9 +73,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--time_models", action=flag, default=None)
     p.add_argument("--lpips_weights", default=None,
                    help="LPIPS weights npz (utils/lpips.py::convert_torch_lpips).")
-    p.add_argument("--fr_gallery", default=None)
-    p.add_argument("--fr_extractor", default=None)
-    p.add_argument("--fr_extractor_weights", default=None)
+    p.add_argument("--fr_gallery", default=None,
+                   help="Face-rec gallery: dir of <id>.png or a features npz.")
+    p.add_argument("--fr_extractor", default=None,
+                   help="Face-rec embedding network: lightcnn (default) or vggface.")
+    p.add_argument("--fr_extractor_weights", default=None,
+                   help="The embedding network's weights npz.")
     p.add_argument("--pad_to_bucket", default=None, type=int,
                    help="Zero-pad model inputs up to the next multiple of N px "
                         "(output cropped back before the metrics).")
@@ -139,6 +143,9 @@ def main(argv: Optional[Sequence[str]] = None):
         time_models=bool(cfg.get("time_models")),
         no_image_comparison=bool(cfg.get("no_image_comparison")),
         lpips_weights=cfg.get("lpips_weights"),
+        fr_gallery=cfg.get("fr_gallery"),
+        fr_extractor=cfg.get("fr_extractor") or "lightcnn",
+        fr_extractor_weights=cfg.get("fr_extractor_weights"),
         pad_to_bucket=cfg.get("pad_to_bucket"),
         device=args.device)
     table = hub.full_image_protocol()

@@ -10,18 +10,27 @@ metadata (sigmas normalized by their ranges, sinc rows at 0);
 construction to ``pca_batch_len`` kernels of the op's own family) on
 request. Kernel math in ``ops/blur_kernels.py``, application in
 ``ops/blur.py``.
+
+The host path (``__call__`` on one image) runs the device path on a batch
+of one on the host device, drawing from the op's own generator there
+(seeded with ``seed``); ``draws`` (``KernelDraws`` / ``SRMDDraws``) gives
+it the draws instead. It returns the image as uint8 (or PIL) and the
+metadata as floats and lists, and ``save_pca_matrix`` writes the PCA basis
+beside the outputs.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Optional
 
 import torch
 
 from rumpy_tpu_torch.config.constants import blur_kernel_codes
 from rumpy_tpu_torch.degradations import pca as pca_mod
-from rumpy_tpu_torch.degradations.base import DegradationOp, normalize, per_view
+from rumpy_tpu_torch.degradations.base import (DegradationOp, from_float_array,
+                                               host_metadata, normalize, per_view)
 from rumpy_tpu_torch.ops import blur as blur_ops
 from rumpy_tpu_torch.ops import blur_kernels as bk
 from rumpy_tpu_torch.registry import register_tool
@@ -50,6 +59,36 @@ class _BlurBase(DegradationOp):
     def _pca_sample_fn(self):
         """``(generator, n) -> (n, k, k)`` kernels of this op's family."""
         raise NotImplementedError
+
+    def save_pca_matrix(self, location: str) -> None:
+        if self.pca_encoder is not None:
+            self.pca_encoder.save(os.path.join(location,
+                                               f"{type(self).__name__}_pca_matrix.npz"))
+
+    def _draw(self, generator, b: int):
+        """The draws of a batch of ``b`` kernels, or None where the kernels
+        take none."""
+        raise NotImplementedError
+
+    def _kernels(self, draws, b: int, device):
+        """(kernels (B, k, k), kernel metadata) from ``draws``."""
+        raise NotImplementedError
+
+    def _apply(self, imgs, kernels, meta, views: int = 1):
+        raise NotImplementedError
+
+    def batch_apply(self, generator, imgs, views: int = 1):
+        b = imgs.shape[0] // views
+        kernels, meta = self._kernels(self._draw(generator, b), b, imgs.device)
+        return self._apply(imgs, kernels, meta, views)
+
+    def __call__(self, image, draws=None):
+        imgs, was_pil = self._host_batch(image)
+        if draws is None:
+            draws = self._draw(self._host_generator(), 1)
+        kernels, meta = self._kernels(draws, 1, imgs.device)
+        out, meta_out = self._apply(imgs, kernels, meta)
+        return from_float_array(out[0].cpu().numpy(), was_pil), host_metadata(meta_out)
 
     def _kernel_extras(self, kernels: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full-kernel and PCA-kernel metadata of a (B, k, k) batch."""
@@ -101,6 +140,7 @@ class RealESRGANBlur(_BlurBase):
             rotation_range=tuple(rotation_range),
             betag_range=tuple(betag_range), betap_range=tuple(betap_range),
             noise_range=tuple(noise_range) if noise_range else None)
+        self.seed = seed
         super().__init__(kernel_size=kernel_size,
                          **{k: v for k, v in kwargs.items() if k in _BASE_OPTIONS})
 
@@ -150,12 +190,18 @@ class RealESRGANBlur(_BlurBase):
                 "kernel_size": full(ks)}
         return kernels, meta
 
-    def batch_apply(self, generator, imgs, views: int = 1):
-        b = imgs.shape[0] // views
-        if self.random_selection or not self.specific_params:
-            kernels, meta = bk.sample_kernels(generator, b, self.cfg)
-        else:
-            kernels, meta = self._fixed_kernels(b, imgs.device)
+    def _fixed(self) -> bool:
+        return not self.random_selection and bool(self.specific_params)
+
+    def _draw(self, generator, b: int):
+        return None if self._fixed() else bk.draw_kernel_params(generator, b, self.cfg)
+
+    def _kernels(self, draws, b: int, device):
+        if self._fixed():
+            return self._fixed_kernels(b, device)
+        return bk.kernels_from_draws(self.cfg, draws)
+
+    def _apply(self, imgs, kernels, meta, views: int = 1):
         out = blur_ops.apply_kernels(imgs, per_view(kernels, views))
         meta_out: Dict[str, torch.Tensor] = {}
         if self.request_kernel_metadata:
@@ -188,6 +234,7 @@ class SRMDGaussianBlur(_BlurBase):
         self.sig_max = sig_max
         self.rate_iso = rate_iso
         self.scaling = scaling
+        self.seed = seed
         super().__init__(kernel_size=kernel_size,
                          **{k: v for k, v in kwargs.items() if k in _BASE_OPTIONS})
 
@@ -207,8 +254,18 @@ class SRMDGaussianBlur(_BlurBase):
                 "isotropic_probability": self.rate_iso,
                 "anisotropic_scaling": self.scaling}
 
-    def batch_apply(self, generator, imgs, views: int = 1):
-        kernels, meta = self._sample(generator, imgs.shape[0] // views, self.random)
+    def _draw(self, generator, b: int):
+        if not self.random:
+            return None
+        return bk.draw_srmd_params(generator, b, self.sig_min, self.sig_max, self.rate_iso)
+
+    def _kernels(self, draws, b: int, device):
+        if draws is None:  # every kernel isotropic at sig: nothing drawn
+            return self._sample(torch.Generator(device), b, random=False)
+        return bk.srmd_kernels_from_draws(self.kernel_size, draws, self.sig_min,
+                                          self.sig_max, self.scaling)
+
+    def _apply(self, imgs, kernels, meta, views: int = 1):
         out = blur_ops.apply_kernels(imgs, per_view(kernels, views))
         meta_out: Dict[str, torch.Tensor] = {}
         if self.request_kernel_metadata:

@@ -48,6 +48,9 @@ class PCAEncoder:
         self.matrix = torch.as_tensor(np.asarray(matrix, np.float32))
         self._on: Dict[torch.device, torch.Tensor] = {}
 
+    def save(self, path: str) -> None:
+        np.savez(path, matrix=self.matrix.numpy())
+
     @property
     def components(self) -> int:
         return self.matrix.shape[0]

@@ -19,17 +19,22 @@ Port of ``rumpy_tpu/evaluation/eval_hub.py`` without pandas:
 * writes ``individual_metrics.csv`` (rows images, two header rows model
   and metric, then ``image``) and ``average_metrics.csv`` (one ``mean``
   row) with the ``csv`` module in the layout pandas gives the JAX package,
-  and per-model PNGs with ``save_im``.
+  and per-model PNGs with ``save_im``;
+* face recognition (``fr_gallery``: a features npz with ``out_stack`` and
+  ``id_stack``, or a folder of ``<identity>`` images; ``fr_extractor``
+  with ``fr_extractor_weights``): a per-image ``FR_rank`` column for every
+  output, the image's stem its identity, and under ``fr_metrics/`` the CMC
+  (``cmc_fr_metrics.csv``), AUC and EER (``extra_fr_metrics.csv``) and the
+  ranks (``individual_im_ranks.csv``), with ``cmc_curves.pdf`` where
+  matplotlib is installed.
 
 Not ported yet, and raising ``NotImplementedError``: comparison collages
-(``gallery``) and face recognition (``FR_rank``, ``fr_gallery``: ROADMAP
-queue 1 item 10). LPIPS without weights raises ``NotImplementedError``, as
-in the JAX package.
+(``gallery``: ROADMAP queue 1 item 10). LPIPS without weights raises
+``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
 
-import csv
 import math
 import os
 import time
@@ -46,6 +51,7 @@ from rumpy_tpu_torch.interface import SISRInterface
 from rumpy_tpu_torch.ops.resize import pil_resize
 from rumpy_tpu_torch.utils import metrics as metrics_mod
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
+from rumpy_tpu_torch.utils.csv_text import float_cell, write_rows, write_table
 from rumpy_tpu_torch.utils.visualization import safe_image_save
 
 
@@ -87,14 +93,11 @@ class MetricTable:
                   index_name: Optional[str]) -> None:
         """Rows under the two header rows ``model,...`` and ``metric,...``
         (and ``index_name,,...``), floats as pandas writes them."""
-        with open(path, "w", newline="") as f:
-            w = csv.writer(f, lineterminator="\n")
-            w.writerow(["model"] + [m for m, _ in self.columns])
-            w.writerow(["metric"] + [met for _, met in self.columns])
-            if index_name is not None:
-                w.writerow([index_name] + [""] * len(self.columns))
-            for label, vals in rows:
-                w.writerow([label] + ["" if math.isnan(v) else repr(v) for v in vals])
+        head = [["model"] + [m for m, _ in self.columns],
+                ["metric"] + [met for _, met in self.columns]]
+        if index_name is not None:
+            head.append([index_name] + [""] * len(self.columns))
+        write_rows(path, head + [[label] + [float_cell(v) for v in vals] for label, vals in rows])
 
     def save(self, out_loc: str) -> None:
         self.write_csv(os.path.join(out_loc, "individual_metrics.csv"),
@@ -129,8 +132,6 @@ class EvalHub:
                  device=None):
         if gallery:
             raise _later("comparison collages (gallery, matplotlib)", "10")
-        if fr_gallery or "FR_rank" in metrics:
-            raise _later("face recognition (FR_rank, fr_gallery)", "10")
         self.device = resolve_device(device)
         self.out_loc = out_loc
         self.scale = scale
@@ -168,9 +169,53 @@ class EvalHub:
                     print(f"dropping {name}: dataset lacks metadata {missing}")
                     continue
             self.models[name] = iface
+
+        # face recognition: the per-image FR_rank columns are computed here
+        # (features extracted once an output, kept for the CMC/ROC report),
+        # so 'FR_rank' leaves the metric hub's list
+        metrics = list(metrics)
+        self.face_recognizer = None
+        if fr_gallery or "FR_rank" in metrics:
+            from rumpy_tpu_torch.models.feature_extractors import perceptual_loss_mechanism
+            from rumpy_tpu_torch.utils.face_recognition import FaceRecognizer
+            if not fr_gallery:
+                raise KeyError("FR_rank requested but no fr_gallery configured "
+                               "(dir of <id>.png images or a features .npz)")
+            extractor = perceptual_loss_mechanism(fr_extractor, weights=fr_extractor_weights,
+                                                  device=self.device)
+            self.face_recognizer = FaceRecognizer(extractor)
+            self._register_gallery(fr_gallery)
+            self._fr_feats: Dict[str, list] = defaultdict(list)
+            metrics = [m for m in metrics if m != "FR_rank"]
         self.metric_hub = metrics_mod.Metrics(metrics, lpips_weights=lpips_weights,
                                               hr_data_loc=self.dataset.hr_dir)
         self._timed_shapes: set = set()
+
+    def _register_gallery(self, source: str) -> None:
+        """A features npz (``out_stack``, ``id_stack``) or a folder of
+        ``<identity>`` images (``.npy`` arrays too), each resized to the
+        first one's size with Pillow's bicubic where it differs."""
+        if source.endswith(".npz"):
+            g = np.load(source, allow_pickle=True)
+            self.face_recognizer.register_gallery(features=g["out_stack"],
+                                                  gallery_ids=list(g["id_stack"]))
+            return
+        from rumpy_tpu_torch.data.datasets import _decode
+        names = sorted(n for n in os.listdir(source)
+                       if n.lower().endswith((".png", ".jpg", ".jpeg", ".npy")))
+        if not names:
+            raise FileNotFoundError(f"No gallery images in {source}")
+        ims, ids = [], []
+        shape = None
+        for n in names:
+            im = _decode(os.path.join(source, n))
+            if shape is None:
+                shape = im.shape[:2]
+            elif im.shape[:2] != shape:
+                im = np.asarray(pil_resize(im, shape))  # on the CPU
+            ims.append(np.asarray(im, np.float32) / 255.0)
+            ids.append(os.path.splitext(n)[0])
+        self.face_recognizer.register_gallery(images=np.stack(ims), gallery_ids=ids)
 
     # ------------------------------------------------------------------
 
@@ -269,11 +314,51 @@ class EvalHub:
                                               rgb_a=img[None], rgb_ref=hr[None])
                 values.update({f"{name}>{m}": v for m, v in res.items()})
             rows[tag].update({k: v[0] for k, v in metrics_mod.fetch(values).items()})
+            if self.face_recognizer is not None:
+                for name, img in outputs.items():
+                    # one extraction an output, for its rank and the report
+                    feats = self.face_recognizer._extract(img.clamp(0.0, 1.0)[None])
+                    rank = self.face_recognizer.fr_rank(features=feats, probe_ids=[stem])
+                    rows[tag][f"{name}>FR_rank"] = float(rank[0])
+                    self._fr_feats[name].append((stem, feats[0]))
             for ref_name, (_, seconds) in refs.items():
                 rows[tag][f"{ref_name}>runtime"] = seconds()
             if self.save_im:
                 for name, img in outputs.items():
                     safe_image_save(img, os.path.join(self.out_loc, name), tag)
+        if self.face_recognizer is not None:
+            self.face_recognition_calculations()
         table = MetricTable(rows)
         table.save(self.out_loc)
         return table
+
+    def face_recognition_calculations(self) -> str:
+        """The CMC/ROC report under ``<out_loc>/fr_metrics/``, each file in
+        the layout pandas gives the JAX package: ``cmc_fr_metrics.csv``
+        (index ``Rank``, a column an output), ``extra_fr_metrics.csv``
+        (``AUC`` and ``EER``), ``individual_im_ranks.csv`` (index
+        ``Image_Name``), and the CMC plot where matplotlib is installed."""
+        from rumpy_tpu_torch.utils.face_recognition import plot_cmc
+        fr_dir = os.path.join(self.out_loc, "fr_metrics")
+        os.makedirs(fr_dir, exist_ok=True)
+        plot_data, cmc, extra, ranks = {}, {}, {}, {}
+        cmc_x, stems = None, None
+        for name, entries in self._fr_feats.items():
+            stems = [s for s, _ in entries]
+            pkg = self.face_recognizer.full_package(
+                features=np.stack([f for _, f in entries]), probe_ids=stems)
+            plot_data[name] = (pkg["CMC_x"], pkg["CMC_y"])
+            cmc_x = pkg["CMC_x"]
+            cmc[name] = [float(v) for v in pkg["CMC_y"]]
+            extra[name] = [pkg["AUC"], pkg["EER"]]
+            ranks[name] = [float(v) for v in pkg["ranks"]]
+        try:
+            plot_cmc(plot_data, save_loc=fr_dir)
+        except ImportError:
+            print("matplotlib not installed: no cmc_curves.pdf")
+        write_table(os.path.join(fr_dir, "cmc_fr_metrics.csv"), "Rank", cmc_x or [], cmc)
+        write_table(os.path.join(fr_dir, "extra_fr_metrics.csv"), "Metric", ["AUC", "EER"],
+                    extra)
+        write_table(os.path.join(fr_dir, "individual_im_ranks.csv"), "Image_Name",
+                    stems or [], ranks)
+        return fr_dir

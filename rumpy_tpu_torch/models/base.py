@@ -472,8 +472,15 @@ class BaseHandler:
             return self._load_jax_checkpoint(loaded, path, skip_optimizer_load), epoch
         with torch.no_grad():
             self.module.load_state_dict(loaded["network"])
-        if loaded.get("rng") is not None:
-            self.rng.set_state(loaded["rng"])
+        state_bytes = loaded.get("rng")
+        # a generator's state is its device's: the card's does not fit a CPU
+        # generator (nor the reverse), which then keeps its seed, and says so
+        if state_bytes is not None:
+            if state_bytes.numel() == self.rng.get_state().numel():
+                self.rng.set_state(state_bytes)
+            else:
+                print(f"{path}: the saved generator state is another device type's; "
+                      f"the {self.rng.device.type} generator keeps its seed")
         # minimal checkpoints carry no optimizer state, and a caller may
         # skip it to load weights trained under another optimizer config:
         # both start from a fresh optimizer

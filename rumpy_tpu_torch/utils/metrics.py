@@ -11,6 +11,10 @@ Port of ``rumpy_tpu/utils/metrics.py``, with its semantics:
 * LPIPS (``utils/lpips.py``, AlexNet, weights from an npz): the RGB images
   where given (``rgb_a``/``rgb_ref``), else the scored pair, over
   ``max_value``.
+* FR_rank: each probe's retrieval rank against the gallery of a
+  ``utils/face_recognition.py::FaceRecognizer`` (``face_recognizer``), the
+  RGB images where given, the probe names as identities; the features are
+  read back inside the recognizer.
 
 Everything runs where the images lie, in float32, and nothing reads a value
 back to the host: :meth:`Metrics.compute` returns device tensors and
@@ -238,10 +242,10 @@ class Metrics:
     """Batch metrics calculator with the JAX package's keys: channel-last
     float images in [0, max_value]; keys ``<key_prefix><delimeter><metric>``
     or the metric's name. LPIPS needs ``lpips_weights`` (an npz; it raises
-    ``NotImplementedError`` without one); FR_rank comes with a later slice
-    and raises ``NotImplementedError``."""
+    ``NotImplementedError`` without one); FR_rank needs a
+    ``face_recognizer`` with a registered gallery (``KeyError`` without)."""
 
-    SUPPORTED = ("PSNR", "SSIM", "LPIPS", "face_PSNR", "true_face_PSNR")
+    SUPPORTED = ("PSNR", "SSIM", "LPIPS", "face_PSNR", "true_face_PSNR", "FR_rank")
 
     def __init__(self, metrics: Sequence[str] = ("PSNR", "SSIM"),
                  delimeter: str = "-", lpips_weights: Optional[str] = None,
@@ -250,14 +254,14 @@ class Metrics:
         self.delimeter = delimeter
         self.boundary_data = None
         self.lpips = None
+        self.face_recognizer = face_recognizer
         for m in self.metrics:
             if m == "LPIPS":
                 from rumpy_tpu_torch.utils.lpips import LPIPS
                 self.lpips = LPIPS(lpips_weights, device="cpu")  # raises without weights
-            if m == "FR_rank":
-                raise NotImplementedError(
-                    "FR_rank is not ported yet: face recognition comes with "
-                    "ROADMAP queue 1 item 10")
+            if m == "FR_rank" and face_recognizer is None:
+                raise KeyError("FR_rank requires a face_recognizer (see "
+                               "rumpy_tpu_torch.utils.face_recognition.FaceRecognizer)")
             if m not in self.SUPPORTED:
                 raise KeyError(f"Unsupported metric {m}")
         if "face_PSNR" in self.metrics or "true_face_PSNR" in self.metrics:
@@ -274,11 +278,19 @@ class Metrics:
                 rgb_a=None, rgb_ref=None) -> Dict[str, torch.Tensor]:
         """Each metric of an (N, H, W, C) pair as an (N,) tensor on the
         images' device; nothing is read back. LPIPS scores ``rgb_a`` against
-        ``rgb_ref`` where given (the RGB images of a Y-channel pair)."""
+        ``rgb_ref`` where given (the RGB images of a Y-channel pair), and
+        FR_rank ranks ``rgb_a`` (or ``im_a``) as ``probe_names``."""
         im_a, im_ref = _f32(im_a), _f32(im_ref)
         out: Dict[str, torch.Tensor] = {}
         for m in self.metrics:
-            if m == "LPIPS":
+            if m == "FR_rank":
+                if probe_names is None:
+                    raise ValueError("Need a probe ID to evaluate face "
+                                     "recognition performance.")
+                ranks = self.face_recognizer.fr_rank(
+                    probes=im_a if rgb_a is None else _f32(rgb_a), probe_ids=list(probe_names))
+                vals = torch.as_tensor(np.asarray(ranks, np.float64), device=im_a.device)
+            elif m == "LPIPS":
                 la = im_a if rgb_a is None else _f32(rgb_a)
                 lb = im_ref if rgb_ref is None else _f32(rgb_ref)
                 if self.lpips.shift.device != la.device:

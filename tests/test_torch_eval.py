@@ -276,9 +276,8 @@ def test_port_training_writes_validation(tmp_path, data):
 
 
 @pytest.mark.parametrize("option", [
-    "gallery", "fr_gallery", "FR_rank", "LPIPS", "metadata_file",
-    "cli_metadata_file", "cli_lpips_weights", "cli_gallery", "cli_fr_gallery",
-    "cli_fr_extractor_weights", "resume_jax_optimizer"])
+    "gallery", "LPIPS", "metadata_file", "cli_metadata_file", "cli_lpips_weights",
+    "cli_gallery", "resume_jax_optimizer"])
 def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
     """Each option of a later slice raises. The metadata options, ported
     since, score as the JAX package does instead: ``metadata_file`` =
@@ -286,7 +285,8 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
     by ``--metadata_file`` through eval_sisr (RCAN takes none of its
     columns, so it is read and not used). LPIPS, ported since, raises
     without weights as the JAX package does, and ``--lpips_weights`` goes
-    to its npz reader (tests/test_torch_lpips.py scores with one)."""
+    to its npz reader (tests/test_torch_lpips.py scores with one). Face
+    recognition, ported since, is held in tests/test_torch_face_tools.py."""
     model_loc, _ = experiment
     lr_dir, hr_dir = data
     if option == "metadata_file":
@@ -318,15 +318,10 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
              "--hr_dir", hr_dir, "-me", EXP, "last", "--device", "cpu"]
     cases = {
         "gallery": lambda: EvalHub(gallery=True, **base),
-        "fr_gallery": lambda: EvalHub(fr_gallery=str(tmp_path), **base),
-        "FR_rank": lambda: EvalHub(metrics=["PSNR", "FR_rank"], **base),
         "LPIPS": lambda: EvalHub(metrics=["PSNR", "LPIPS"], **base),
         "cli_lpips_weights": lambda: eval_sisr.main(
             flags + ["-m", "LPIPS", "--lpips_weights", str(tmp_path / "absent.npz")]),
         "cli_gallery": lambda: eval_sisr.main(flags + ["--gallery"]),
-        "cli_fr_gallery": lambda: eval_sisr.main(flags + ["--fr_gallery", "g"]),
-        "cli_fr_extractor_weights": lambda: eval_sisr.main(
-            flags + ["--fr_extractor_weights", "w"]),
         "resume_jax_optimizer": lambda: SISRInterface(
             model_loc=model_loc, experiment=EXP, mode="train", load_epoch="last",
             no_directories=True, device="cpu"),

@@ -108,10 +108,10 @@ def test_face_psnr_with_boundary_csv(tmp_path):
     assert abs(got["true_face_PSNR"][1] - got["PSNR"][1]) <= PSNR_TOL
 
 
-@pytest.mark.parametrize("metric,item", [("LPIPS", "weights"), ("FR_rank", "item 10")])
+@pytest.mark.parametrize("metric,item", [("LPIPS", "weights")])
 def test_metrics_of_later_slices_raise(metric, item):
-    """FR_rank comes with a later slice; LPIPS, ported since, raises without
-    its weights, as in the JAX package."""
+    """LPIPS raises without its weights, as in the JAX package (FR_rank,
+    ported since, is held in tests/test_torch_face_tools.py)."""
     with pytest.raises(NotImplementedError, match=item):
         tm.Metrics(["PSNR", metric])
     with pytest.raises(KeyError):

@@ -126,21 +126,6 @@ def test_registry_lists_the_jax_tools():
         get_tool("bogus")
 
 
-@pytest.mark.parametrize("make", [
-    lambda: get_tool("realesrganblur")()(np.zeros((8, 8, 3), np.uint8)),
-    lambda: get_tool("jpegcompress")()(np.zeros((8, 8, 3), np.uint8)),
-    lambda: get_tool("jmcompress")()(np.zeros((8, 8, 3), np.uint8)),
-    lambda: get_tool("ffmpegcompress")()(np.zeros((8, 8, 3), np.uint8)),
-    lambda: ImagePipeline(**BENCH_CHAIN).run_pipeline(images=[np.zeros((8, 8, 3))]),
-    lambda: tpipeline.pipeline_prep_and_run({"pipeline": ["downsample"]}),
-    lambda: ImagePipeline(**BENCH_CHAIN)._write_csvs("out", {}),
-], ids=["blur_host", "jpeg_host", "jm_host", "ffmpeg_host", "run_pipeline", "prep_and_run",
-        "write_csvs"])
-def test_host_paths_raise_naming_the_tools_slice(make):
-    with pytest.raises(NotImplementedError, match="tools slice"):
-        make()
-
-
 def _jax_srmd_draws(key, batch, sig_min, sig_max, rate_iso):
     """The draws of the JAX package's sample_srmd_kernels, its key splits
     written out (rumpy_tpu/ops/blur_kernels.py:136-176)."""

@@ -2,6 +2,7 @@
 and its entry points never fall back to the CPU on their own."""
 
 import ast
+import os
 import pathlib
 
 import numpy as np
@@ -106,10 +107,11 @@ def test_port_covers_the_training_modules_and_cli():
 
 def test_port_imports_at_module_level_only_torch_and_numpy_extras():
     """The port must import where only torch and numpy are installed: no
-    PIL, pandas, click, msgpack, matplotlib, triton, scikit-learn or umap
-    when a module is imported (PIL is imported inside the function that
-    opens an image file)."""
-    absent = ("PIL", "pandas", "click", "msgpack", "matplotlib", "triton", "sklearn", "umap")
+    PIL, pandas, click, msgpack, matplotlib, triton, scikit-learn, umap or
+    OpenCV when a module is imported (PIL is imported inside the function
+    that opens an image file, cv2 inside the face tools that use it)."""
+    absent = ("PIL", "pandas", "click", "msgpack", "matplotlib", "triton", "sklearn", "umap",
+              "cv2")
     bad = []
     for p in _port_files():
         for node in ast.parse(p.read_text()).body:
@@ -174,15 +176,56 @@ SYNCING_CALLS = ("item", "tolist", "cpu", "numpy", "bincount", "nonzero", "uniqu
                  "multinomial", "masked_select", "synchronize")
 
 
+# The ops' host path (offline datagen on one image at a time) hands its
+# results back to the host by design; it is these functions alone, by
+# module and qualified name (a method as Class.method).
+HOST_PATH_FUNCTIONS = {
+    "degradations/base.py": ("host_metadata", "DegradationOp.__call__"),
+    "degradations/blur.py": ("_BlurBase.__call__",),
+    "degradations/resize_ops.py": ("_pil_resize_np", "Downsample.__call__",
+                                   "Upsample.__call__"),
+    "degradations/noise.py": ("RealESRGANNoise.__call__",),
+    "degradations/compression.py": ("_h264_approximation", "JPEGCompress.__call__",
+                                    "JMCompress.__call__", "RandomCompress.__call__",
+                                    "FFMPEGCompress.__call__"),
+    "degradations/pipeline.py": ("ImagePipeline.run_pipeline", "ImagePipeline._write_csvs"),
+}
+
+
+def _functions_by_qualified_name(tree):
+    """{"Class.method" or "function": its FunctionDef} of a module's top
+    level and its classes."""
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            out.update({f"{node.name}.{f.name}": f for f in node.body
+                        if isinstance(f, ast.FunctionDef)})
+    return out
+
+
 @pytest.mark.parametrize("module", DEGRADATION_MODULES)
 def test_degradation_device_paths_read_nothing_back(module):
     """The chain runs inside every train step: none of its modules calls
-    what would stall the card's queue (chip_smoke.py checks one
+    what would stall the card's queue outside the host path's functions,
+    and no device path calls one of those (chip_smoke.py checks one
     degrade_batch under torch.cuda.set_sync_debug_mode("error") as well)."""
     tree = ast.parse((ROOT / "rumpy_tpu_torch" / module).read_text())
+    functions = _functions_by_qualified_name(tree)
+    listed = HOST_PATH_FUNCTIONS.get(module, ())
+    assert not [q for q in listed if q not in functions], listed
+    host = {id(n) for q in listed for n in ast.walk(functions[q])}
     bad = [f"{module}:{n.lineno} .{n.func.attr}()" for n in ast.walk(tree)
            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
-           and n.func.attr in SYNCING_CALLS]
+           and n.func.attr in SYNCING_CALLS and id(n) not in host]
+    host_names = {q.split(".")[-1] for qs in HOST_PATH_FUNCTIONS.values() for q in qs}
+    device_fns = [f for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)
+                  and f.name in ("batch_apply", "_batch_apply_noise", "degrade_batch",
+                                 "metadata_matrix", "_apply", "_kernels", "_draw")]
+    bad += [f"{module}:{n.lineno} {f.name} calls {ast.unparse(n.func)}" for f in device_fns
+            for n in ast.walk(f) if isinstance(n, ast.Call)
+            and ast.unparse(n.func).split(".")[-1] in host_names]
     assert not bad, bad
 
 
@@ -772,6 +815,96 @@ def test_chip_smoke_drives_the_slice_17_phases():
         body = {n.func.id for n in ast.walk(fns[f"{phase}_phase"])
                 if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
         assert {"no_rcab", "step_without_sync"} <= body, phase
+    kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
+               and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
+    assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
+
+
+TOOLS_MODULES = ("native.py", "degradations/base.py", "degradations/pipeline.py",
+                 "cli/image_manipulate.py", "cli/face_cli.py", "utils/face_segmentation.py",
+                 "utils/face_tools.py", "utils/face_recognition.py", "utils/metrics.py",
+                 "evaluation/eval_hub.py", "cli/eval_sisr.py", "utils/csv_text.py")
+
+
+def test_port_covers_the_tools():
+    """Offline degradation, the native codec's binding, the face tools and
+    face recognition are in the package and import neither jax nor
+    rumpy_tpu."""
+    names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
+    assert not [m for m in TOOLS_MODULES if m not in names]
+    for m in TOOLS_MODULES:
+        bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
+        assert not bad, (m, bad)
+
+
+def test_tools_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from rumpy_tpu_torch.cli import face_cli
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+    from rumpy_tpu_torch.utils.face_recognition import FaceRecognizer
+    from rumpy_tpu_torch.utils.face_segmentation import BiSeNetSegmenter
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [lambda: ImagePipeline(["jpegcompress"]).run_pipeline(
+                 images=[np.zeros((8, 8, 3), np.uint8)], progress_bar_off=True),
+             lambda: BiSeNetSegmenter(str(tmp_path / "w.npz")),
+             lambda: face_cli.face_segment(["-i", str(tmp_path), "-o", str(tmp_path / "o"),
+                                            "--weights", str(tmp_path / "w.npz")]),
+             lambda: FaceRecognizer(lambda x: x.mean((1, 2)))._extract(
+                 np.zeros((1, 4, 4, 3), np.float32))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_native_build_writes_only_under_the_package_build_dir(monkeypatch):
+    """The port builds native/rumpy_native.cpp into rumpy_tpu_torch/build/
+    and writes nothing under native/: the compiler's output path, and the
+    folder's listing before and after a build and a call."""
+    import subprocess
+
+    from rumpy_tpu_torch import native
+    build = ROOT / "rumpy_tpu_torch" / "build"
+    assert pathlib.Path(native.SO).parent == build == pathlib.Path(native.BUILD_DIR)
+    assert pathlib.Path(native.SRC) == ROOT / "native" / "rumpy_native.cpp"
+    seen = []
+
+    def fake_run(cmd, **kwargs):
+        seen.append(cmd)
+        raise subprocess.CalledProcessError(1, cmd, stderr=b"")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native.os.path, "isfile",
+                        lambda p: p != native.SO and os.path.exists(p))
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    with pytest.raises(native.NativeUnavailable, match="g\\+\\+"):
+        native.h264_intra(np.zeros((8, 8, 3), np.uint8), 30)
+    out = pathlib.Path(seen[0][seen[0].index("-o") + 1])
+    assert seen[0][0] == "g++" and out.parent == build and native.SRC in seen[0]
+    monkeypatch.undo()
+    before = sorted((p.name, p.stat().st_mtime_ns) for p in (ROOT / "native").iterdir())
+    monkeypatch.setattr(native, "_lib", None)
+    native.h264_intra(np.zeros((8, 8, 3), np.uint8), 30)
+    assert sorted((p.name, p.stat().st_mtime_ns) for p in (ROOT / "native").iterdir()) == before
+    assert pathlib.Path(native.SO).is_file()
+
+
+def test_chip_smoke_drives_the_tools_phases():
+    """chip_smoke.py drives the slice's three phases from main(), after the
+    FSSR family, each printing its row and failing on an RCAB launch; the
+    kernels line keeps its four entries."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    called = [n.func.id for n in ast.walk(fns["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    phases = ("offline_degrade", "face_segment", "fr_eval")
+    for phase in phases:
+        assert f"{phase}_phase" in called, phase
+        assert called.index(f"{phase}_phase") > called.index("fssr_train_phase")
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in phases:
+        assert f'"phase": "{phase}"' in text, phase
+        body = {n.func.id for n in ast.walk(fns[f"{phase}_phase"])
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+        assert "no_rcab" in body, phase
     kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
                and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
     assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
