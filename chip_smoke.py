@@ -4662,12 +4662,12 @@ FACEGAN_FULL = dict(latent_dim=100, nf=128)  # its defaults
 FACEGAN_SIDE = 80
 
 
-def write_celeba_set(root, rng, images, positives, hr_shape=FACE_HR):
+def write_celeba_set(root, rng, images, positives, hr_shape=FACE_HR, scale=TRAIN_SCALE):
     """A CelebA-format set: ``images`` textured HR faces ``000001.npy`` ...
-    (uint8 HWC), their x4 decimations, and list_attr_celeba.txt (a count
-    line, the 40 names, a row of -1/1 an image named NNNNNN.jpg) with
-    ``positives`` images Male. Returns (lr_dir, hr_dir, attributes file,
-    {name: Male 0/1})."""
+    (uint8 HWC), their decimations by ``scale`` (x4 by default), and
+    list_attr_celeba.txt (a count line, the 40 names, a row of -1/1 an image
+    named NNNNNN.jpg) with ``positives`` images Male. Returns (lr_dir,
+    hr_dir, attributes file, {name: Male 0/1})."""
     lr_dir, hr_dir = os.path.join(root, "lr"), os.path.join(root, "hr")
     os.makedirs(lr_dir)
     os.makedirs(hr_dir)
@@ -4682,8 +4682,7 @@ def write_celeba_set(root, rng, images, positives, hr_shape=FACE_HR):
                                                                   dtype=np.float32), 0, 255)
         hr = hr.astype(np.uint8)
         np.save(os.path.join(hr_dir, f"{stem}.npy"), hr)
-        np.save(os.path.join(lr_dir, f"{stem}.npy"),
-                np.ascontiguousarray(hr[::TRAIN_SCALE, ::TRAIN_SCALE]))
+        np.save(os.path.join(lr_dir, f"{stem}.npy"), np.ascontiguousarray(hr[::scale, ::scale]))
         values = rng.choice([-1, 1], len(CELEBA_ATTRIBUTES))
         values[CELEBA_ATTRIBUTES.index("Male")] = 1 if male[k] else -1
         rows.append(f"{stem}.jpg " + " ".join(f"{v:2d}" for v in values))
@@ -6376,6 +6375,177 @@ def fr_eval_phase(rcab, card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Slice 20: the attribute-conditioned face GANs
+# ---------------------------------------------------------------------------
+
+# n_feats at the JAX handlers' defaults (FaceSR-Attributes-GAN and AGA-GAN
+# 32, FMFNet 64), float32 (their default dtype), the 40 CelebA attributes
+ATTRIBUTE_GANS = {"facesrattributesgan": 32, "agagan": 32, "fmfnet": 64}
+ATTRIBUTE_SCALE = 8  # 16 x 16 faces to 128 x 128: the networks fix the LR side
+ATTRIBUTE_IMAGES, ATTRIBUTE_EVAL_IMAGES, ATTRIBUTE_CPU_IMAGES = 32, 4, 2
+# the card's eval output against the CPU's, same weights and batch, relative
+# to the largest output: float32 convs (TF32 off) summed in other orders
+# through up to 150 layers
+ATTRIBUTE_EVAL_REL = 1e-3
+
+
+def gan_phase_ms(handler, state, batch, steps=2):
+    """Device ms of an adversarial step's generator phase (to the end of its
+    update) and discriminator phase (from there to the end of its update),
+    by CUDA events recorded around ``handler._update``; the mean of
+    ``steps`` steps after one warm-up."""
+    marks = []
+    real = handler._update
+
+    def update(name, loss):
+        real(name, loss)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    handler.train_batch(state, batch)
+    handler._update = update
+    try:
+        starts = []
+        for _ in range(steps):
+            starts.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+            handler.train_batch(state, batch)
+    finally:
+        del handler._update
+    torch.cuda.synchronize()
+    return {"generator_ms": float(np.mean([s.elapsed_time(marks[2 * i])
+                                           for i, s in enumerate(starts)])),
+            "discriminator_ms": float(np.mean([marks[2 * i].elapsed_time(marks[2 * i + 1])
+                                               for i in range(steps)]))}
+
+
+def attribute_gan_train_phase(rcab, card):
+    """The slice's main path: FaceSR-Attributes-GAN (nf 32), AGA-GAN (nf 32)
+    and FMFNet (nf 64) at x8, float32, on the 40 CelebA attributes
+    (metadata ["all"]), each through cli.train_sisr on a seeded CelebA-format
+    set of 32 faces (HR 128, LR 16; one epoch of two adversarial steps at
+    batch 16, pretrain_epochs 0) and cli.eval_sisr on 4 other faces with the
+    attributes given by the eval config; then steady steps at batch 16 (step
+    ms, the generator's and the discriminator's phase ms, busy ms, idle
+    share, kernels, peak memory), the discriminator's train-mode and
+    eval-mode calls a step (2 and 2), FaceSR's generator statistics moved,
+    a step under sync debug "error", and the card's eval output against a
+    CPU run of the same weights on 2 faces. No RCAB kernel runs. Returns the
+    row."""
+    from rumpy_tpu_torch.cli import eval_sisr, train_sisr
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.registry import get_model
+
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_attribute_gans")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(200)
+    side = (FACE_SIDE, FACE_SIDE)
+    lr_dir, hr_dir, attrs, _ = write_celeba_set(os.path.join(root, "data"), rng,
+                                                ATTRIBUTE_IMAGES, ATTRIBUTE_IMAGES // 2,
+                                                hr_shape=side, scale=ATTRIBUTE_SCALE)
+    e_lr, e_hr, e_attrs, _ = write_celeba_set(os.path.join(root, "eval_data"), rng,
+                                              ATTRIBUTE_EVAL_IMAGES, 2, hr_shape=side,
+                                              scale=ATTRIBUTE_SCALE)
+    eval_cfg = os.path.join(root, "eval.toml")
+    dump_toml({"data": {"lr_dir": e_lr, "hr_dir": e_hr, "attributes_loc": e_attrs,
+                        "data_attributes": "all"}}, eval_cfg)
+    names = sorted(os.listdir(hr_dir))[:TRAIN_BATCH]
+    fixed = whole_faces(lr_dir, hr_dir, names, scale=ATTRIBUTE_SCALE)
+    table = np.loadtxt(attrs, skiprows=2, usecols=range(1, 41))
+    fixed["metadata"] = torch.from_numpy((table[:TRAIN_BATCH] > 0).astype(np.float32)).cuda()
+    exp_root = os.path.join(root, "experiments")
+    rows = {}
+    for name, nf in ATTRIBUTE_GANS.items():
+        internal = {"metadata": ["all"], "n_feats": nf, "pretrain_epochs": 0}
+        exp = f"{name}_celeba_x8"
+        cfg = {"experiment": exp, "experiment_save_loc": exp_root,
+               "data": {"scale": ATTRIBUTE_SCALE, "dataloader_threads": 4, "metadata": ["all"],
+                        "training_sets": {"data_1": {"lr_dir": lr_dir, "hr_dir": hr_dir,
+                                                     "attributes_loc": attrs}}},
+               "model": {"name": name, "internal_params": internal},
+               "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": 20}}
+        cfg_path = os.path.join(root, f"{name}.toml")
+        dump_toml(cfg, cfg_path)
+        rcab.launches = rcab.backward_launches = 0
+        t0 = time.perf_counter()
+        stats = train_sisr.main(["-p", cfg_path])
+        run_s = time.perf_counter() - t0
+        launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+        out = os.path.join(root, f"{name}_eval")
+        rcab.launches = 0
+        t0 = time.perf_counter()
+        eval_sisr.main(["-c", eval_cfg, "--model_loc", exp_root, "--scale",
+                        str(ATTRIBUTE_SCALE), "-m", "PSNR", "-m", "SSIM", "-me", exp, "last",
+                        "--out_loc", out])
+        eval_s = time.perf_counter() - t0
+        eval_launches = {"rcab_fused": rcab.launches}
+        no_rcab(f"the {name} run", launches, eval_launches)
+        columns, values = read_metrics_csv(os.path.join(out, "individual_metrics.csv"))
+        cli = {"run_experiment_s": run_s,
+               **{k: stats[0][k] for k in ("train-loss", "l1-loss", "gan-loss", "d-loss-real",
+                                           "d-loss-fake")},
+               "eval_sisr_s": eval_s, "eval_images_per_s": len(values) / eval_s,
+               "eval_mean": dict(zip([f"{m}>{k}" for m, k in columns],
+                                     np.mean(list(values.values()), axis=0).tolist())),
+               "launches": launches, "eval_launches": eval_launches}
+        if (len(stats) != 1 or not np.isfinite([cli[k] for k in ("train-loss", "d-loss-real",
+                                                                  "d-loss-fake")]).all()
+                or not cli["gan-loss"] > 0 or len(values) != ATTRIBUTE_EVAL_IMAGES
+                or (exp, "PSNR") not in columns or not np.isfinite(list(values.values())).all()):
+            raise AssertionError(f"{name} through the CLIs: {cli}, columns {columns}")
+
+        handler = get_model(name)(device="cuda", seed=20, **internal)
+        state = handler.init_state()
+        n_params = sum(p.numel() for p in handler.module.parameters())
+        stats0 = running_stats(handler.module.generator)
+        step = step_row(rcab, handler, state, fixed, f"{name} nf {nf} f32")
+        no_rcab(f"a {name} step", step["launches_a_step"])
+        by_phase = gan_phase_ms(handler, state, fixed)
+        calls = []
+        hook = handler.discriminator.register_forward_pre_hook(
+            lambda m, a, kw: calls.append(bool(kw.get("train"))), with_kwargs=True)
+        try:
+            trace = traced(lambda: handler.train_batch(state, fixed), f"{name}_step_trace", 1)
+        finally:
+            hook.remove()
+        unsynced = step_without_sync(handler, state, fixed)
+        stats1 = running_stats(handler.module.generator)
+        moved = sum(not torch.equal(stats0[k], stats1[k]) for k in stats0)
+        probe = {"lr": fixed["lr"][:ATTRIBUTE_CPU_IMAGES],
+                 "metadata": fixed["metadata"][:ATTRIBUTE_CPU_IMAGES]}
+        card_out = handler.run_eval(state, probe).cpu()
+        cpu = get_model(name)(device="cpu", seed=20, **internal)
+        cpu.module.load_state_dict({k: v.cpu() for k, v in state.params.items()})
+        cpu_out = cpu.run_eval(cpu._own_state(), {k: v.cpu() for k, v in probe.items()})
+        eval_err = float((card_out - cpu_out).abs().max() / cpu_out.abs().max())
+        rows[name] = {
+            "model": f"{name} nf {nf} x8 f32, 40 attributes", "parameters": n_params,
+            "cli": cli, "fixed_batch": step, **by_phase, "step_busy_ms": trace["busy_us"] / 1e3,
+            "step_idle_share": trace["idle_share"], "kernels_a_step": trace["kernels_per_call"],
+            "peak_gb_a_step": step["peak_memory_bytes"] / 1e9,
+            "d_train_calls_a_step": sum(calls), "d_eval_calls_a_step": len(calls) - sum(calls),
+            "generator_stats": len(stats0), "generator_stats_moved": moved,
+            "step_under_sync_debug_error": unsynced,
+            "eval_card_vs_cpu_rel_err": eval_err, "eval_card_vs_cpu_images": len(cpu_out)}
+        if (rows[name]["d_train_calls_a_step"] != 2 or rows[name]["d_eval_calls_a_step"] != 2
+                or moved != len(stats0) or (name == "facesrattributesgan") != bool(stats0)
+                or not np.isfinite(list(unsynced.values())).all()
+                or not eval_err <= ATTRIBUTE_EVAL_REL
+                or tuple(card_out.shape) != (ATTRIBUTE_CPU_IMAGES, FACE_SIDE, FACE_SIDE, 3)):
+            raise AssertionError(f"{name}: {rows[name]}")
+        del handler, state, cpu
+        torch.cuda.empty_cache()
+    row = {"phase": "attribute_gan_train", "card": card, "batch": TRAIN_BATCH,
+           "lr_side": FACE_SIDE // ATTRIBUTE_SCALE, "hr_side": FACE_SIDE, "num_metadata": 40,
+           "eval_rel_tolerance": ATTRIBUTE_EVAL_REL, **rows}
+    print(json.dumps(row), flush=True)
+    shutil.rmtree(root)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6462,6 +6632,13 @@ def main() -> int:
     print(json.dumps({"phase": "slice19_launches", "offline_degrade": offline["launches"],
                       "face_segment": segment["launches"], "fr_eval": fr["launches"]}),
           flush=True)
+    # slice 20: the attribute-conditioned GANs launch no RCAB kernel: the phase
+    # fails on one
+    attribute = attribute_gan_train_phase(rcab, card)
+    print(json.dumps({"phase": "slice20_launches", **{
+        name: {"training_path": r["cli"]["launches"], "eval_path": r["cli"]["eval_launches"],
+               "a_step": r["fixed_batch"]["launches_a_step"]}
+        for name, r in attribute.items() if name in ATTRIBUTE_GANS}}), flush=True)
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],

@@ -65,17 +65,20 @@ class Conv(nn.Module):
     that many zeros on every side in place of k // 2 (0: flax's 'VALID').
     ``groups`` splits the channels as flax's ``feature_group_count`` does
     (weight (features, in_features // groups, k, k); flax's kernel is
-    (k, k, in_features // groups, features))."""
+    (k, k, in_features // groups, features)); ``dilation`` spaces the taps
+    as flax's ``kernel_dilation`` does."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  use_bias: bool = True, dtype: torch.dtype = torch.float32,
                  stride: int = 1, flax_same: bool = False, init: str = "torch",
-                 reflect: bool = False, padding: Optional[int] = None, groups: int = 1):
+                 reflect: bool = False, padding: Optional[int] = None, groups: int = 1,
+                 dilation: int = 1):
         super().__init__()
         self.dtype = dtype
         self.stride = stride
         self.kernel_size = kernel_size
         self.groups = groups
+        self.dilation = dilation
         self.flax_same = flax_same and stride > 1
         self.reflect = reflect
         self.padding = (0 if (self.flax_same or reflect) else
@@ -131,7 +134,7 @@ class Conv(nn.Module):
             else:
                 x = F.pad(x, pads)
         return F.conv2d(x, w.to(self.dtype), b, stride=stride, padding=padding,
-                        groups=self.groups)
+                        dilation=self.dilation, groups=self.groups)
 
     def as_linear(self, v):
         """A 1x1 conv applied to (N, in) vectors: (N, features), as the JAX

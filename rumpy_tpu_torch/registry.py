@@ -23,6 +23,7 @@ _MODEL_MODULES = [
     "rumpy_tpu_torch.models.dan",
     "rumpy_tpu_torch.models.dasr",
     "rumpy_tpu_torch.models.dic",
+    "rumpy_tpu_torch.models.face_attribute_gans",
     "rumpy_tpu_torch.models.face_models",
     "rumpy_tpu_torch.models.fssr",
     "rumpy_tpu_torch.models.gan_models",

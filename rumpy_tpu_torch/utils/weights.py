@@ -29,7 +29,8 @@ AlexNet ``Conv_<i>``; the regressors' ``TConv_<i>``, ``TDense_<i>``,
 ``BatchNorm_<i>``, ``_ResBlock_<i>``, ``_MBConv_<i>``, ``MABlock_<i>``,
 ``MAConv_<i>`` and ``TConvTranspose_0``; DIC's explicit layer names;
 WaveletSRNet's, the wavelet discriminator's and DSGAN's, with their grouped
-convs and BatchNorm). A module with a
+convs and BatchNorm; the attribute GANs' compact modules, numbered by
+class in construction order). A module with a
 parameter of its own beside its children (``flax_leaves``: the scalar
 ``gamma`` of LAM, CSAM and SAN; SwinIR's ``relative_position_bias``)
 maps it at its own path, or at a path of

@@ -529,12 +529,16 @@ SLICE17_MODELS = {
     "waveletsrgan": dict(num_layers_res=1, wavelet_c=2, include_id_loss=False),
     "esrganfs": dict(nf=8, nb=1, gc=4, d_nf=4), "fssr": dict(nf=8, nb=1, gc=4, d_nf=4),
     "fssrdsgan": dict(n_res_blocks=1, use_perceptual_loss=False)}
-# every name the port registers that builds: 56 of the JAX package's 59
+# the attribute-conditioned GANs at tiny widths, 8 attributes
+SLICE20_MODELS = {"facesrattributesgan": dict(n_feats=4, metadata_bypass_len=8),
+                  "agagan": dict(n_feats=4, metadata_bypass_len=8),
+                  "fmfnet": dict(n_feats=4, metadata_bypass_len=8)}
+# every name the port registers that builds: all 59 of the JAX package's
 BUILDING_MODELS = ("edsr", "rcan", "qrcan", "qedsr", "contrastiveblindqrcan",
                    "contrastiveblindqedsr", "srmd", "edsrmd", "sftmd", "moco", "supmoco",
                    "weakcon", "supcon", "degradationregressor", "dan", "ikc", "dasr",
                    "dcls") + tuple(GENERATOR_MODELS) + tuple(GAN_MODELS) + tuple(FACE_MODELS) \
-    + tuple(SLICE16_MODELS) + tuple(SLICE17_MODELS)
+    + tuple(SLICE16_MODELS) + tuple(SLICE17_MODELS) + tuple(SLICE20_MODELS)
 
 
 def _builds_and_runs(name):
@@ -554,9 +558,9 @@ def _builds_and_runs(name):
 def test_port_covers_the_bobw_generator_families():
     """The HAN, ELAN, SAN and GAN-group modules are in the package (so the
     import scans above read them, neither jax nor rumpy_tpu among their
-    imports) and the registry finds 56 names that build (the face group's
-    four, slice 16's eight and slice 17's eight among them); the three that raised naming
-    item 9 until gan_models and metabed came build and run."""
+    imports) and the registry finds 59 names that build (the face group's
+    four, slice 16's eight, slice 17's eight and slice 20's three among them); the three that
+    raised naming item 9 until gan_models and metabed came build and run."""
     from rumpy_tpu_torch.registry import available_models
     names = {str(p.relative_to(ROOT / "rumpy_tpu_torch")) for p in _port_files()[:-1]}
     missing = [m for m in GENERATOR_MODULES + GAN_MODULES if m not in names]
@@ -565,7 +569,7 @@ def test_port_covers_the_bobw_generator_families():
         bad = [mod for mod, _ in _imported_roots(ROOT / "rumpy_tpu_torch" / m) if mod in FORBIDDEN]
         assert not bad, (m, bad)
     registered = set(available_models())
-    assert len(BUILDING_MODELS) == 56 and registered == set(BUILDING_MODELS)
+    assert len(BUILDING_MODELS) == 59 and registered == set(BUILDING_MODELS)
     for name in ("contrastiveblindqrealesrgan", "contrastiveblindmetabed"):
         _builds_and_runs(name)
 
@@ -905,6 +909,71 @@ def test_chip_smoke_drives_the_tools_phases():
         body = {n.func.id for n in ast.walk(fns[f"{phase}_phase"])
                 if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
         assert "no_rcab" in body, phase
+    kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
+               and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
+    assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
+
+
+def test_port_covers_slice_20():
+    """FaceSR-Attributes-GAN, AGA-GAN and FMFNet are in the package, whose
+    face_attribute_gans module imports neither jax nor rumpy_tpu; the
+    registry finds the slice's three names, and each builds on the CPU at a
+    tiny width and super-resolves a 16 x 16 input with 40 metadata values
+    (the CelebA attributes, ``metadata=["all"]``) to a finite 128 x 128
+    image."""
+    from rumpy_tpu_torch.registry import available_models, get_model
+    path = ROOT / "rumpy_tpu_torch" / "models" / "face_attribute_gans.py"
+    assert path in _port_files()
+    bad = [mod for mod, _ in _imported_roots(path) if mod in FORBIDDEN]
+    assert not bad, bad
+    assert set(SLICE20_MODELS) <= set(available_models())
+    for name in SLICE20_MODELS:
+        handler = get_model(name)(device="cpu", n_feats=4, metadata=["all"])
+        assert handler.num_metadata == 40 and handler.scale == 8
+        out = handler.run_eval(handler.init_state(), {
+            "lr": np.full((1, 16, 16, 3), 0.5, np.float32),
+            "metadata": np.ones((1, 40), np.float32)})
+        assert tuple(out.shape) == (1, 128, 128, 3) and bool(torch.isfinite(out).all()), name
+
+
+@pytest.mark.parametrize("name", list(SLICE20_MODELS))
+def test_slice_20_models_raise_without_cuda(monkeypatch, name):
+    from rumpy_tpu_torch.registry import get_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(name)(**SLICE20_MODELS[name])
+
+
+def test_slice_20_steps_read_nothing_back():
+    """The attribute GAN handler's steps and forwards, and the STN's grid and
+    sample, call nothing that waits for the card (chip_smoke.py runs a step
+    of each handler under sync debug "error")."""
+    tree = ast.parse((ROOT / "rumpy_tpu_torch" / "models" / "face_attribute_gans.py").read_text())
+    fns = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+           and n.name in ("_linspace", "affine_grid", "grid_sample", "_dropout")]
+    for cls in (n for n in tree.body if isinstance(n, ast.ClassDef)):
+        fns += [n for n in cls.body if isinstance(n, ast.FunctionDef)
+                and n.name not in ("init_weights", "_jax_state_dict")]
+    calls = [f"{f.name}:{n.lineno} .{n.func.attr}()" for f in fns for n in ast.walk(f)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+             and n.func.attr in SYNCING_CALLS]
+    assert len(fns) > 40 and not calls, calls
+
+
+def test_chip_smoke_drives_the_slice_20_phase():
+    """chip_smoke.py drives attribute_gan_train from main(), after the
+    tools, printing its row, failing on an RCAB launch and taking a step
+    under sync debug "error"; the kernels line keeps its four entries."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    called = [n.func.id for n in ast.walk(fns["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert "attribute_gan_train_phase" in called
+    assert called.index("attribute_gan_train_phase") > called.index("fr_eval_phase")
+    assert '"phase": "attribute_gan_train"' in (ROOT / "chip_smoke.py").read_text()
+    body = {n.func.id for n in ast.walk(fns["attribute_gan_train_phase"])
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert {"no_rcab", "step_without_sync"} <= body
     kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
                and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
     assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
