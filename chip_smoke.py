@@ -136,6 +136,14 @@ seeded random weights):
   evaluation (``regressor_train``); each with step ms, busy ms, idle share,
   kernels, peak memory, a fixed batch's loss before and after and one step
   under sync debug "error";
+* the trainer's leftovers: full-width blind RCAN x4 bf16 with the
+  example's Adam and multi_step_lr resumed from the JAX package's trees of
+  a run (weights and optax state, through ``_load_jax_checkpoint``), its
+  step under sync debug "error" held bit for bit against an uninterrupted
+  run, each moment on the card in its parameter's layout; then
+  ``TrainingHandler`` for an epoch of 6 steps with ``profile_steps = 2``
+  and ``logging = "aim"`` (not installed), the trace's step spans, RCAB
+  launches and top kernels (``trainer_resume``);
 * every RCAB kernel launch of the run, recorded by shape, dtype, direction
   and which gate inputs are per image: each one that no phase held against
   the plain version is held after the paths, in the directions launched,
@@ -6545,6 +6553,252 @@ def attribute_gan_train_phase(rcab, card):
     shutil.rmtree(root)
     return row
 
+# trainer_resume: run A takes RESUME_STEPS steps (three times, for the
+# run-to-run floor), run B one step fewer, then B's state goes out as the
+# JAX package's trees and back into a fresh handler for the last step;
+# the trainer then runs TRAINER_STEPS steps with the first PROFILED_STEPS
+# traced.
+RESUME_STEPS, RESUME_REPEATS, RESUME_SEED = 3, 3, 21
+TRAINER_STEPS, PROFILED_STEPS, TRAINER_HR = 6, 2, 256
+AIM_MESSAGE = "aim not installed; experiment tracking disabled"
+
+
+def exported_run(handler, state):
+    """``handler``'s weights and optimizer state as the dict that the port's
+    flax-msgpack reader returns for a checkpoint the JAX package wrote."""
+    from rumpy_tpu_torch.models.base import optax_state_tree
+    from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+    return {"network": jax_tree_from_state_dict(handler.module.state_dict(), handler.module),
+            "optimizer": optax_state_tree(handler.optimizer(), handler.module,
+                                          handler.grad_clip is not None,
+                                          handler.scheduler is not None, state.step),
+            "extra": {}, "step": np.asarray(state.step, np.int32),
+            "rng": np.zeros(2, np.uint32), "model_name": "rcan", "model_epoch": 0,
+            "handler_metadata": {}}
+
+
+def moment_places(handler):
+    """Where the torch moments of the handler's parameters live: rows of
+    (moment, device, dtype, memory format, strides equal to the
+    parameter's, step's device, step's dtype, count)."""
+    opt = handler.optimizer()
+    rows = collections.Counter()
+    for p in handler.module.parameters():
+        st = opt.state[p]
+        for name in ("exp_avg", "exp_avg_sq"):
+            m = st[name]
+            layout = ("channels_last" if p.dim() == 4
+                      and m.is_contiguous(memory_format=torch.channels_last) else "contiguous")
+            rows[(name, str(m.device), str(m.dtype), layout, m.stride() == p.stride(),
+                  str(st["step"].device), str(st["step"].dtype))] += 1
+    return [list(k) + [n] for k, n in sorted(rows.items())]
+
+
+def trace_step_kernels(path):
+    """The step spans, RCAB launches (one rcab_apply_kernel a forward, one
+    rcab_bwd_finish_kernel a backward) and the top five kernels by summed
+    device time of a trace the trainer wrote."""
+    from rumpy_tpu_torch.training.trainer import STEP_SPAN
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("name") == STEP_SPAN and e.get("cat") == "user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[kernel_name(e["name"])] += e["dur"]
+    busy, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        start, stop = max(e["ts"], end), e["ts"] + e["dur"]
+        busy += max(stop - start, 0.0)
+        end = max(end, stop)
+    return {"step_spans": len(spans),
+            "span_ms": [e["dur"] / 1e3 for e in spans],
+            "rcab_forward_launches": sum("rcab_apply_kernel" in e["name"] for e in kernels),
+            "rcab_backward_launches": sum("rcab_bwd_finish_kernel" in e["name"]
+                                          for e in kernels),
+            "kernels": len(kernels), "busy_ms": busy / 1e3,
+            "top5_kernels_us": [[n, t] for n, t in by_name.most_common(5)],
+            "device_us_by_kernel": dict(by_name)}
+
+
+def trainer_resume_phase(rcab, card):
+    """The slice's main path, item 8b: full-width blind RCAN x4 bf16 with the
+    example's Adam and multi_step_lr (its milestone moved to step 2, so that
+    the resumed step runs at the halved lr) continues a run that the JAX
+    package could have written. Run A takes 3 steps on a fixed batch of 16
+    LR/HR pairs (48 x 48 LR), three times with the same seed (the
+    run-to-run floor, cuDNN deterministic); run B takes 2, exports its
+    weights and Adam state as the JAX package's trees, and a fresh handler
+    loads them through ``_load_jax_checkpoint`` in train mode and takes
+    step 3 under sync debug "error". Step 3 must land no farther from A
+    than A's repeats from each other; every moment must sit on the card in
+    its parameter's memory format, every ``step`` on the CPU.
+    Then TrainingHandler runs the example's chain at full width for one
+    epoch of 6 steps with profile_steps = 2 and logging = "aim" (aim is
+    not installed): every step after the first under sync debug "error"
+    (the profiler stops between steps 2 and 3), the trace's 2 step spans
+    with 200 RCAB forward and 200 backward launches each, its top kernels,
+    and host ms a step with and without the profiler."""
+    import io
+
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+    from rumpy_tpu_torch.training.trainer import TrainingHandler
+
+    t_phase = time.perf_counter()
+    example = load_config(os.path.join(ROOT, EXAMPLE_CONFIG)).as_plain()
+    internal = dict(example["model"]["internal_params"])
+    internal["scheduler_params"] = dict(internal["scheduler_params"], milestones=[2])
+    g = card_generator(RESUME_SEED)
+    batch = {"lr": torch.rand(TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3, device="cuda", generator=g),
+             "hr": torch.rand(TRAIN_BATCH, HR_SIDE, HR_SIDE, 3, device="cuda", generator=g)}
+
+    def run(steps):
+        h = get_model("rcan")(device="cuda", seed=RESUME_SEED, **internal)
+        state = h.init_state()
+        losses = None
+        for _ in range(steps):
+            state, losses = h.train_batch(state, batch)
+        return h, state, losses
+
+    def params_of(h):
+        return {k: p.detach().clone() for k, p in h.module.named_parameters()}
+
+    def largest(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(RESUME_REPEATS):
+            h, _, losses_a = run(RESUME_STEPS)
+            runs.append(params_of(h))
+            del h
+        floor = max(largest(runs[i], runs[j]) for i in range(len(runs))
+                    for j in range(i + 1, len(runs)))
+        hb, state_b, _ = run(RESUME_STEPS - 1)
+        t0 = time.perf_counter()
+        loaded = exported_run(hb, state_b)
+        export_s = time.perf_counter() - t0
+        del hb, state_b
+        fresh = get_model("rcan")(device="cuda", seed=RESUME_SEED + 1, **internal)
+        t0 = time.perf_counter()
+        state = fresh._load_jax_checkpoint(loaded, "run B as the JAX package's trees", False)
+        load_s = time.perf_counter() - t0
+        places = moment_places(fresh)
+        n_params = len(list(fresh.module.parameters()))
+        rcab.launches = rcab.backward_launches = 0
+        losses_b = step_without_sync(fresh, state, batch)
+        resume_launches = {"rcab_fused": rcab.launches,
+                           "rcab_fused_backward": rcab.backward_launches}
+        resumed = largest(params_of(fresh), runs[0])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del fresh, state, loaded, runs
+    if any(r[1:3] != ["cuda:0", "torch.float32"] or not r[4] or r[5:7] != [
+            "cpu", "torch.float32"] for r in places) \
+            or sum(r[-1] for r in places) != 2 * n_params \
+            or not any(r[3] == "channels_last" for r in places):
+        raise AssertionError(f"trainer_resume: moments not where torch keeps them: {places}")
+    if resumed > floor:
+        raise AssertionError(f"trainer_resume: the resumed step 3 is {resumed} from run A, "
+                             f"whose repeats differ by {floor}")
+    if resume_launches != {"rcab_fused": 200, "rcab_fused_backward": 200}:
+        raise AssertionError(f"trainer_resume: the resumed step launched {resume_launches}")
+    # step 3's loss is taken before its update, from the weights after step 2
+    if floor == 0 and losses_b["train-loss"] != float(losses_a["train-loss"]):
+        raise AssertionError(f"trainer_resume: step-3 loss {losses_b} against A's {losses_a}")
+
+    # (b) the trainer: profile_steps and the Aim gate at full width
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    hr_dir = os.path.join(root, "hr")
+    os.makedirs(hr_dir)
+    rng = np.random.default_rng(RESUME_SEED)
+    for k in range(TRAIN_BATCH):
+        np.save(os.path.join(hr_dir, f"im{k}.npy"),
+                rng.integers(0, 256, (TRAINER_HR, TRAINER_HR, 3), dtype=np.uint8))
+    cfg = {
+        "experiment": "rcan_x4_blind_profiled", "experiment_save_loc": os.path.join(root, "exp"),
+        "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "dataloader_threads": 4,
+                 "online_degradations": example["data"]["online_degradations"],
+                 "training_sets": {f"data_{i}": {"hr_dir": hr_dir}
+                                   for i in range(TRAINER_STEPS)}},
+        "model": {"name": "rcan", "internal_params": internal},
+        "training": {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": RESUME_SEED,
+                     "profile_steps": PROFILED_STEPS, "logging": "aim"},
+    }
+    cfg_path = os.path.join(root, "train.toml")
+    dump_toml(cfg, cfg_path)
+    real_step, step_s = SISRInterface.train_batch, []
+
+    def strict_step(self, *args, **kwargs):
+        # the first step uploads the chain's tables, once a process (the
+        # blur families' cumulative probabilities, ...): the rest wait for
+        # nothing
+        if step_s:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            return real_step(self, *args, **kwargs)
+        finally:
+            step_s.append(time.perf_counter() - t0)
+            torch.cuda.set_sync_debug_mode(0)
+
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    rcab.launches = rcab.backward_launches = 0
+    SISRInterface.train_batch = strict_step
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            h = TrainingHandler(load_config(cfg_path), verbose=True)
+            stats = h.run_experiment()
+    finally:
+        SISRInterface.train_batch = real_step
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    trainer_launches = {"rcab_fused": rcab.launches, "rcab_fused_backward": rcab.backward_launches}
+    print(printed.getvalue(), file=sys.stderr, flush=True)
+    trace = trace_step_kernels(os.path.join(h.model.logs_dir, "profile", "train_steps.json"))
+    if AIM_MESSAGE not in printed.getvalue() or h.tracker is not None:
+        raise AssertionError(f"trainer_resume: no Aim message in {printed.getvalue()!r}")
+    if list(stats) != [0] or not np.isfinite(stats[0]["train-loss"]) \
+            or len(step_s) != TRAINER_STEPS:
+        raise AssertionError(f"trainer_resume: the epoch {stats} took {len(step_s)} steps")
+    if trainer_launches != {k: 200 * TRAINER_STEPS for k in trainer_launches}:
+        raise AssertionError(f"trainer_resume: the epoch launched {trainer_launches}")
+    if (trace["step_spans"], trace["rcab_forward_launches"], trace["rcab_backward_launches"]) \
+            != (PROFILED_STEPS, 200 * PROFILED_STEPS, 200 * PROFILED_STEPS):
+        raise AssertionError(f"trainer_resume: the trace holds {trace['step_spans']} step spans, "
+                             f"{trace['rcab_forward_launches']} forward and "
+                             f"{trace['rcab_backward_launches']} backward RCAB launches")
+    row = {"phase": "trainer_resume", "model": "rcan x4 10x20x64 bf16", "card": card,
+           "config": EXAMPLE_CONFIG, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "resume": {"steps": RESUME_STEPS, "a_step3_loss": float(losses_a["train-loss"]),
+                      "b_step3_loss": losses_b["train-loss"],
+                      "b_against_a_max_abs": resumed, "a_repeats_max_abs": floor,
+                      "export_s": export_s, "load_s": load_s, "moment_places": places,
+                      "launches": resume_launches},
+           "trainer": {"steps": len(step_s), "profiled_steps": PROFILED_STEPS,
+                       "host_ms_a_step": [1e3 * t for t in step_s],
+                       "profiled_host_ms": float(np.median(step_s[:PROFILED_STEPS]) * 1e3),
+                       "unprofiled_host_ms": float(np.median(step_s[PROFILED_STEPS:]) * 1e3),
+                       "run_experiment_s": run_s, "train_loss": stats[0]["train-loss"],
+                       "launches": trainer_launches, "aim_message": True,
+                       **{k: v for k, v in trace.items() if k != "device_us_by_kernel"},
+                       "device_ms_a_step_by_kernel": {
+                           k: v / 1e3 / PROFILED_STEPS
+                           for k, v in sorted(trace["device_us_by_kernel"].items(),
+                                              key=lambda kv: -kv[1])[:12]}},
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(row), flush=True)
+    del h
+    shutil.rmtree(root)
+    return row
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6639,6 +6893,11 @@ def main() -> int:
         name: {"training_path": r["cli"]["launches"], "eval_path": r["cli"]["eval_launches"],
                "a_step": r["fixed_batch"]["launches_a_step"]}
         for name, r in attribute.items() if name in ATTRIBUTE_GANS}}), flush=True)
+    # slice 21, the trainer's leftovers: a JAX-written run resumed with its
+    # optax state, and the trainer profiled, on the RCAB kernels
+    resume = trainer_resume_phase(rcab, card)
+    resume_launches = resume["resume"]["launches"]
+    profiled_launches = resume["trainer"]["launches"]
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],
@@ -6685,7 +6944,8 @@ def main() -> int:
                      + dan["launches"]["rcab_fused"] + dan["eval_rcab_launches"]
                      + han["launches"]["rcab_fused"] + han["eval_rcab_launches"]
                      + qhan["launches"]["rcab_fused"] + qhan["eval_rcab_launches"]
-                     + split["launches"]["rcab_fused"] + split["eval_rcab_launches"]),
+                     + split["launches"]["rcab_fused"] + split["eval_rcab_launches"]
+                     + resume_launches["rcab_fused"] + profiled_launches["rcab_fused"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
@@ -6721,6 +6981,8 @@ def main() -> int:
         "launches_rcansplit_eval_path": split["eval_rcab_launches"],
         "launches_rcansplit_a_step": split["fixed_batch"]["launches_a_step"]["rcab_fused"],
         "launches_slice16": slice16_launches,
+        "launches_trainer_resume_path": resume_launches["rcab_fused"],
+        "launches_trainer_profiled_path": profiled_launches["rcab_fused"],
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -6750,7 +7012,9 @@ def main() -> int:
                      + dan["launches"]["rcab_fused_backward"]
                      + han["launches"]["rcab_fused_backward"]
                      + qhan["launches"]["rcab_fused_backward"]
-                     + split["launches"]["rcab_fused_backward"]),
+                     + split["launches"]["rcab_fused_backward"]
+                     + resume_launches["rcab_fused_backward"]
+                     + profiled_launches["rcab_fused_backward"]),
         "launches_training_path": train_launches["rcab_fused_backward"],
         "launches_blind_training_path": blind_launches["rcab_fused_backward"],
         "launches_bobw_training_path": bobw_launches["rcab_fused_backward"],
@@ -6768,6 +7032,8 @@ def main() -> int:
         "launches_rcansplit_a_step":
             split["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
         "launches_slice16": slice16_launches,
+        "launches_trainer_resume_path": resume_launches["rcab_fused_backward"],
+        "launches_trainer_profiled_path": profiled_launches["rcab_fused_backward"],
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

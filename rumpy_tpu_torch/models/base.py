@@ -15,8 +15,9 @@ outputs keep the JAX package's NHWC layout. Parameters are float32;
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -187,6 +188,159 @@ def optimizer_update(opt: torch.optim.Optimizer, params, loss, clip: Optional[fl
         for group in opt.param_groups:
             group["lr"] = float(lr)
     opt.step()
+
+
+# ---------------------------------------------------------------------------
+# Optax state of JAX-written checkpoints
+# ---------------------------------------------------------------------------
+
+# The JAX package's optimizer (``rumpy_tpu/models/base.py::build_optimizer``)
+# is ``optax.chain([clip_by_global_norm,] opt)``; flax serialises a chain as
+# a dict keyed "0", "1", .... Each torch optimizer's ``opt`` chain, entry by
+# entry: the fields of its moment state, LR (``scale_by_learning_rate``: {}
+# at a constant lr, {count} under a schedule) or a stateless transform's {}.
+LR = "lr"
+OPTAX_CHAINS = (  # AdamW before Adam, its base class
+    (torch.optim.AdamW, "adamw", ({"count", "mu", "nu"}, set(), LR)),
+    (torch.optim.Adam, "adam", ({"count", "mu", "nu"}, LR)),
+    (torch.optim.RMSprop, "rmsprop", ({"nu"}, LR, set())),
+    (torch.optim.SGD, "sgd", ({"trace"}, LR)),
+)
+# optax moment -> the torch optimizer state that holds it
+TORCH_MOMENTS = {"mu": "exp_avg", "nu": "exp_avg_sq", "trace": "momentum_buffer"}
+
+
+def _torch_field(kind: str, field: str) -> str:
+    return "square_avg" if (kind, field) == ("rmsprop", "nu") else TORCH_MOMENTS[field]
+
+
+class OptaxTarget(NamedTuple):
+    """One of a handler's optimizers as the JAX package keeps it."""
+    optimizer: Callable[[], torch.optim.Optimizer]  # builds or returns it
+    part: Optional[str]  # the ``network`` subtree it updates; None: all of it
+    clip: bool  # whether its chain starts with the global-norm clip
+    name: Optional[str] = None  # the handler's name of its step count
+
+
+def _optax_chain(opt: torch.optim.Optimizer):
+    for cls, name, chain in OPTAX_CHAINS:
+        if isinstance(opt, cls):
+            return name, chain
+    raise TypeError(f"no optax counterpart of {type(opt).__name__}")
+
+
+def _scalar_dtype() -> torch.dtype:
+    """The dtype torch gives a non-fused optimizer's ``step``."""
+    return torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+
+
+def parse_optax_state(tree, opt: torch.optim.Optimizer, clip: bool, where: str):
+    """The moment trees ({"mu": ..., "nu": ...}), the moment state's count,
+    the schedule's count (None where the chain has none) and the moment
+    state's path below ``where``, of one optax chain state as flax
+    serialised it. Raises, naming the path, where the
+    tree is not the chain of ``opt`` (with the clip where ``clip``)."""
+    kind, chain = _optax_chain(opt)
+
+    def keys(node, path):
+        if not isinstance(node, Mapping):
+            raise ValueError(f"{where}{path}: expected a dict of optax state, "
+                             f"found {type(node).__name__}")
+        return set(node)
+
+    def entries(node, n, path, what):
+        want = {str(i) for i in range(n)}
+        if keys(node, path) != want:
+            raise ValueError(f"{where}{path}: {what} has entries {sorted(want)}, "
+                             f"the checkpoint {sorted(node)}")
+        return [node[str(i)] for i in range(n)]
+
+    outer = entries(tree, 2 if clip else 1, "",
+                    f"the handler's chain ({'clip, ' if clip else ''}{kind})")
+    if clip and keys(outer[0], "/0"):
+        raise ValueError(f"{where}/0: expected the clip's empty state, found {sorted(outer[0])}")
+    inner_path = "/1" if clip else "/0"
+    inner = entries(outer[-1], len(chain), inner_path, kind)
+    moments = sched = None
+    for i, (want, node) in enumerate(zip(chain, inner)):
+        path, got = f"{inner_path}/{i}", keys(node, f"{inner_path}/{i}")
+        if want == LR:
+            if got not in (set(), {"count"}):
+                raise ValueError(f"{where}{path}: expected the learning rate's state "
+                                 f"({{}} or {{count}}), found {sorted(got)}")
+            sched = int(np.asarray(node["count"])) if got else None
+        elif got != want:
+            raise ValueError(f"{where}{path}: {kind} expects {sorted(want)}, "
+                             f"the checkpoint holds {sorted(got)}")
+        elif want:
+            moments = node
+    count = int(np.asarray(moments["count"])) if "count" in moments else None
+    return ({k: v for k, v in moments.items() if k != "count"}, count, sched,
+            f"{inner_path}/0")
+
+
+@torch.no_grad()
+def set_optax_moments(opt: torch.optim.Optimizer, moments: Dict[str, Dict[str, torch.Tensor]],
+                      names: Dict[int, str], step: int, where: str) -> None:
+    """The torch state of every parameter of ``opt`` that takes a gradient:
+    ``moments`` {optax field: {parameter name: tensor}} as the torch
+    moments, each on its parameter's device, in its dtype and memory format,
+    and ``step`` as a CPU scalar tensor, as torch makes it for a non-fused
+    optimizer (a CUDA step would be read back on every update). SGD's
+    momentum buffer is left unset before the first update, where torch's
+    first step then starts from the gradient, as optax's trace from zeros
+    does."""
+    have = set.intersection(*(set(m) for m in moments.values()))
+    params = [p for g in opt.param_groups for p in g["params"] if p.requires_grad]
+    keys = [names[id(p)] for p in params]
+    missing = sorted(set(keys) - have)
+    if missing:
+        raise ValueError(f"{where}: no optax state for the port parameters {missing}")
+    unused = sorted(have - set(keys))
+    if unused:
+        raise ValueError(f"{where}: optax state for {unused}, which this optimizer "
+                         "does not update")
+    kind, _ = _optax_chain(opt)
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if not p.requires_grad:
+                continue
+            state = {}
+            if kind != "sgd":
+                state["step"] = torch.tensor(float(step), dtype=_scalar_dtype())
+            elif step == 0 or not group["momentum"]:
+                continue
+            for field, by_name in moments.items():
+                state[_torch_field(kind, field)] = torch.empty_like(
+                    p, memory_format=torch.preserve_format).copy_(by_name[names[id(p)]])
+            opt.state[p] = state
+
+
+def optax_state_tree(opt: torch.optim.Optimizer, module: nn.Module, clip: bool,
+                     scheduled: bool, count: int) -> Dict[str, Any]:
+    """The inverse of :func:`parse_optax_state` and
+    :func:`set_optax_moments`: ``opt``'s state over ``module``'s parameters
+    as the JAX package's optax chain state, nested dicts of numpy arrays in
+    flax's layout (the schedule and moment counts ``count``), for a
+    handler whose ``network`` tree is ``module``'s own."""
+    from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+    kind, chain = _optax_chain(opt)
+    named = dict(module.named_parameters())
+
+    def moment(field):
+        name = _torch_field(kind, field)
+        return jax_tree_from_state_dict(
+            {k: opt.state[p][name] if name in opt.state.get(p, {}) else torch.zeros_like(p)
+             for k, p in named.items()}, module)
+
+    c = np.asarray(count, np.int32)
+    inner = {}
+    for i, want in enumerate(chain):
+        if want == LR:
+            inner[str(i)] = {"count": c} if scheduled else {}
+        else:
+            inner[str(i)] = {f: (c if f == "count" else moment(f)) for f in want}
+    return {"0": {}, "1": inner} if clip else {"0": inner}
 
 
 PIXEL_LOSSES: Dict[str, Callable] = {
@@ -493,21 +647,84 @@ class BaseHandler:
         weight bridge (``utils/weights.py``, which raises on any unused or
         missing leaf; ``_jax_state_dict``, where a handler also maps trees
         of its ``extra``, such as BatchNorm statistics) and its step; the
-        rest of its ``extra`` is not kept. Its ``rng`` is a JAX key, which a torch
-        generator cannot continue, so the handler's generator keeps its
-        seed. Optax optimizer state is not mapped yet: it is skipped when
-        the caller asks (evaluation, or a fine-tune from fresh optimizer
-        state, as for the JAX package's minimal saves) and raises
-        otherwise."""
-        if loaded.get("optimizer") is not None and not skip_optimizer_load:
-            raise NotImplementedError(
-                f"{path} holds the JAX package's optax optimizer state, which the "
-                "port cannot map yet (ROADMAP queue 1 item 8, trainer leftovers); "
-                "pass skip_optimizer_load=True to start from fresh optimizer state")
+        rest of its ``extra`` is not kept. Its ``rng`` is a JAX key, which a
+        torch generator cannot continue, so the handler's generator keeps
+        its seed. Its optax state goes onto the handler's torch optimizers
+        (``_load_optax_state``) unless the caller skips it (evaluation, or a
+        fine-tune from fresh optimizer state); a minimal checkpoint has
+        none, and starts fresh."""
         with torch.no_grad():
             self.module.load_state_dict(self._jax_state_dict(loaded))
         self.load_optimizer_state(None)
+        if loaded.get("optimizer") is not None and not skip_optimizer_load:
+            self._load_optax_state(loaded, path)
         return self._own_state(int(np.asarray(loaded["step"])))
+
+    def optax_targets(self) -> Dict[Optional[str], OptaxTarget]:
+        """The handler's optimizers by their names in the JAX package's
+        ``opt_state`` (None: that state is the one optax chain)."""
+        return {None: OptaxTarget(self.optimizer, None, self.grad_clip is not None)}
+
+    def set_optax_counts(self, counts: Dict[Optional[str], int]) -> None:
+        """Hook for a handler that keeps each optimizer's schedule position
+        itself: {``OptaxTarget.name``: the optax count}. The base handler's
+        position is the checkpoint's step."""
+
+    def _load_optax_state(self, loaded, path: str) -> None:
+        """A JAX checkpoint's optax state onto the handler's torch
+        optimizers: each optimizer's moments leaf by leaf through the weight
+        bridge, its count as torch's ``step`` (RMSprop and SGD keep none:
+        the schedule's count, else the checkpoint's step). Raises, naming
+        the path, where the state does not fit the handler's optimizers."""
+        targets, state = self.optax_targets(), loaded["optimizer"]
+        if None not in targets:
+            unknown = sorted(set(state) - set(targets))
+            if unknown:
+                raise ValueError(f"{path}: optimizer/{unknown[0]} is none of this handler's "
+                                 f"optimizers {sorted(targets)}")
+        trees = {None: state} if None in targets else state
+        names = {id(p): k for k, p in self.module.named_parameters()}
+        counts = {}
+        for key, tree in trees.items():
+            target = targets[key]
+            where = f"{path}: optimizer" + ("" if key is None else f"/{key}")
+            opt = target.optimizer()
+            moments, count, sched, below = parse_optax_state(tree, opt, target.clip, where)
+            position = next((c for c in (sched, count) if c is not None),
+                            int(np.asarray(loaded["step"])))
+            try:
+                mapped = self._jax_moments(loaded, moments, target.part)
+            except (KeyError, ValueError) as e:
+                raise ValueError(f"{where}{below}/{'|'.join(sorted(moments))} does not fit "
+                                 f"{type(self).__name__}'s parameters: {e}") from e
+            set_optax_moments(opt, mapped, names,
+                              count if count is not None else position, where)
+            counts[target.name] = position
+        self.set_optax_counts(counts)
+
+    def _jax_moments(self, loaded, moments: Dict[str, Any],
+                     part: Optional[str]) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{optax field: {port parameter name: tensor}} for moment trees
+        shaped like the ``network`` subtree ``part`` (None: all of it): each
+        goes through ``_jax_state_dict`` in that subtree's place, so a
+        handler's own split of its tree holds for its optimizer state too.
+        The names kept are those the subtree's leaves land on, found by
+        sending a copy of the subtree with every leaf +inf the same way."""
+        def through_bridge(tree):
+            network = tree if part is None else {**loaded["network"], part: tree}
+            return self._jax_state_dict({**loaded, "network": network})
+
+        def inf(tree):
+            return ({k: inf(v) for k, v in tree.items()} if isinstance(tree, Mapping)
+                    else np.full(np.shape(tree), np.inf, np.float32))
+
+        probe = through_bridge(inf(next(iter(moments.values()))))
+        ours = {k for k, v in probe.items() if v.numel() and torch.isposinf(v).all()}
+        out = {}
+        for field_name, tree in moments.items():
+            mapped = through_bridge(tree)
+            out[field_name] = {k: mapped[k] for k in ours}
+        return out
 
     def _jax_state_dict(self, loaded) -> Dict[str, torch.Tensor]:
         """The module's state_dict from a JAX-written checkpoint's trees: its

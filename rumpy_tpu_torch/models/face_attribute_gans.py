@@ -1014,6 +1014,12 @@ class AttributeGANHandler(BaseGANHandler):
         self._opt_counts = {k: 0 for k in self._opt_specs}
         return state
 
+    def optax_targets(self):
+        """The JAX handler's ``generator`` state is its ``tx``, which both
+        phases update: the port's ``generator_pre``."""
+        targets = super().optax_targets()
+        return {"generator": targets["generator_pre"], "discriminator": targets["discriminator"]}
+
     def _jax_state_dict(self, loaded) -> Dict[str, torch.Tensor]:
         """A JAX checkpoint of this handler: ``params`` {generator,
         discriminator} and the BatchNorm statistics of each in

@@ -47,8 +47,8 @@ from torch import nn
 
 from rumpy_tpu_torch.models.attention_manipulators import (ParaCALayer, compute_num_metadata,
                                                            select_metadata_columns)
-from rumpy_tpu_torch.models.base import (BaseHandler, TrainState, build_optimizer,
-                                         build_schedule, optimizer_update)
+from rumpy_tpu_torch.models.base import (BaseHandler, OptaxTarget, TrainState,
+                                         build_optimizer, build_schedule, optimizer_update)
 from rumpy_tpu_torch.models.common import (BatchNorm, Conv, Linear, pixel_unshuffle,
                                            upsample_nearest)
 from rumpy_tpu_torch.models.contrastive import device_batch
@@ -349,6 +349,11 @@ class PairedGANHandler(BaseHandler):
         if saved.get("discriminator") is not None:
             self.d_optimizer().load_state_dict(saved["discriminator"])
 
+    def optax_targets(self):
+        """The JAX handlers' ``tx`` (the handler's clipping) and ``d_tx``."""
+        return {"generator": OptaxTarget(self.optimizer, "generator", self.grad_clip is not None),
+                "discriminator": OptaxTarget(self.d_optimizer, "discriminator", False)}
+
     def _jax_state_dict(self, loaded):
         from rumpy_tpu_torch.utils.weights import state_dict_from_jax
         extra = loaded.get("extra") or {}
@@ -472,6 +477,17 @@ class BaseGANHandler(BaseHandler):
         for name, sd in saved["optimizers"].items():
             self._opt(name).load_state_dict(sd)
         self._opt_counts.update({k: int(v) for k, v in saved["counts"].items()})
+
+    def optax_targets(self):
+        """The JAX handler's ``generator`` (``main_tx``), ``discriminator``
+        and, while a pre-train phase exists, ``generator_pre`` (``tx``)."""
+        return {name: OptaxTarget(lambda name=name: self._opt(name),
+                                  "discriminator" if name == "discriminator" else "generator",
+                                  spec[4] is not None, name)
+                for name, spec in self._opt_specs.items()}
+
+    def set_optax_counts(self, counts) -> None:
+        self._opt_counts.update(counts)
 
     def _jax_state_dict(self, loaded) -> Dict[str, torch.Tensor]:
         """A JAX GAN checkpoint: ``params`` {generator, discriminator} and

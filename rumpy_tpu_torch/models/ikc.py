@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rumpy_tpu_torch.models.base import BaseHandler, TrainState, build_optimizer
+from rumpy_tpu_torch.models.base import BaseHandler, OptaxTarget, TrainState, build_optimizer
 from rumpy_tpu_torch.models.common import Conv, Linear, tile_maps
 from rumpy_tpu_torch.models.contrastive import device_batch
 from rumpy_tpu_torch.models.sftmd_variants import SFTMD
@@ -171,6 +171,11 @@ class IKCHandler(BaseHandler):
         self._optimizers = {}
         for name, sd in (saved or {}).items():
             self.child_optimizer(name).load_state_dict(sd)
+
+    def optax_targets(self):
+        """The JAX handler's ``child_tx``, one a child."""
+        return {name: OptaxTarget(lambda name=name: self.child_optimizer(name), name, False)
+                for name in ("sr_model", "predictor", "corrector")}
 
     def _step(self, name: str, loss_fn):
         """One update of child ``name``: ``loss_fn()`` -> (loss, output),

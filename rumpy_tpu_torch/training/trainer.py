@@ -25,12 +25,23 @@ metadata and tags, and not its mask: a loss mask reaches the loss only
 from a caller that puts ``"mask"`` into the batch it hands the handler
 (``ROADMAP.md`` §3).
 
-Not ported yet, and raising ``NotImplementedError``: ``profile_steps`` and
-Aim logging.
+``[training] profile_steps = N`` traces the first N steps of the first
+epoch with ``torch.profiler`` (host activity, and the card's where the
+device is CUDA), each step in a ``train_step`` span, and writes the trace
+as Chrome-trace JSON to ``result_outputs/profile/train_steps.json``
+(chrome://tracing or Perfetto read it). The profiler stops between steps,
+after the N-th or at the epoch's end.
+
+``logging = "aim"`` tracks hparams and every summary.csv column an epoch in
+an Aim run, replaying the earlier epochs on a resume; without the ``aim``
+package it prints the JAX package's message and trains on. After each
+epoch ``utils/stats.plot_stats`` draws ``loss_plots.pdf`` where matplotlib
+is installed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import defaultdict
@@ -50,6 +61,9 @@ from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
 from rumpy_tpu_torch.utils.metrics import Metrics
 from rumpy_tpu_torch.utils.visualization import safe_image_save
 
+# the profiler's span around each traced train step
+STEP_SPAN = "train_step"
+
 
 class TrainingHandler:
     def __init__(self, config, use_mesh: bool = True, verbose: bool = True,
@@ -60,10 +74,10 @@ class TrainingHandler:
         model_cfg = config.get("model") or {}
         train_cfg = config.get("training") or {}
 
-        if train_cfg.get("profile_steps"):
-            raise NotImplementedError("training.profile_steps is not ported yet")
-        if train_cfg.get("logging") == "aim":
-            raise NotImplementedError("Aim experiment tracking is not ported yet")
+        # [training] profile_steps = N: a torch.profiler trace of the first N
+        # steps of the first epoch into result_outputs/profile/
+        self.profile_steps = int(train_cfg.get("profile_steps") or 0)
+        self._profiled = False
 
         self.seed = int(train_cfg.get("seed") or 0)
         # num_epochs counts epochs to run FROM the resume point;
@@ -165,6 +179,24 @@ class TrainingHandler:
             hr_data_loc=first_eval.get("hr_dir") or first_eval.get("hr"))
         self.stats: Dict[int, Dict[str, float]] = {}
 
+        # optional Aim experiment tracking, gated on the aim import
+        self.tracker = None
+        if train_cfg.get("logging") == "aim" and not config.get("no_directories"):
+            try:
+                import aim
+                self.tracker = aim.Run(experiment=config.get("experiment") or "experiment",
+                                       system_tracking_interval=60)
+                self.tracker["hparams"] = (config.as_plain() if hasattr(config, "as_plain")
+                                           else dict(config))
+                # a resumed run's earlier epochs, replayed into the new run
+                if self.model.model_epoch > 0 and self.model.logs_dir:
+                    prior = stats_mod.load_statistics(self.model.logs_dir) or {}
+                    for ep in range(len(next(iter(prior.values()), []))):
+                        for k, v in prior.items():
+                            self.tracker.track(float(v[ep]), name=k, epoch=ep)
+            except ImportError:
+                print("aim not installed; experiment tracking disabled")
+
     def _set_online_pipeline(self, handler, online_cfg, scale: int, requested) -> None:
         """Build the degradation pipeline and hand it to the handler as its
         input pipeline: hr -> lr and the requested metadata columns (all
@@ -204,24 +236,60 @@ class TrainingHandler:
                 for k, v in batch.items()
                 if isinstance(v, np.ndarray) and v.dtype != object and v.size > 0}
 
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.device(self.device).type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, steps: int) -> None:
+        """Stops the profiler (on the card it waits for the steps traced)
+        and writes its trace."""
+        prof.stop()
+        out_dir = os.path.join(self.model.logs_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "train_steps.json")
+        prof.export_chrome_trace(path)
+        if self.verbose:
+            print(f"profile of {steps} train steps: {path}")
+
     def train(self, epoch: int) -> Dict[str, float]:
         agg: Dict[str, List[torch.Tensor]] = defaultdict(list)
         data_t = compute_t = 0.0
+        profiler = None
+        if (self.profile_steps and not self._profiled
+                and self.model.logs_dir and not self.model.no_directories):
+            self._profiled = True
+            profiler = self._start_profile()
+        steps = 0
         t0 = time.perf_counter()
-        for batch in self.train_data:
-            t1 = time.perf_counter()
-            data_t += t1 - t0
-            device_batch = self._put(batch)
-            # fetch=False: losses stay on the device and the whole epoch's
-            # scalars come back in one transfer below
-            losses = self.model.train_batch(
-                lr=device_batch.get("lr"), hr=device_batch.get("hr"),
-                metadata=device_batch.get("metadata"),
-                tags=batch.get("tag"), fetch=False)
-            for k, v in losses.items():
-                agg[k].append(v)
-            t0 = time.perf_counter()
-            compute_t += t0 - t1
+        try:
+            for batch in self.train_data:
+                t1 = time.perf_counter()
+                data_t += t1 - t0
+                device_batch = self._put(batch)
+                # fetch=False: losses stay on the device and the whole
+                # epoch's scalars come back in one transfer below
+                with (torch.profiler.record_function(STEP_SPAN) if profiler is not None
+                      else contextlib.nullcontext()):
+                    losses = self.model.train_batch(
+                        lr=device_batch.get("lr"), hr=device_batch.get("hr"),
+                        metadata=device_batch.get("metadata"),
+                        tags=batch.get("tag"), fetch=False)
+                for k, v in losses.items():
+                    agg[k].append(v)
+                steps += 1
+                if profiler is not None and steps >= self.profile_steps:
+                    done, profiler = profiler, None
+                    self._stop_profile(done, steps)
+                t0 = time.perf_counter()
+                compute_t += t0 - t1
+        finally:
+            if profiler is not None:  # the epoch ended first, or a step raised
+                self._stop_profile(profiler, steps)
         if not agg:
             n = len(self.train_data.dataset) \
                 if hasattr(self.train_data, "dataset") else "?"
@@ -356,8 +424,16 @@ class TrainingHandler:
             self.stats[epoch] = row
             if self.model.logs_dir and not self.model.no_directories:
                 stats_mod.save_statistics(self.model.logs_dir, row)
+                try:
+                    stats_mod.plot_stats(self.model.logs_dir)
+                except Exception:  # no matplotlib, or nothing to plot
+                    pass
             if self.model.model_save_dir and not self.model.no_directories:
                 self.model.save()
+            if self.tracker is not None:
+                for k, v in row.items():
+                    if k != "epoch":
+                        self.tracker.track(v, name=k, epoch=epoch)
 
             # early stopping on the tracked metric plateau
             track = row.get(self.early_stopping_metric)

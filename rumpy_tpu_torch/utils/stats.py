@@ -2,8 +2,9 @@
 
 Port of ``rumpy_tpu/utils/stats.py`` over the standard ``csv`` module: one
 row per epoch appended to ``result_outputs/summary.csv``, new metric
-columns zero-backfilled for earlier epochs. ``plot_stats`` waits for a
-later slice.
+columns zero-backfilled for earlier epochs, and ``loss_plots.pdf`` with one
+subplot per metric (matplotlib, imported when called: the package does
+not need it).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import csv
 import os
 from typing import Dict, List, Optional
+
+import numpy as np
 
 
 def _read(path: str):
@@ -69,3 +72,37 @@ def truncate_statistics(log_dir: str, epoch: int,
     else:
         rows = rows[: epoch + 1]
     _write(path, columns, rows)
+
+
+def plot_stats(log_dir: str, stats: Optional[Dict[str, List[float]]] = None,
+               filename: str = "loss_plots.pdf") -> Optional[str]:
+    """One subplot per metric column against epoch, three a row, into
+    ``log_dir/filename``; ``stats`` as :func:`load_statistics` returns it
+    (read from summary.csv when not given). Returns the file's path, or
+    None where there is no metric to plot."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if stats is None:
+        stats = load_statistics(log_dir)
+    cols = [c for c in stats or {} if c != "epoch"]
+    if not cols:
+        return None
+    n = len(cols)
+    ncols = min(3, n)
+    nrows = (n + ncols - 1) // ncols
+    fig, axes = plt.subplots(nrows, ncols, figsize=(5 * ncols, 3.5 * nrows), squeeze=False)
+    x = stats["epoch"] if "epoch" in stats else np.arange(len(stats[cols[0]]))
+    for i, c in enumerate(cols):
+        ax = axes[i // ncols][i % ncols]
+        ax.plot(x, stats[c])
+        ax.set_title(c)
+        ax.set_xlabel("epoch")
+    for j in range(n, nrows * ncols):
+        axes[j // ncols][j % ncols].axis("off")
+    fig.tight_layout()
+    out = os.path.join(log_dir, filename)
+    fig.savefig(out)
+    plt.close(fig)
+    return out

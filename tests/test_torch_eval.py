@@ -286,9 +286,17 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
     columns, so it is read and not used). LPIPS, ported since, raises
     without weights as the JAX package does, and ``--lpips_weights`` goes
     to its npz reader (tests/test_torch_lpips.py scores with one). Face
-    recognition, ported since, is held in tests/test_torch_face_tools.py."""
+    recognition, ported since, is held in tests/test_torch_face_tools.py.
+    A train-mode resume of the JAX-written experiment, ported since, takes
+    its optax state (tests/test_torch_optax_resume.py holds it)."""
     model_loc, _ = experiment
     lr_dir, hr_dir = data
+    if option == "resume_jax_optimizer":
+        iface = SISRInterface(model_loc=model_loc, experiment=EXP, mode="train",
+                              load_epoch="last", no_directories=True, device="cpu")
+        opt = iface.model.optimizer()
+        assert all(p in opt.state for p in iface.model.module.parameters())
+        return
     if option == "metadata_file":
         kwargs = dict(models=[{"experiment": EXP, "epoch": "last"}], model_loc=model_loc,
                       data_cfg={"lr_dir": lr_dir, "hr_dir": hr_dir, "metadata_file": "on_site"},

@@ -257,12 +257,13 @@ def test_checkpoint_round_trip_keeps_three_optimizer_states(tmp_path):
 
 def test_jax_written_checkpoint_loads(tmp_path):
     """The JAX package's IKC checkpoint (flax msgpack): its params through
-    the bridge; its optax states are refused unless skipped."""
+    the bridge; its three optax states onto the children's torch Adams,
+    unless skipped."""
     jh, js, th, _ = _pair()
     jh.save_model(js, str(tmp_path), 3)
     fresh = torch_model("ikc")(device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="optax"):
-        fresh.load_model(str(tmp_path), 3)
+    fresh.load_model(str(tmp_path), 3)
+    assert set(fresh.optimizer_state()) == {"sr_model", "predictor", "corrector"}
     state, epoch = fresh.load_model(str(tmp_path), 3, skip_optimizer_load=True)
     assert epoch == 3
     back = jax_tree_from_state_dict(state.params, fresh.module)

@@ -107,11 +107,12 @@ def test_port_covers_the_training_modules_and_cli():
 
 def test_port_imports_at_module_level_only_torch_and_numpy_extras():
     """The port must import where only torch and numpy are installed: no
-    PIL, pandas, click, msgpack, matplotlib, triton, scikit-learn, umap or
-    OpenCV when a module is imported (PIL is imported inside the function
-    that opens an image file, cv2 inside the face tools that use it)."""
+    PIL, pandas, click, msgpack, matplotlib, triton, scikit-learn, umap,
+    OpenCV or aim when a module is imported (PIL is imported inside the
+    function that opens an image file, cv2 inside the face tools that use
+    it, aim inside the trainer that tracks to it)."""
     absent = ("PIL", "pandas", "click", "msgpack", "matplotlib", "triton", "sklearn", "umap",
-              "cv2")
+              "cv2", "aim")
     bad = []
     for p in _port_files():
         for node in ast.parse(p.read_text()).body:
@@ -977,3 +978,46 @@ def test_chip_smoke_drives_the_slice_20_phase():
     kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
                and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
     assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
+
+
+def test_chip_smoke_drives_the_slice_21_phase():
+    """chip_smoke.py drives trainer_resume from main(), after the attribute
+    GANs and before launch_coverage: a run resumed through
+    _load_jax_checkpoint from the trees that optax_state_tree builds, its
+    step under sync debug "error", the trainer with profile_steps and the
+    Aim gate; the kernels line keeps its four entries and counts the
+    phase's launches."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    tree = ast.parse(text)
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    called = [n.func.id for n in ast.walk(fns["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert (called.index("attribute_gan_train_phase") < called.index("trainer_resume_phase")
+            < called.index("launch_coverage_phase"))
+    assert '"phase": "trainer_resume"' in text
+    body = {getattr(n.func, "id", None) or getattr(n.func, "attr", None)
+            for n in ast.walk(fns["trainer_resume_phase"]) if isinstance(n, ast.Call)}
+    assert {"exported_run", "_load_jax_checkpoint", "step_without_sync", "moment_places",
+            "trace_step_kernels", "TrainingHandler"} <= body
+    assert "optax_state_tree" in {n.func.id for n in ast.walk(fns["exported_run"])
+                                  if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert text.count("launches_trainer_resume_path") == 2
+    assert text.count("launches_trainer_profiled_path") == 2
+    kernels = [n for n in ast.walk(fns["main"]) if isinstance(n, ast.Assign)
+               and any(isinstance(t, ast.Name) and t.id == "kernels" for t in n.targets)]
+    assert len(kernels) == 1 and len(kernels[0].value.elts) == 4
+
+
+def test_resumed_optimizer_steps_stay_on_the_host_clock():
+    """A resumed optimizer's ``step`` is a CPU scalar, as torch makes it for
+    a non-fused optimizer (on the card it would be read back every
+    update), and its moments take their parameter's device and layout."""
+    from rumpy_tpu_torch.models.base import set_optax_moments
+    p = torch.nn.Parameter(torch.randn(4, 3, 3, 3).contiguous(memory_format=torch.channels_last))
+    opt = torch.optim.Adam([p])
+    mu = torch.randn(4, 3, 3, 3)
+    set_optax_moments(opt, {"mu": {"w": mu}, "nu": {"w": mu.abs()}}, {id(p): "w"}, 5, "state")
+    st = opt.state[p]
+    assert st["step"].device.type == "cpu" and st["step"].dtype == torch.float32
+    assert float(st["step"]) == 5 and st["exp_avg"].stride() == p.stride()
+    assert torch.equal(st["exp_avg"], mu) and torch.equal(st["exp_avg_sq"], mu.abs())

@@ -200,13 +200,17 @@ def test_options_of_later_slices_raise(tmp_path, dataset, monkeypatch):
     base = load_config(_write_config(tmp_path / "c.toml", dataset, tmp_path / "out"))
     # LPIPS, ported since, raises without lpips_weights as the JAX trainer does
     for table, key, value, message in (
-            ("training", "metrics", ["PSNR", "LPIPS"], "weights"),
-            ("training", "profile_steps", 2, "not ported yet"),
-            ("training", "logging", "aim", "not ported yet")):
+            ("training", "metrics", ["PSNR", "LPIPS"], "weights"),):
         cfg = load_config(str(tmp_path / "c.toml"))
         cfg[table][key] = value
         with pytest.raises(NotImplementedError, match=message):
             TrainingHandler(cfg, verbose=False, device="cpu")
+    # profile_steps and Aim, which raised until their slice, build the
+    # trainer (test_torch_trainer_leftovers.py holds them against JAX)
+    for key, value in (("profile_steps", 2), ("logging", "aim")):
+        cfg = load_config(str(tmp_path / "c.toml"))
+        cfg["training"][key] = value
+        TrainingHandler(cfg, verbose=False, device="cpu")
     # srmdgaussianblur, which raised until its slice, builds the trainer's
     # online chain and degrades as the JAX package's does (its default
     # kernel is fixed: isotropic, sigma 2.6)
