@@ -144,6 +144,17 @@ seeded random weights):
   ``TrainingHandler`` for an epoch of 6 steps with ``profile_steps = 2``
   and ``logging = "aim"`` (not installed), the trace's step spans, RCAB
   launches and top kernels (``trainer_resume``);
+* scale-out over a torch.distributed group, in rank processes started with
+  "spawn" on the one card (``LOCAL_RANK`` 0 for every rank), each recording
+  its RCAB launches: full-width blind RCAN x4 through cli.train_sisr as
+  ``torchrun`` starts it, 3 steps at batch 16, in a 1-rank NCCL group bit
+  for bit against this process alone, and over 2 gloo ranks of batch 8
+  after step 1 (``data_parallel_train``); a joint BoBW step (moco, encoder
+  trained) over 2 ranks, its queue and encoder statistics against one
+  process (``bobw_joint_parallel``); the halo-exchange spatial forward over
+  2 ranks on a DIV2K LR image, exact for RCAN's convolutions and its seams
+  recorded for the full RCAN (``spatial_forward``); the Set5 x4 requests
+  through the mesh predictor (``serving_mesh``);
 * every RCAB kernel launch of the run, recorded by shape, dtype, direction
   and which gate inputs are per image: each one that no phase held against
   the plain version is held after the paths, in the directions launched,
@@ -192,7 +203,9 @@ import collections
 import contextlib
 import csv
 import dataclasses
+import importlib
 import json
+import multiprocessing
 import os
 import pickle
 import re
@@ -6800,6 +6813,515 @@ def trainer_resume_phase(rcab, card):
     return row
 
 
+# -- slice 22: scale-out -------------------------------------------------------
+# Data-parallel training, BatchNorm and the MoCo queue over a torch.distributed
+# group, the halo-exchange spatial forward and the mesh predictor, each in
+# rank processes started with "spawn" (a fork of a process that has touched
+# the card fails), each given the environment torchrun gives a rank. NCCL
+# refuses two ranks on one card, so the 2-rank group (LOCAL_WORLD_SIZE 2 on
+# one card) runs gloo on CUDA tensors (staged through the host: its step
+# times are no scale-out figure); the 1-rank group runs NCCL. The ranks load
+# the kernels this process built and record their RCAB launches as this one
+# does.
+DP_SEED = 22
+DP_STEPS = 3
+DP_RANKS = 2
+# (b) against (a) after step 1, bf16 (either run rounds every activation of
+# 200 blocks to bf16; the 2-rank run sums each weight gradient over 8 rows a
+# rank and then over the ranks, at another order): the loss within 2**-7 of
+# its value; a parameter's move under Adam's first step is lr * g / (|g| +
+# eps), at most lr, and its sign follows a gradient that rounding may decide
+# where |g| is near zero: every parameter within 2 lr of (a)'s (and the
+# rounding of the two updates, 2**-20 for values under 8), their mean
+# distance within lr / 16.
+DP_LOSS_REL = 2.0 ** -7
+DP_LR = 1e-4
+DP_PARAM_ATOL = 2 * DP_LR + 2.0 ** -20
+# Joint BoBW, 2 ranks against 1: the keys are unit vectors rounded through a
+# bf16 encoder whose BatchNorm sums 8 rows a rank: within 2**-6 of each
+# other; the encoder's running statistics within 2**-6 of their largest
+# value.
+BOBW_DP_ATOL = 2.0 ** -6
+# Spatial (a): RCAN x4 without residual groups (head, body conv, x4
+# upsampler, tail; float32): an output row depends on the input rows within
+# 1 + 1 + 1 + 1/2 + 1/4 of it, so 3; halo 4 covers it. The strips' convs
+# against the whole image's: float32 sums in another order.
+SPATIAL_HALO_EXACT = 4
+SPATIAL_F32_ATOL = 1e-5
+# Spatial (b): full-depth RCAN x4 bf16 (412 convs, and channel attention
+# pooling a strip instead of the image): no halo is exact; a DIV2K LR image
+# 339 x 510 with halo 24 LR rows, the figure recorded.
+SPATIAL_HALO_FULL = 24
+# Serving over 2 ranks against 1: the same RCAB kernels a row; cuDNN's head,
+# upsampler and tail convs at another batch (a bucket of two requests runs
+# one a rank), in bf16 through 200 blocks: eight bf16 ulps of the largest
+# output, 2**-5 of it (of 1, the images' range, where it is smaller), as
+# MODEL_GRAD_BF16_REL.
+SERVE_DP_REL = 2.0 ** -5
+
+
+SPAWN = multiprocessing.get_context("spawn")
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for the group's store."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rank_process(rank, world, port, task_file, out_file, go):
+    """One rank of a group on the card: the environment ``torchrun
+    --nproc_per_node=world`` gives a rank (on one card, every rank takes
+    it), this script's flags, the RCAB launches recorded, the modules that
+    an optimizer's first step imports imported (seconds in a fresh
+    process), then, once ``go`` is set, every task of ``task_file`` run in
+    turn, and the results, each task's RCAB launches and the launched shapes
+    written to ``out_file``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from rumpy_tpu_torch.ops.cuda import rcab_fused as rcab
+    from rumpy_tpu_torch.parallel import mesh as mesh_mod
+    record_launches(rcab)
+    importlib.import_module("torch._dynamo")  # torch.optim's first step imports it
+    go.wait()
+    tasks = torch.load(task_file, weights_only=False)
+    results = {}
+    for name, spec in tasks.items():
+        rcab.launches = rcab.backward_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        results[name] = RANK_TASKS[spec["task"]](spec)
+        results[name]["launches"] = {"rcab_fused": rcab.launches,
+                                     "rcab_fused_backward": rcab.backward_launches}
+    results["launched"] = {d: sorted(v) for d, v in LAUNCHED.items()}
+    results["form_launches"] = dict(FORM_LAUNCHES)
+    torch.save(results, out_file)
+    mesh_mod.barrier()
+    mesh_mod.leave_mesh()
+
+
+def start_ranks(world, tasks, root, go):
+    """Starts ``world`` rank processes ("spawn") on ``tasks``; they run
+    them once ``go`` is set. Returns what ``wait_ranks`` takes."""
+    task_file = os.path.join(root, f"tasks_{world}.pt")
+    torch.save(tasks, task_file)
+    port = free_port()
+    outs = [os.path.join(root, f"rank{r}_of_{world}.pt") for r in range(world)]
+    procs = [SPAWN.Process(target=rank_process, args=(r, world, port, task_file, outs[r], go),
+                           daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    return world, procs, outs
+
+
+def wait_ranks(started, timeout_s=600):
+    """Waits for the rank processes of ``start_ranks`` and returns each
+    rank's results; their launched shapes join this process's LAUNCHED,
+    so launch_coverage holds them."""
+    world, procs, outs = started
+    deadline = time.perf_counter() + timeout_s
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"rank processes of a {world}-rank group exited {codes}")
+    results = [torch.load(o, weights_only=False) for o in outs]
+    for res in results:
+        for d, keys in res["launched"].items():
+            LAUNCHED[d].update(tuple(k) for k in keys)
+    return results
+
+
+def dp_config(root, hr_dir, tag):
+    """The blind RCAN x4 example at full width (bf16, Adam, its chain in the
+    step) on 16 HR-only images of exactly 192 x 192 (the crop has one
+    place, no flips, the loader on one thread: every process reads the same
+    batches), batch 16, one epoch of DP_STEPS steps, no validation."""
+    from rumpy_tpu_torch.config.loader import dump_toml, load_config
+    example = load_config(os.path.join(ROOT, EXAMPLE_CONFIG)).as_plain()
+    training = {"num_epochs": 1, "batch_size": TRAIN_BATCH, "seed": DP_SEED}
+    cfg = {"experiment": "rcan_x4_blind_dp", "experiment_save_loc": os.path.join(root, tag),
+           "data": {"scale": TRAIN_SCALE, "crop": TRAIN_CROP, "dataloader_threads": 1,
+                    "online_degradations": example["data"]["online_degradations"],
+                    "training_sets": {f"data_{i}": {"hr_dir": hr_dir}
+                                      for i in range(DP_STEPS)}},
+           "model": {"name": "rcan", "internal_params": dict(
+               example["model"]["internal_params"], **RCAN_FULL, dtype="bf16", lr=DP_LR)},
+           "training": training}
+    path = os.path.join(root, f"{tag}.toml")
+    dump_toml(cfg, path)
+    return path
+
+
+def train_task(spec):
+    """``cli.train_sisr`` on ``spec["config"]`` as a user runs it (under
+    ``torchrun``'s environment in a rank): each step's host ms (the card
+    synchronised around it), its losses (the group's means), the
+    parameters after step 1 and after the last, and the step after the
+    first two under sync debug "error" where ``spec["strict"]``."""
+    from rumpy_tpu_torch.cli import train_sisr
+    from rumpy_tpu_torch.interface import SISRInterface
+    real, steps = SISRInterface.train_batch, []
+
+    def params(iface):
+        return {k: v.detach().cpu().clone() for k, v in iface.model.module.state_dict().items()}
+
+    def step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        strict = spec.get("strict") and len(steps) >= 2
+        t0 = time.perf_counter()
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        row = {"ms": 1e3 * (time.perf_counter() - t0), "strict": bool(strict),
+               "losses": {k: float(v) for k, v in out.items()}}
+        if not steps:
+            row["params"] = params(self)
+        steps.append(row)
+        trained[0] = self
+        return out
+
+    trained = [None]
+    SISRInterface.train_batch = step
+    try:
+        train_sisr.main(["-p", spec["config"]])
+    finally:
+        SISRInterface.train_batch = real
+    from rumpy_tpu_torch.parallel.mesh import process_index
+    return {"steps": steps, "last": params(trained[0]), "rank": process_index(),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def bobw_task(spec):
+    """One joint BoBW step (moco) at full width on this rank's rows of the
+    global batch: its ms, losses, the queue's rows written, its pointer and
+    the encoder's BatchNorm running statistics."""
+    from rumpy_tpu_torch.parallel import mesh as mesh_mod
+    from rumpy_tpu_torch.registry import get_model
+    mesh = mesh_mod.get_mesh()
+    batch = torch.load(spec["batch_file"], weights_only=False)
+    if mesh.size > 1:
+        batch = mesh_mod.shard_batch(mesh, batch)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    h = get_model("contrastiveblindqrcan")(device="cuda", seed=DP_SEED, **spec["kwargs"])
+    state = h.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = h.train_batch(state, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    mod = h.module
+    return {"ms": ms, "losses": {k: float(v) for k, v in losses.items()},
+            "queue": mod.queue[:spec["global_batch"]].float().cpu(),
+            "queue_ptr": int(mod.queue_ptr),
+            "stats": {k: v.float().cpu() for k, v in mod.encoder.state_dict().items()
+                      if "running_" in k},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def spatial_task(spec):
+    """``spatial_sharded_forward`` of an RCAN x4 (``spec["kwargs"]``, seeded)
+    on ``spec["image_file"]`` over the group: the whole output, ms and this
+    process's peak memory; with no group, the whole-image forward (of the
+    image reflect-padded by ``spec["pad"]`` rows each side)."""
+    from rumpy_tpu_torch.parallel import mesh as mesh_mod
+    from rumpy_tpu_torch.parallel.spatial import _reflect_rows, spatial_sharded_forward
+    from rumpy_tpu_torch.registry import get_model
+    handler = get_model("rcan")(device="cuda", **spec["kwargs"])
+    state = handler.init_state(seed=DP_SEED)
+    image = torch.load(spec["image_file"], weights_only=False).cuda()
+
+    def forward(x):
+        return handler.run_eval(state, {"lr": x})
+
+    grouped = spec["grouped"]
+    mesh = mesh_mod.get_mesh() if grouped else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if grouped:
+        out = spatial_sharded_forward(forward, image, 4, mesh, halo=spec["halo"])
+    else:  # H reflect-padded to a multiple of the ranks, then by ``pad``
+        h, pad = image.shape[1], spec.get("pad", 0)
+        x = _reflect_rows(_reflect_rows(image, 0, (-h) % DP_RANKS), pad, pad)
+        out = forward(x)[:, 4 * pad:4 * (x.shape[1] - pad)][:, :4 * h]
+    torch.cuda.synchronize()
+    return {"out": out.float().cpu(), "ms": 1e3 * (time.perf_counter() - t0),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def serving_task(spec):
+    """The Set5 x4 requests through ``BatchedPredictor`` over the group
+    (``mesh``), or in one process: the outputs of a second pass, its ms."""
+    from rumpy_tpu_torch.parallel import mesh as mesh_mod
+    from rumpy_tpu_torch.registry import get_model
+    from rumpy_tpu_torch.serving import BatchedPredictor
+    mesh = mesh_mod.get_mesh() if spec["grouped"] else None
+    h = get_model("rcan")(device="cuda", **RCAN_FULL, dtype="bf16")
+    state = h.init_state(seed=DP_SEED)
+    pred = BatchedPredictor(h, state, mesh=mesh, pad_multiple=PAD_MULTIPLE, max_batch=MAX_BATCH)
+    images = spec["images"]
+    pred.predict(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = pred.predict(images)
+    return {"outs": outs, "ms": 1e3 * (time.perf_counter() - t0)}
+
+
+RANK_TASKS = {"train": train_task, "bobw": bobw_task, "spatial": spatial_task,
+              "serving": serving_task}
+
+
+def largest_gap(a, b):
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def scale_out_phases(rcab, card):
+    """The scale-out paths (slice 22), in a 1-rank NCCL group and a 2-rank
+    gloo group on the card, against this process alone on the same global
+    batch. Prints the rows data_parallel_train, bobw_joint_parallel,
+    spatial_forward and serving_mesh; returns each path's RCAB launches in
+    the ranks."""
+    from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
+
+    t_all = time.perf_counter()
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_scale_out")
+    shutil.rmtree(root, ignore_errors=True)
+    hr_dir = os.path.join(root, "hr")
+    os.makedirs(hr_dir)
+    rng = np.random.default_rng(DP_SEED)
+    for k in range(TRAIN_BATCH):
+        np.save(os.path.join(hr_dir, f"im{k}.npy"),
+                rng.integers(0, 256, (HR_SIDE, HR_SIDE, 3), dtype=np.uint8))
+    # joint BoBW: a batch of 16, 3 crops an image, bench.py's chain
+    pipe = ImagePipeline(**BENCH_CHAIN, scale=TRAIN_SCALE)
+    hr = torch.from_numpy(rng.random((TRAIN_BATCH * JOINT_CROP_COUNT, HR_SIDE, HR_SIDE, 3),
+                                     dtype=np.float32)).cuda()
+    with torch.no_grad():
+        lr, _ = pipe.degrade_batch(card_generator(DP_SEED), hr, views=JOINT_CROP_COUNT)
+    bobw_file = os.path.join(root, "bobw_batch.pt")
+    torch.save({"lr": lr.reshape(TRAIN_BATCH, JOINT_CROP_COUNT, TRAIN_CROP, TRAIN_CROP, 3).cpu(),
+                "hr": hr.reshape(TRAIN_BATCH, JOINT_CROP_COUNT, HR_SIDE, HR_SIDE, 3)[:, 0].cpu()},
+               bobw_file)
+    del hr, lr
+    bobw_kwargs = dict(BOBW_FULL, dtype="bf16", lr=DP_LR, combined_loss_mode="moco",
+                       crop_count=JOINT_CROP_COUNT, contrastive_K=PREDICTOR_FULL["K"],
+                       block_encoder_loading=True)
+    image_file = os.path.join(root, "div2k_lr.pt")
+    torch.save(torch.from_numpy(rng.random((1, *DIV2K_LR, 3), dtype=np.float32)), image_file)
+    bodyless = dict(RCAN_FULL, n_resgroups=0, n_resblocks=0)
+    full = dict(RCAN_FULL, dtype="bf16")
+    images = [rng.random((h, w, 3), dtype=np.float32) for h, w in SET5_X4_LR]
+
+    def tasks(grouped, tag):
+        """The tasks of a 2-rank group (``grouped``), or of one process:
+        the one process and a 1-rank group hold a train step under sync
+        debug "error", the gloo group not (its collectives wait for the
+        card by design)."""
+        return {"train": {"task": "train", "strict": not grouped,
+                          "config": dp_config(root, hr_dir, tag)},
+                "bobw": {"task": "bobw", "grouped": grouped, "batch_file": bobw_file,
+                         "kwargs": bobw_kwargs, "global_batch": TRAIN_BATCH},
+                "spatial_exact": {"task": "spatial", "grouped": grouped, "kwargs": bodyless,
+                                  "image_file": image_file, "halo": SPATIAL_HALO_EXACT},
+                "spatial_full": {"task": "spatial", "grouped": grouped, "kwargs": full,
+                                 "image_file": image_file, "halo": SPATIAL_HALO_FULL},
+                "serving": {"task": "serving", "grouped": grouped, "images": images}}
+
+    # the rank processes start (and import) while this process computes the
+    # references alone, no group; then the 1-rank group takes the card, then
+    # the 2-rank group
+    go_one, go_two = SPAWN.Event(), SPAWN.Event()
+    started_two = start_ranks(DP_RANKS, tasks(True, "gloo2"), root, go_two)
+    started_one = start_ranks(1, {"train": tasks(False, "nccl1")["train"]}, root, go_one)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rcab.launches = rcab.backward_launches = 0
+        alone = {}
+        for name, spec in tasks(False, "alone").items():
+            if name == "spatial_exact":  # the contract's whole-image forward
+                spec = dict(spec, pad=SPATIAL_HALO_EXACT)
+            torch.cuda.reset_peak_memory_stats()
+            alone[name] = RANK_TASKS[spec["task"]](spec)
+        alone_launches = {"rcab_fused": rcab.launches,
+                          "rcab_fused_backward": rcab.backward_launches}
+        torch.backends.cudnn.deterministic = deterministic
+        t0 = time.perf_counter()
+        go_one.set()
+        one = wait_ranks(started_one)[0]
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        go_two.set()
+        two = wait_ranks(started_two)
+        two_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for p in started_one[1] + started_two[1]:  # none is left behind on a failure
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return compare_scale_out(card, alone, alone_launches, one, one_s, two, two_s, t_all, root)
+
+
+def compare_scale_out(card, alone, alone_launches, one, one_s, two, two_s, t_all, root):
+    """The scale-out rows from the ranks' results and this process's."""
+    # data_parallel_train (a): the 1-rank NCCL group against one process
+    a, s = one["train"], alone["train"]
+    keys = list(s["last"])
+    bit_steps = [all(torch.equal(a["steps"][0]["params"][k], s["steps"][0]["params"][k])
+                     for k in keys),
+                 all(torch.equal(a["last"][k], s["last"][k]) for k in keys)]
+    same_losses = [x["losses"] == y["losses"] for x, y in zip(a["steps"], s["steps"])]
+    # (b): 2 gloo ranks, batch 8 each, against (a) after step 1
+    b = [r["train"] for r in two]
+    ranks_equal = all(torch.equal(b[0]["steps"][0]["params"][k], b[1]["steps"][0]["params"][k])
+                      for k in keys)
+    pa, pb = a["steps"][0]["params"], b[0]["steps"][0]["params"]
+    gap_max = largest_gap(pb, pa)
+    gap_mean = (sum(float((pb[k].float() - pa[k].float()).abs().sum()) for k in keys)
+                / sum(pa[k].numel() for k in keys))
+    loss_a = a["steps"][0]["losses"]["train-loss"]
+    loss_b = [r["steps"][0]["losses"]["train-loss"] for r in b]
+    train_row = {
+        "phase": "data_parallel_train", "card": card, "model": "rcan x4 10x20x64 bf16",
+        "config": EXAMPLE_CONFIG, "global_batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+        "steps": DP_STEPS, "lr": DP_LR,
+        "one_process": {"ms_a_step": [r["ms"] for r in s["steps"]],
+                        "losses": [r["losses"] for r in s["steps"]]},
+        "one_rank_nccl": {"ms_a_step": [r["ms"] for r in a["steps"]],
+                          "sync_debug_error_steps": sum(r["strict"] for r in a["steps"]),
+                          "bit_for_bit_after_step_1_and_last": bit_steps,
+                          "losses_equal_each_step": same_losses,
+                          "launches": a["launches"], "seconds": one_s},
+        "two_rank_gloo": {"ms_a_step": [[r["ms"] for r in x["steps"]] for x in b],
+                          "batch_a_rank": TRAIN_BATCH // DP_RANKS,
+                          "step1_loss": loss_b, "one_rank_step1_loss": loss_a,
+                          "params_step1_max_abs_from_one_rank": gap_max,
+                          "params_step1_mean_abs_from_one_rank": gap_mean,
+                          "ranks_bit_identical": ranks_equal,
+                          "launches": [r["train"]["launches"] for r in two],
+                          "peak_memory_bytes": [x["peak_memory_bytes"] for x in b]},
+        "tolerance": {"loss_rel": DP_LOSS_REL, "param_max_abs": DP_PARAM_ATOL,
+                      "param_mean_abs": DP_LR / 16}}
+    print(json.dumps(train_row), flush=True)
+    want = {"rcab_fused": 200 * DP_STEPS, "rcab_fused_backward": 200 * DP_STEPS}
+    if not all(bit_steps) or not all(same_losses):
+        raise AssertionError(f"data_parallel_train: the 1-rank NCCL run is not the one-process "
+                             f"run bit for bit: {bit_steps}, losses {same_losses}")
+    if a["launches"] != want or any(r["train"]["launches"] != want for r in two):
+        raise AssertionError(f"data_parallel_train: RCAB launches {train_row}")
+    if (not ranks_equal or any(abs(x - loss_a) > DP_LOSS_REL * abs(loss_a) for x in loss_b)
+            or gap_max > DP_PARAM_ATOL or gap_mean > DP_LR / 16):
+        raise AssertionError(f"data_parallel_train: 2 ranks off 1: {train_row['two_rank_gloo']}")
+
+    # bobw_joint_parallel: queue and BatchNorm over 2 ranks against one process
+    ref = alone["bobw"]
+    rows = [r["bobw"] for r in two]
+    queue_gap = max(float((r["queue"] - ref["queue"]).abs().max()) for r in rows)
+    stats_gap = max(float((r["stats"][k] - ref["stats"][k]).abs().max()
+                          / max(float(ref["stats"][k].abs().max()), 1e-6))
+                    for r in rows for k in ref["stats"])
+    bobw_row = {
+        "phase": "bobw_joint_parallel", "card": card,
+        "model": "contrastiveblindqrcan 10x20x64 bf16 moco, encoder trained",
+        "global_batch": TRAIN_BATCH, "ranks": DP_RANKS,
+        "queue_ptr": [r["queue_ptr"] for r in rows], "one_process_queue_ptr": ref["queue_ptr"],
+        "queue_rows_max_abs_from_one_process": queue_gap,
+        "ranks_queues_bit_identical": torch.equal(rows[0]["queue"], rows[1]["queue"]),
+        "encoder_running_stats_max_rel_from_one_process": stats_gap,
+        "ms": [r["ms"] for r in rows], "one_process_ms": ref["ms"],
+        "losses": [r["losses"] for r in rows], "one_process_losses": ref["losses"],
+        "launches": [r["launches"] for r in rows], "tolerance": BOBW_DP_ATOL}
+    print(json.dumps(bobw_row), flush=True)
+    if (any(p != TRAIN_BATCH for p in bobw_row["queue_ptr"]) or ref["queue_ptr"] != TRAIN_BATCH
+            or queue_gap > BOBW_DP_ATOL or stats_gap > BOBW_DP_ATOL
+            or not bobw_row["ranks_queues_bit_identical"]
+            or not all(np.isfinite(list(r["losses"].values())).all() for r in rows)
+            or any(r["launches"] != {"rcab_fused": 200, "rcab_fused_backward": 200}
+                   for r in rows)):
+        raise AssertionError(f"bobw_joint_parallel: {bobw_row}")
+
+    # spatial_forward: (a) the contract, (b) the full RCAN's seams
+    exact = [r["spatial_exact"] for r in two]
+    exact_gap = max(float((r["out"] - alone["spatial_exact"]["out"]).abs().max()) for r in exact)
+    whole = alone["spatial_full"]
+    fulls = [r["spatial_full"] for r in two]
+    seam = 4 * ((DIV2K_LR[0] + 1) // DP_RANKS)
+    near = slice(seam - 4 * SPATIAL_HALO_FULL, seam + 4 * SPATIAL_HALO_FULL)
+    diff = (fulls[0]["out"] - whole["out"]).abs()
+    spatial_row = {
+        "phase": "spatial_forward", "card": card, "ranks": DP_RANKS,
+        "image": [1, *DIV2K_LR, 3],
+        "exact": {"model": "rcan x4, 0 groups, 64 features, float32",
+                  "receptive_radius_lr_rows": 3, "halo": SPATIAL_HALO_EXACT,
+                  "max_abs_from_contract": exact_gap, "tolerance": SPATIAL_F32_ATOL,
+                  "ms": [r["ms"] for r in exact]},
+        "full_depth": {"model": "rcan x4 10x20x64 bf16", "halo": SPATIAL_HALO_FULL,
+                       "seam_hr_row": seam,
+                       "whole_image_max_abs": float(whole["out"].abs().max()),
+                       "max_abs_at_seam": float(diff[:, near].max()),
+                       "max_abs_elsewhere": float(torch.cat(
+                           [diff[:, :near.start], diff[:, near.stop:]], 1).max()),
+                       "ms": [r["ms"] for r in fulls], "whole_image_ms": whole["ms"],
+                       "peak_memory_bytes_a_rank": [r["peak_memory_bytes"] for r in fulls],
+                       "whole_image_peak_memory_bytes": whole["peak_memory_bytes"],
+                       "launches": [r["spatial_full"]["launches"] for r in two]}}
+    print(json.dumps(spatial_row), flush=True)
+    if (exact_gap > SPATIAL_F32_ATOL or any(r["out"].shape != whole["out"].shape for r in fulls)
+            or not torch.isfinite(fulls[0]["out"]).all()
+            or any(r["spatial_full"]["launches"]["rcab_fused"] != 200 for r in two)):
+        raise AssertionError(f"spatial_forward: {spatial_row}")
+
+    # serving_mesh: the Set5 x4 requests over 2 ranks against one process
+    ref_outs = alone["serving"]["outs"]
+    serve_gap = max(float(np.abs(o - w).max()) for r in two
+                    for o, w in zip(r["serving"]["outs"], ref_outs))
+    largest = max(float(np.abs(w).max()) for w in ref_outs)
+    serve_tol = SERVE_DP_REL * max(1.0, largest)
+    serve_row = {
+        "phase": "serving_mesh", "card": card, "model": "rcan x4 10x20x64 bf16",
+        "requests": [list(s) for s in SET5_X4_LR], "ranks": DP_RANKS,
+        "max_abs_from_one_process": serve_gap, "tolerance": serve_tol,
+        "one_process_max_abs": largest,
+        "shapes_ok": all(o.shape == w.shape for r in two
+                         for o, w in zip(r["serving"]["outs"], ref_outs)),
+        "ms": [r["serving"]["ms"] for r in two], "one_process_ms": alone["serving"]["ms"],
+        "launches": [r["serving"]["launches"] for r in two]}
+    print(json.dumps(serve_row), flush=True)
+    if serve_gap > serve_tol or not serve_row["shapes_ok"]:
+        raise AssertionError(f"serving_mesh: {serve_row}")
+
+    launches = {
+        "data_parallel_train": {k: a["launches"][k] + sum(r["train"]["launches"][k] for r in two)
+                                for k in a["launches"]},
+        "bobw_joint_parallel": {k: sum(r["bobw"]["launches"][k] for r in two)
+                                for k in a["launches"]},
+        "spatial_forward": sum(r["spatial_full"]["launches"]["rcab_fused"]
+                               + r["spatial_exact"]["launches"]["rcab_fused"] for r in two),
+        "serving_mesh": sum(r["serving"]["launches"]["rcab_fused"] for r in two),
+        "one_process_references": alone_launches}
+    print(json.dumps({"phase": "scale_out_total", "card": card, "launches": launches,
+                      "one_rank_seconds": one_s, "two_rank_seconds": two_s,
+                      "seconds": time.perf_counter() - t_all}), flush=True)
+    shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6898,6 +7420,11 @@ def main() -> int:
     resume = trainer_resume_phase(rcab, card)
     resume_launches = resume["resume"]["launches"]
     profiled_launches = resume["trainer"]["launches"]
+    # slice 22, scale-out: data-parallel training, joint BoBW, the spatial
+    # forward and the mesh predictor in rank processes (their launches)
+    scale_out = scale_out_phases(rcab, card)
+    dp_launches = scale_out["data_parallel_train"]
+    bobw_dp_launches = scale_out["bobw_joint_parallel"]
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],
@@ -6945,7 +7472,9 @@ def main() -> int:
                      + han["launches"]["rcab_fused"] + han["eval_rcab_launches"]
                      + qhan["launches"]["rcab_fused"] + qhan["eval_rcab_launches"]
                      + split["launches"]["rcab_fused"] + split["eval_rcab_launches"]
-                     + resume_launches["rcab_fused"] + profiled_launches["rcab_fused"]),
+                     + resume_launches["rcab_fused"] + profiled_launches["rcab_fused"]
+                     + dp_launches["rcab_fused"] + bobw_dp_launches["rcab_fused"]
+                     + scale_out["spatial_forward"] + scale_out["serving_mesh"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
@@ -6983,6 +7512,11 @@ def main() -> int:
         "launches_slice16": slice16_launches,
         "launches_trainer_resume_path": resume_launches["rcab_fused"],
         "launches_trainer_profiled_path": profiled_launches["rcab_fused"],
+        # slice 22: every rank process's launches
+        "launches_data_parallel_path": dp_launches["rcab_fused"],
+        "launches_bobw_joint_parallel_path": bobw_dp_launches["rcab_fused"],
+        "launches_spatial_forward_path": scale_out["spatial_forward"],
+        "launches_serving_mesh_path": scale_out["serving_mesh"],
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],
@@ -7014,7 +7548,9 @@ def main() -> int:
                      + qhan["launches"]["rcab_fused_backward"]
                      + split["launches"]["rcab_fused_backward"]
                      + resume_launches["rcab_fused_backward"]
-                     + profiled_launches["rcab_fused_backward"]),
+                     + profiled_launches["rcab_fused_backward"]
+                     + dp_launches["rcab_fused_backward"]
+                     + bobw_dp_launches["rcab_fused_backward"]),
         "launches_training_path": train_launches["rcab_fused_backward"],
         "launches_blind_training_path": blind_launches["rcab_fused_backward"],
         "launches_bobw_training_path": bobw_launches["rcab_fused_backward"],
@@ -7034,6 +7570,8 @@ def main() -> int:
         "launches_slice16": slice16_launches,
         "launches_trainer_resume_path": resume_launches["rcab_fused_backward"],
         "launches_trainer_profiled_path": profiled_launches["rcab_fused_backward"],
+        "launches_data_parallel_path": dp_launches["rcab_fused_backward"],
+        "launches_bobw_joint_parallel_path": bobw_dp_launches["rcab_fused_backward"],
         "per_image_gate_inputs": per_image,
         "max_abs_err": bwd_row["max_abs_err"],
         "ms": bwd_row["ms"], "plain_ms": bwd_row["plain_ms"],

@@ -8,6 +8,11 @@ with ``data.task_type = "regression"``, a degradation predictor
 (``training/regression_trainer.py``).
 
     python -m rumpy_tpu_torch.cli.train_sisr -p config.toml
+
+Data-parallel over N cards of a host, one process a card (NCCL; the batch
+is the global batch, which N must divide):
+
+    torchrun --nproc_per_node=N -m rumpy_tpu_torch.cli.train_sisr -p config.toml
 """
 
 from __future__ import annotations
@@ -61,9 +66,9 @@ def main(argv: Optional[Sequence[str]] = None):
         from rumpy_tpu_torch.training.trainer import TrainingHandler as Handler
     handler = Handler(cfg, device=args.device)
 
-    # config copy into the experiment dir
+    # config copy into the experiment dir (rank 0 of a data-parallel group)
     base = handler.model.base_folder
-    if base and not cfg.get("no_directories"):
+    if base and not cfg.get("no_directories") and handler.writes:
         resume = (cfg.get("training") or {}).get("continue_from_epoch")
         name = ("config.toml" if resume is None
                 else f"config_from_epoch_{handler.model.model_epoch - 1}.toml")

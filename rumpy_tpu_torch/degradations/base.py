@@ -107,11 +107,15 @@ class DegradationOp:
     def __call__(self, image):
         raise NotImplementedError(f"{type(self).__name__} has no host path")
 
-    def batch_apply(self, generator, imgs, views: int = 1):
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
         """(B, H, W, C) float batch -> (batch, {attribute: (B / views,) or
         (B / views, M)}) on the generator's device. With ``views`` the batch
         is a stack of that many views of each image, image-major, and every
         draw is made once an image and shared by its views; the metadata
-        has a row an image. Ops without a device path raise."""
+        has a row an image. With ``rows`` (``parallel.mesh.Rows``, counted in
+        images) the batch is this rank's images of a global batch: every
+        draw is made for the global batch, as one process draws it, and the
+        op applies this rank's rows of them. Ops without a device path
+        raise."""
         raise NotImplementedError(
             f"{type(self).__name__} has no on-device implementation")

@@ -33,6 +33,7 @@ from rumpy_tpu_torch.degradations.base import (DegradationOp, from_float_array,
                                                host_metadata, normalize, per_view)
 from rumpy_tpu_torch.ops import blur as blur_ops
 from rumpy_tpu_torch.ops import blur_kernels as bk
+from rumpy_tpu_torch.parallel.mesh import take_rows
 from rumpy_tpu_torch.registry import register_tool
 
 
@@ -77,9 +78,10 @@ class _BlurBase(DegradationOp):
     def _apply(self, imgs, kernels, meta, views: int = 1):
         raise NotImplementedError
 
-    def batch_apply(self, generator, imgs, views: int = 1):
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
         b = imgs.shape[0] // views
-        kernels, meta = self._kernels(self._draw(generator, b), b, imgs.device)
+        draws = take_rows(self._draw(generator, b if rows is None else rows.total), rows)
+        kernels, meta = self._kernels(draws, b, imgs.device)
         return self._apply(imgs, kernels, meta, views)
 
     def __call__(self, image, draws=None):

@@ -35,6 +35,7 @@ import torch
 from rumpy_tpu_torch.degradations.base import (DegradationOp, from_float_array, normalize,
                                                per_view, to_float_array)
 from rumpy_tpu_torch.ops import jpeg as jpeg_ops
+from rumpy_tpu_torch.parallel.mesh import take_rows
 from rumpy_tpu_torch.registry import register_tool
 
 
@@ -72,12 +73,13 @@ def _h264_approximation(arr: np.ndarray, qp, was_pil: bool, device):
 class _Codec(DegradationOp):
     """Fixed or per-example random level in ``compression_range``."""
 
-    def _levels(self, generator, b: int, fixed) -> torch.Tensor:
+    def _levels(self, generator, b: int, fixed, rows=None) -> torch.Tensor:
         dev = generator.device
         if self.random_compression:
             lo, hi = self.compression_range
-            return torch.randint(lo, hi + 1, (b,), generator=generator,
-                                 device=dev).to(torch.float32)
+            return take_rows(torch.randint(lo, hi + 1, (b if rows is None else rows.total,),
+                                           generator=generator, device=dev), rows
+                             ).to(torch.float32)
         return torch.full((b,), float(fixed), device=dev)
 
     def _norm(self, q):
@@ -107,8 +109,8 @@ class JPEGCompress(_Codec):
         out = pil_jpeg_roundtrip(_as_pil(image, arr, was_pil), quality)
         return (out if was_pil else np.asarray(out)), {"quality": self._norm(quality)}
 
-    def batch_apply(self, generator, imgs, views: int = 1):
-        quality = self._levels(generator, imgs.shape[0] // views, self.quality)
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
+        quality = self._levels(generator, imgs.shape[0] // views, self.quality, rows)
         return (jpeg_ops.jpeg_compress(imgs, per_view(quality, views)),
                 {"quality": self._norm(quality)})
 
@@ -185,8 +187,8 @@ class JMCompress(_Codec):
             return _pil_image().fromarray(u8), {"qpi": self._norm(qpi)}
         return u8, {"qpi": self._norm(qpi)}
 
-    def batch_apply(self, generator, imgs, views: int = 1):
-        qpi = self._levels(generator, imgs.shape[0] // views, self.qpi)
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
+        qpi = self._levels(generator, imgs.shape[0] // views, self.qpi, rows)
         return (jpeg_ops.h264_intra_compress(imgs, per_view(qpi, views)),
                 {"qpi": self._norm(qpi)})
 
@@ -217,11 +219,12 @@ class RandomCompress(DegradationOp):
             meta["jpeg_quality"] = meta.pop("quality")
         return out, {**{"jm_qpi": 0, "jpeg_quality": 0}, **meta}
 
-    def batch_apply(self, generator, imgs, views: int = 1):
-        use_jm = torch.rand(imgs.shape[0] // views, generator=generator,
-                            device=generator.device) < 0.5
-        jm_out, jm_meta = self.jm_class.batch_apply(generator, imgs, views)
-        jp_out, jp_meta = self.jpeg_class.batch_apply(generator, imgs, views)
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
+        b = imgs.shape[0] // views
+        use_jm = take_rows(torch.rand(b if rows is None else rows.total, generator=generator,
+                                      device=generator.device), rows) < 0.5
+        jm_out, jm_meta = self.jm_class.batch_apply(generator, imgs, views, rows)
+        jp_out, jp_meta = self.jpeg_class.batch_apply(generator, imgs, views, rows)
         out = torch.where(per_view(use_jm, views)[:, None, None, None], jm_out, jp_out)
         zeros = torch.zeros_like(jm_meta["qpi"])
         return out, {"jm_qpi": torch.where(use_jm, jm_meta["qpi"], zeros),

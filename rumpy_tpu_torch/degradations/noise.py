@@ -31,6 +31,7 @@ from rumpy_tpu_torch.degradations import pca as pca_mod
 from rumpy_tpu_torch.degradations.base import (DegradationOp, from_float_array,
                                                host_metadata, normalize, per_view)
 from rumpy_tpu_torch.ops import noise as noise_ops
+from rumpy_tpu_torch.parallel.mesh import take_rows
 from rumpy_tpu_torch.registry import register_tool
 
 
@@ -102,12 +103,12 @@ class RealESRGANNoise(DegradationOp):
                 "gaussian_noise_sigma_range": list(self.gaussian_noise_sigma_range),
                 "gray_noise_probability": self.gray_noise_probability}
 
-    def batch_apply(self, generator, imgs, views: int = 1):
-        out, meta, _ = self._batch_apply_noise(generator, imgs, views)
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
+        out, meta, _ = self._batch_apply_noise(generator, imgs, views, rows=rows)
         return out, meta
 
     def _batch_apply_noise(self, generator, imgs, views: int = 1,
-                           draws: Optional[NoiseDraws] = None):
+                           draws: Optional[NoiseDraws] = None, rows=None):
         b = imgs.shape[0] // views
         dev = imgs.device
         gauss_range = self.gaussian_noise_sigma_range
@@ -133,15 +134,18 @@ class RealESRGANNoise(DegradationOp):
         if draws is not None:
             use_gauss = draws.use_gauss
         elif both:
-            use_gauss = torch.rand(b, generator=generator, device=dev) \
+            use_gauss = take_rows(torch.rand(b if rows is None else rows.total,
+                                             generator=generator, device=dev), rows) \
                 < self.gaussian_poisson_ratio
         else:
             use_gauss = torch.full((b,), gs > 0, dtype=torch.bool, device=dev)
         if draws is None:
             g_out, g_meta, g_noise = noise_ops.add_gaussian_noise(
-                generator, imgs, gauss_range, gray_p, return_noise=True, views=views)
+                generator, imgs, gauss_range, gray_p, return_noise=True, views=views,
+                rows=rows)
             p_out, p_meta, p_noise = noise_ops.add_poisson_noise(
-                generator, imgs, poisson_range, gray_p, return_noise=True, views=views)
+                generator, imgs, poisson_range, gray_p, return_noise=True, views=views,
+                rows=rows)
         else:
             g_out, g_meta, g_noise = noise_ops.apply_gaussian_noise(
                 imgs, draws.sigma, draws.gaussian_gray, draws.field)

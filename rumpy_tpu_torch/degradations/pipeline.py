@@ -257,7 +257,7 @@ class ImagePipeline:
                    for op in self.pipeline.values())
 
     def degrade_batch(self, generator: torch.Generator, hr_batch: torch.Tensor,
-                      views: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                      views: int = 1, rows=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Run the chain on a (B, H, W, C) float batch on the generator's
         device. Returns (lr_batch, {step-op-attr: (B,) or (B, M) tensors}).
 
@@ -266,13 +266,21 @@ class ImagePipeline:
         the whole stack is degraded in one pass with one set of draws an
         image, shared by its views (kernel, noise type, level and field,
         codec and quality; Poisson samples, which follow each view's pixels,
-        excepted). The metadata has a row an image."""
+        excepted). The metadata has a row an image.
+
+        Data-parallel (``rows``, a ``parallel.mesh.Rows`` counted in images,
+        as ``Mesh.rows`` gives it): ``hr_batch`` is this rank's images of a
+        global batch, split by image, never inside an image's views. Every
+        rank draws from the same generator state for the whole global
+        batch, as ``jax.jit`` draws once for a sharded array, and applies
+        the draws of its own images: its rows of the result are those of
+        the chain on the global batch in one process."""
         if hr_batch.shape[0] % views:
             raise ValueError(f"a batch of {hr_batch.shape[0]} is not {views} views an image")
         x = hr_batch
         metadata: Dict[str, torch.Tensor] = {}
         for (step, opname), op in self.pipeline.items():
-            x, meta = op.batch_apply(generator, x, views)
+            x, meta = op.batch_apply(generator, x, views, rows)
             metadata.update({format_metadata_key(step, opname, a): v
                              for a, v in meta.items()})
         return x, metadata

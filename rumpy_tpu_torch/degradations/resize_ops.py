@@ -107,7 +107,7 @@ class Downsample(_Resize):
         _, lr = downsample_pair(image, scale, jm=self.jm, device=self._host_device())
         return lr, ({} if self.restrict_metadata else {"scale": self._norm(scale)})
 
-    def batch_apply(self, generator, imgs, views: int = 1):
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
         _, h, w, _ = imgs.shape
         out, scale = self._resized(imgs, (h // self.scale, w // self.scale), views)
         return out, ({} if self.restrict_metadata else {"scale": scale})
@@ -123,7 +123,7 @@ class Upsample(_Resize):
         up = _pil_resize_np(u8, (h * scale, w * scale), self._host_device())
         return _as_image(up, was_pil), {"scale": self._norm(scale)}
 
-    def batch_apply(self, generator, imgs, views: int = 1):
+    def batch_apply(self, generator, imgs, views: int = 1, rows=None):
         _, h, w, _ = imgs.shape
         out, scale = self._resized(imgs, (h * self.scale, w * self.scale), views)
         return out, {"scale": scale}

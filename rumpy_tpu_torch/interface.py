@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from rumpy_tpu_torch.config.loader import (NoneDict, config_diff, dump_toml,
                                            load_config)
 from rumpy_tpu_torch.device import to_device
+from rumpy_tpu_torch.parallel.mesh import process_index
 from rumpy_tpu_torch.registry import get_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr, ycbcr_to_rgb
@@ -145,11 +146,12 @@ class SISRInterface:
         os.makedirs(new_models, exist_ok=True)
         os.makedirs(new_logs, exist_ok=True)
         src_ckpt = ckpt.checkpoint_path(self.model_save_dir, epoch)
-        if os.path.isfile(src_ckpt):
-            shutil.copy(src_ckpt, ckpt.checkpoint_path(new_models, epoch))
         summary = os.path.join(self.logs_dir, "summary.csv")
-        if os.path.isfile(summary):
-            shutil.copy(summary, os.path.join(new_logs, "summary.csv"))
+        if process_index() == 0:  # one rank of a data-parallel group copies
+            if os.path.isfile(src_ckpt):
+                shutil.copy(src_ckpt, ckpt.checkpoint_path(new_models, epoch))
+            if os.path.isfile(summary):
+                shutil.copy(summary, os.path.join(new_logs, "summary.csv"))
         self.base_folder = branch_dir
         self.model_save_dir = new_models
         self.logs_dir = new_logs

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from rumpy_tpu_torch.device import resolve_device
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 
 
@@ -173,15 +174,16 @@ def clip_by_global_norm(grads, max_norm: float) -> None:
 def optimizer_update(opt: torch.optim.Optimizer, params, loss, clip: Optional[float] = None,
                      lr: Optional[float] = None) -> None:
     """One update of ``opt`` from ``loss``: gradients (set to none first,
-    zeros where a parameter got none, as optax updates every leaf), optax's
-    global-norm clipping where ``clip`` is set, the lr where given, the
-    step."""
+    zeros where a parameter got none, as optax updates every leaf), averaged
+    over the data-parallel group, optax's global-norm clipping where
+    ``clip`` is set, the lr where given, the step."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
     params = list(params)
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    mesh_mod.mean_over_group([p.grad for p in params])
     if clip is not None:
         clip_by_global_norm([p.grad for p in params], float(clip))
     if lr is not None:
@@ -531,9 +533,12 @@ class BaseHandler:
 
     def _optimize(self, state: TrainState, batch, loss_fn) -> Dict[str, torch.Tensor]:
         """The update of one train step: ``loss_fn()`` (losses, its
-        "train-loss" differentiated) under autograd, the gradient hook,
-        clipping, the schedule's lr at ``state.step``, the optimizer step,
-        the update hook. Returns the losses, detached, on the device."""
+        "train-loss" differentiated) under autograd, the gradients and the
+        losses averaged over the data-parallel group in one all-reduce (the
+        global batch's, as the JAX package's sharded step computes them),
+        the gradient hook, clipping, the schedule's lr at ``state.step``,
+        the optimizer step, the update hook. Returns the losses, detached,
+        on the device."""
         opt = self.optimizer()
         opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
@@ -547,6 +552,8 @@ class BaseHandler:
         named = {k: p for k, p in self.module.named_parameters()
                  if p.grad is not None}
         grads = {k: p.grad for k, p in named.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        mesh_mod.mean_over_group(list(grads.values()) + list(losses.values()))
         changed = self.transform_grads(grads, state, batch)
         if changed is not grads:
             for k, p in named.items():
@@ -570,7 +577,7 @@ class BaseHandler:
                     dict(zip(named, torch._foreach_sub(params, before))), state, batch)
                 torch._foreach_add_(before, [updates[k] for k in named])
                 torch._foreach_copy_(params, before)
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     # -- eval --------------------------------------------------------------
 

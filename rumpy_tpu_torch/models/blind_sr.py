@@ -64,10 +64,12 @@ from rumpy_tpu_torch.models.attention_manipulators import QEDSR, QRCAN
 from rumpy_tpu_torch.models.base import PIXEL_LOSSES, BaseHandler, TrainState
 from rumpy_tpu_torch.models.common import Linear, tile_maps
 from rumpy_tpu_torch.models.contrastive import (DASREncoder, _normalize, check_queue_batch,
-                                                device_batch, enqueue, moco_logits,
-                                                momentum_update, softmax_cross_entropy_first)
+                                                device_batch, enqueue, global_enqueue_batch,
+                                                moco_logits, momentum_update,
+                                                softmax_cross_entropy_first)
 from rumpy_tpu_torch.models.han_elan import QELAN, QHAN
 from rumpy_tpu_torch.models.san import SAN
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 
@@ -360,7 +362,7 @@ class ContrastiveBlindSRHandler(BaseHandler):
         self._use_params(state.params)
         mod = self.module
         n = batch["lr"].shape[0]
-        check_queue_batch(self.K, n)
+        check_queue_batch(self.K, global_enqueue_batch(n))
         labels = (batch["labels"].to(torch.int64)
                   if self.combined_loss_mode == "supmoco" else None)
         momentum_update(mod.key_encoder, mod.encoder, self.m)
@@ -384,11 +386,13 @@ class ContrastiveBlindSRHandler(BaseHandler):
 
         losses = self._optimize(state, batch, loss_fn)
         with torch.no_grad():
+            # every rank's keys (and labels), in rank order: the global batch
+            keys = mesh_mod.all_gather_rows(kp[:, 0])
             ptr = mod.queue_ptr.clone()
-            enqueue(mod.queue, ptr, kp[:, 0])
+            enqueue(mod.queue, ptr, keys)
             if labels is not None:
-                enqueue(mod.queue_labels, ptr, labels)
-            mod.queue_ptr.copy_((ptr + n) % self.K)
+                enqueue(mod.queue_labels, ptr, mesh_mod.all_gather_rows(labels))
+            mod.queue_ptr.copy_((ptr + keys.shape[0]) % self.K)
         return TrainState(step=int(state.step) + 1, params=state.params,
                           extra=state.extra), losses
 

@@ -16,7 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rumpy_tpu_torch.device import true_div
 from rumpy_tpu_torch.ops.cuda import rcab_fused as rcab_ops
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 
 # DIV2K RGB channel means in [0,1] (as used by EDSR/RCAN MeanShift layers).
 DIV2K_RGB_MEAN = (0.4488, 0.4371, 0.4040)
@@ -301,7 +303,15 @@ class BatchNorm(nn.Module):
         ``use_running_average=False``; without ``update`` as flax's with the
         mutation discarded), whatever the module's ``training`` flag."""
         xf = x.float()
-        if train:
+        mesh = mesh_mod.active_mesh() if train else None
+        if mesh is not None:
+            # the global batch's statistics, as a sharded flax BatchNorm takes
+            # them: the sums of every rank in one differentiable all-reduce
+            sums = mesh_mod.group_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                 (xf * xf).sum(dim=(0, 2, 3))]), mesh)
+            mean, sq = true_div(sums, xf.numel() // xf.shape[1] * mesh.size).chunk(2)
+            var = torch.clamp(sq - mean * mean, min=0.0)
+        elif train:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
         if train and update:

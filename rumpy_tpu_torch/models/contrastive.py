@@ -18,6 +18,14 @@ float32 (no TF32, whatever the process-wide flags); an empty queue slot's
 label is -1 and matches no class; the two encoders' BatchNorm statistics
 advance once each a step (the key forward the key encoder's); a divisor
 is a true division (``device.true_div``).
+
+Over a data-parallel group (``parallel/mesh.py``) the queue sees the global
+batch, as a sharded JAX step's does: the keys and the label and vector
+side-queues of every rank are gathered, in rank order, before the enqueue,
+so every rank's queue stays the same and a checkpoint of rank 0 holds it.
+A query's positives are its own keys and the queue's entries of its
+class, so they need nothing of another rank; SupCon's pairs span the batch,
+and it gathers its features with their gradient.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from torch import nn
 from rumpy_tpu_torch.device import true_div
 from rumpy_tpu_torch.models.base import BaseHandler, TrainState
 from rumpy_tpu_torch.models.common import BatchNorm, Conv, Linear
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 from rumpy_tpu_torch.utils.losses import full_f32_matmuls, supcon_loss
 
@@ -124,7 +133,7 @@ def moco_logits(q: torch.Tensor, kp: torch.Tensor, queue: torch.Tensor, T: float
     if labels is None:
         l_pos = true_div(l_pos, p).float()
     else:
-        pos_y_q = class_matches(labels, queue_labels, num_classes)  # (N, K)
+        pos_y_q = class_matches(labels, queue_labels, num_classes).to(queue.dtype)  # (N, K)
         with full_f32_matmuls():
             pos_f_q = pos_y_q @ queue  # (N, D)
         pos_q = true_div((q.float() * pos_f_q).sum(dim=1), T)
@@ -143,6 +152,13 @@ def enqueue(queue: torch.Tensor, ptr: torch.Tensor, values: torch.Tensor) -> tor
     idx = start + torch.arange(n, device=queue.device)
     queue.index_copy_(0, idx, values.to(queue.dtype))
     return queue
+
+
+def global_enqueue_batch(n: int) -> int:
+    """The number of rows a step enqueues: the global batch of ``n`` rows
+    a rank."""
+    mesh = mesh_mod.active_mesh()
+    return n if mesh is None else n * mesh.size
 
 
 def check_queue_batch(K: int, n: int) -> None:
@@ -276,9 +292,9 @@ class MoCoHandler(BaseHandler):
     def train_batch(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         self._use_params(state.params)
         batch = device_batch(batch, self.device)
-        # K must divide evenly by the enqueue batch, or the writes and the
-        # pointer fall out of step
-        check_queue_batch(self.K, batch["image_query"].shape[0])
+        # K must divide evenly by the (global) enqueue batch, or the writes
+        # and the pointer fall out of step
+        check_queue_batch(self.K, global_enqueue_batch(batch["image_query"].shape[0]))
         mod = self.module
         # the momentum update from the parameters before this step's update
         momentum_update(mod.key_encoder, mod.encoder, self.m)
@@ -303,7 +319,7 @@ class MoCoHandler(BaseHandler):
 
         losses = self._optimize(state, batch, loss_fn)
         with torch.no_grad():
-            enq = side["enqueue"].detach()
+            enq = mesh_mod.all_gather_rows(side["enqueue"].detach())
             ptr = mod.queue_ptr.clone()
             enqueue(mod.queue, ptr, enq)
             self.enqueue_sides(batch, ptr)
@@ -408,7 +424,8 @@ class SupMoCoHandler(MoCoHandler):
                            mod.queue_labels, self.num_classes), kp[:, 0]
 
     def enqueue_sides(self, batch, ptr):
-        enqueue(self.module.queue_labels, ptr, batch["labels"].to(torch.int64))
+        enqueue(self.module.queue_labels, ptr,
+                mesh_mod.all_gather_rows(batch["labels"].to(torch.int64)))
 
     def extra_losses(self, outputs, batch):
         if not (self.include_direct_loss and self.dropdown):
@@ -463,7 +480,8 @@ class WeakConHandler(SupMoCoHandler):
         return torch.cat([l_pos.float()[:, None], l_neg], dim=1), kp[:, 0]
 
     def enqueue_sides(self, batch, ptr):
-        enqueue(self.module.queue_vectors, ptr, batch["vector"].to(torch.float32))
+        enqueue(self.module.queue_vectors, ptr,
+                mesh_mod.all_gather_rows(batch["vector"].to(torch.float32)))
 
 
 @register_model("supcon")
@@ -485,7 +503,11 @@ class SupConHandler(MoCoHandler):
             _, out = enc(_nhwc_to_nchw(batch["image_query"]), train=True)
             _, out2 = enc(_nhwc_to_nchw(batch["image_key"]), train=True)
             feats = torch.stack([_normalize(out["q"]), _normalize(out2["q"])], dim=1)
-            loss = supcon_loss(feats, labels=batch.get("labels"), temperature=self.T)
+            labels = batch.get("labels")
+            # the pairs of the global batch (every rank computes its loss)
+            feats = mesh_mod.gather_rows_with_grad(feats)
+            labels = None if labels is None else mesh_mod.all_gather_rows(labels)
+            loss = supcon_loss(feats, labels=labels, temperature=self.T)
             return {"train-loss": loss}
 
         losses = self._optimize(state, batch, loss_fn)

@@ -35,8 +35,10 @@ from torch import nn
 from rumpy_tpu_torch.models.base import BaseHandler, TrainState
 from rumpy_tpu_torch.models.common import Conv, Linear, Upsampler
 from rumpy_tpu_torch.models.contrastive import (DASREncoder, _normalize, check_queue_batch,
-                                                device_batch, enqueue, moco_logits,
-                                                momentum_update, softmax_cross_entropy_first)
+                                                device_batch, enqueue, global_enqueue_batch,
+                                                moco_logits, momentum_update,
+                                                softmax_cross_entropy_first)
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 
 
@@ -223,7 +225,7 @@ class DASRHandler(BaseHandler):
             batch.pop("hr", None)
         joint = batch.get("hr") is not None
         n = batch["image_query"].shape[0]
-        check_queue_batch(self.K, n)
+        check_queue_batch(self.K, global_enqueue_batch(n))
         mod = self.module
         momentum_update(mod.key_encoder, mod.encoder, self.m)
         with torch.no_grad():
@@ -248,9 +250,10 @@ class DASRHandler(BaseHandler):
 
         losses = self._optimize(state, batch, loss_fn)
         with torch.no_grad():
+            keys = mesh_mod.all_gather_rows(k[:n])  # the global batch's, in rank order
             ptr = mod.queue_ptr.clone()
-            enqueue(mod.queue, ptr, k[:n])
-            mod.queue_ptr.copy_((ptr + n) % self.K)
+            enqueue(mod.queue, ptr, keys)
+            mod.queue_ptr.copy_((ptr + keys.shape[0]) % self.K)
         return TrainState(step=int(state.step) + 1, params=state.params,
                           extra=state.extra), losses
 

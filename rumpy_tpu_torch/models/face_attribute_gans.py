@@ -60,6 +60,7 @@ from rumpy_tpu_torch.models.common import (BatchNorm, Conv, Linear, pixel_shuffl
                                            upsample_nearest)
 from rumpy_tpu_torch.models.contrastive import device_batch
 from rumpy_tpu_torch.models.gan_models import BaseGANHandler, GANPair, frozen
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 
 
@@ -1075,9 +1076,14 @@ class AttributeGANHandler(BaseGANHandler):
             if self.curr_epoch < self.pretrain_epochs:
                 losses = self._pretrain_step(batch)
             else:
-                losses = self.step_from_draws(batch, self.draws(batch["hr"].shape[0]))
+                # the global batch's masks, this rank's rows of them
+                n = batch["hr"].shape[0]
+                mesh = mesh_mod.active_mesh()
+                draws = self.draws(n if mesh is None else n * mesh.size)
+                losses = self.step_from_draws(batch, mesh_mod.take_rows(
+                    draws, None if mesh is None else mesh.rows(n)))
         return TrainState(step=int(state.step) + 1, params=state.params,
-                          extra=state.extra), {k: v.detach() for k, v in losses.items()}
+                          extra=state.extra), mesh_mod.mean_losses(losses)
 
     def _pretrain_loss(self, batch):
         sr = self._generate(batch, train=True)

@@ -45,6 +45,7 @@ from rumpy_tpu_torch.models.base import BaseHandler, TrainState, optimizer_updat
 from rumpy_tpu_torch.models.common import BatchNorm, Conv, ConvTranspose, Linear
 from rumpy_tpu_torch.models.contrastive import device_batch
 from rumpy_tpu_torch.models.gan_models import GANPair, PairedGANHandler, frozen
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 
 
@@ -545,6 +546,10 @@ class FaceGANHandler(PairedGANHandler):
     def train_batch(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         self._use_params(state.params)
         batch = device_batch(batch, self.device)
+        if mesh_mod.active_mesh() is not None:
+            raise NotImplementedError(
+                "FaceGAN over a data-parallel group (its real/fake split permutes the "
+                "global batch) is item 10's next part")
         losses = self.step_from_draws(state, batch, self.draws(batch["hr"].shape[0]))
         return TrainState(step=int(state.step) + 1, params=state.params,
                           extra=state.extra), losses

@@ -31,6 +31,7 @@ from rumpy_tpu_torch.models.contrastive import device_batch
 from rumpy_tpu_torch.models.face_attribute_gans import PRelu
 from rumpy_tpu_torch.models.gan_models import (ESRGANHandler, GANPair, PairedGANHandler,
                                                frozen)
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 
 # ---------------------------------------------------------------------------
@@ -224,7 +225,7 @@ class FSSRDSGANHandler(PairedGANHandler):
         with torch.enable_grad():
             losses = self._gan_step(state, batch, self._lr_factor())
         return TrainState(step=int(state.step) + 1, params=state.params,
-                          extra=state.extra), {k: v.detach() for k, v in losses.items()}
+                          extra=state.extra), mesh_mod.mean_losses(losses)
 
     def _gan_step(self, state, batch, lr_factor: float):
         g, d, eps = self.module.generator, self.discriminator, self.eps

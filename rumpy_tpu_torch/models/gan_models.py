@@ -52,6 +52,7 @@ from rumpy_tpu_torch.models.base import (BaseHandler, OptaxTarget, TrainState,
 from rumpy_tpu_torch.models.common import (BatchNorm, Conv, Linear, pixel_unshuffle,
                                            upsample_nearest)
 from rumpy_tpu_torch.models.contrastive import device_batch
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 
 
@@ -525,8 +526,9 @@ class BaseGANHandler(BaseHandler):
         if self.gan_mode == "bce":
             return _bce(pred_fake, 1.0)
         if self.gan_mode == "relativistic":
-            real_rel = pred_real - pred_fake.mean()
-            fake_rel = pred_fake - pred_real.mean()
+            # the global batch's means, as a sharded JAX step takes them
+            real_rel = pred_real - mesh_mod.global_mean(pred_fake)
+            fake_rel = pred_fake - mesh_mod.global_mean(pred_real)
             return 0.5 * (_bce(fake_rel, 1.0) + _bce(real_rel, 0.0))
         return ((pred_fake - 1.0) ** 2).mean()
 
@@ -538,8 +540,8 @@ class BaseGANHandler(BaseHandler):
             # the whole fake prediction is detached: D's gradient flows
             # through pred_real only
             pred_fake = pred_fake.detach()
-            real_rel = pred_real - pred_fake.mean()
-            fake_rel = pred_fake - pred_real.mean()
+            real_rel = pred_real - mesh_mod.global_mean(pred_fake)
+            fake_rel = pred_fake - mesh_mod.global_mean(pred_real)
             return 0.5 * _bce(real_rel, 1.0), 0.5 * _bce(fake_rel, 0.0)
         return ((pred_real - 1.0) ** 2).mean(), (pred_fake ** 2).mean()
 
@@ -578,7 +580,7 @@ class BaseGANHandler(BaseHandler):
             else:
                 losses = self._gan_step(batch)
         return TrainState(step=int(state.step) + 1, params=state.params,
-                          extra=state.extra), {k: v.detach() for k, v in losses.items()}
+                          extra=state.extra), mesh_mod.mean_losses(losses)
 
     def _pretrain_step(self, batch):
         loss, extras = self._pretrain_loss(batch)

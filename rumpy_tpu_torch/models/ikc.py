@@ -32,6 +32,7 @@ from rumpy_tpu_torch.models.base import BaseHandler, OptaxTarget, TrainState, bu
 from rumpy_tpu_torch.models.common import Conv, Linear, tile_maps
 from rumpy_tpu_torch.models.contrastive import device_batch
 from rumpy_tpu_torch.models.sftmd_variants import SFTMD
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 
 CHILDREN = ("sr_model", "predictor", "corrector")
@@ -179,14 +180,18 @@ class IKCHandler(BaseHandler):
 
     def _step(self, name: str, loss_fn):
         """One update of child ``name``: ``loss_fn()`` -> (loss, output),
-        its gradient, the child's optimizer step. Returns both, detached."""
+        its gradient, averaged over the data-parallel group with the loss,
+        the child's optimizer step. Returns both, detached."""
         opt = self.child_optimizer(name)
         opt.zero_grad(set_to_none=True)
         with torch.enable_grad():
             loss, out = loss_fn()
             loss.backward()
+        loss = loss.detach()
+        mesh_mod.mean_over_group([p.grad for g in opt.param_groups for p in g["params"]
+                                  if p.grad is not None] + [loss])
         opt.step()
-        return loss.detach(), out.detach()
+        return loss, out.detach()
 
     # -- train ---------------------------------------------------------------
 
@@ -221,6 +226,7 @@ class IKCHandler(BaseHandler):
                 losses[f"sftmd_loss_{step}"] = s_loss
                 losses[f"corrector_loss_{step}"] = c_loss
                 s_losses.append(s_loss)
+            mesh_mod.mean_over_group(s_losses)  # the global batch's, before the min
             losses["train-loss"] = torch.stack(s_losses).min()
         return TrainState(step=int(state.step) + 1, params=state.params,
                           extra=state.extra), losses

@@ -40,6 +40,7 @@ from rumpy_tpu_torch.models.base import BaseHandler, TrainState, optimizer_updat
 from rumpy_tpu_torch.models.common import BatchNorm, Conv
 from rumpy_tpu_torch.models.contrastive import device_batch
 from rumpy_tpu_torch.models.gan_models import GANPair, PairedGANHandler, frozen
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import register_model
 
 # ---------------------------------------------------------------------------
@@ -393,7 +394,7 @@ class WaveletSRGANHandler(PairedGANHandler):
         with torch.enable_grad():
             losses = self._gan_step(state, batch, self.curr_epoch >= self.training_switch)
         return TrainState(step=int(state.step) + 1, params=state.params,
-                          extra=state.extra), {k: v.detach() for k, v in losses.items()}
+                          extra=state.extra), mesh_mod.mean_losses(losses)
 
     def _gan_step(self, state, batch, adversarial: bool):
         """The generator's update (its BatchNorm statistics advancing; the

@@ -11,7 +11,11 @@ Port of ``rumpy_tpu/ops/noise.py``:
 
 Each op draws from an explicit ``torch.Generator`` on its device and then
 calls an ``apply_*`` function that takes the draws as arguments, so the
-tests can give both packages the same draws.
+tests can give both packages the same draws. With ``rows``
+(``parallel.mesh.Rows``) the image batch is one rank's of a global batch:
+the draws are the global batch's, of which the op applies this rank's; the
+Poisson samples, whose generator use may follow the rates, are drawn on
+the global batch's rates, gathered from every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from rumpy_tpu_torch.degradations.base import per_view
 from rumpy_tpu_torch.device import true_div
+from rumpy_tpu_torch.parallel.mesh import take_rows
 
 
 def _rand(generator, shape):
@@ -57,19 +62,20 @@ def _per_image(meta, views: int):
 def add_gaussian_noise(generator: torch.Generator, img: torch.Tensor,
                        sigma_range: Tuple[float, float] = (0.0, 10.0),
                        gray_prob: float = 0.0, clip: bool = True,
-                       return_noise: bool = False, views: int = 1):
+                       return_noise: bool = False, views: int = 1, rows=None):
     """img: (B, H, W, C) in [0, 1]; sigma in 0..255 units, uniform in
     ``sigma_range``; gray noise with probability ``gray_prob``. With
     ``return_noise`` also returns the scaled noise field. With ``views``,
     ``img`` stacks that many views of each image (image-major) and each
     image's sigma, gray flag and unit field are drawn once and shared by
-    its views; the metadata has a row an image."""
-    b = img.shape[0] // views
+    its views; the metadata has a row an image. ``rows``: this rank's
+    images of the global batch whose draws are made."""
+    n = img.shape[0] // views if rows is None else rows.total
     lo, hi = sigma_range
-    sigma = lo + (hi - lo) * _rand(generator, b)
-    gray = (_rand(generator, b) < gray_prob).to(img.dtype)
-    noise = torch.randn((b,) + tuple(img.shape[1:]), generator=generator,
-                        device=generator.device, dtype=img.dtype)
+    sigma = take_rows(lo + (hi - lo) * _rand(generator, n), rows)
+    gray = take_rows((_rand(generator, n) < gray_prob).to(img.dtype), rows)
+    noise = take_rows(torch.randn((n,) + tuple(img.shape[1:]), generator=generator,
+                                  device=generator.device, dtype=img.dtype), rows)
     out, meta, scaled = apply_gaussian_noise(img, per_view(sigma, views),
                                              per_view(gray, views),
                                              per_view(noise, views), clip)
@@ -122,17 +128,25 @@ def apply_poisson_noise(img: torch.Tensor, scale: torch.Tensor, gray: torch.Tens
 def add_poisson_noise(generator: torch.Generator, img: torch.Tensor,
                       scale_range: Tuple[float, float] = (0.0, 1.0),
                       gray_prob: float = 0.0, clip: bool = True,
-                      return_noise: bool = False, views: int = 1):
+                      return_noise: bool = False, views: int = 1, rows=None):
     """As :func:`add_gaussian_noise`; with ``views`` the scale and the
     gray flag are shared by an image's views, while the Poisson samples,
-    whose rates are each view's own pixels, are drawn for every view."""
-    b = img.shape[0] // views
+    whose rates are each view's own pixels, are drawn for every view; with
+    ``rows`` they are drawn for every view of the global batch, whose
+    images ``rows.gather`` brings."""
+    n = img.shape[0] // views if rows is None else rows.total
     lo, hi = scale_range
-    scale = lo + (hi - lo) * _rand(generator, b)
-    gray = (_rand(generator, b) < gray_prob).to(img.dtype)
-    rates = rounded, gray_img, vals_c, vals_g = poisson_rates(img)
-    sample_c = torch.poisson(rounded * vals_c, generator=generator)
-    sample_g = torch.poisson(gray_img * vals_g, generator=generator)
+    scale = take_rows(lo + (hi - lo) * _rand(generator, n), rows)
+    gray = take_rows((_rand(generator, n) < gray_prob).to(img.dtype), rows)
+    rates = poisson_rates(img)
+    every, view_rows = rates, None
+    if rows is not None:
+        every = poisson_rates(rows.gather(img))
+        view_rows = rows._replace(start=rows.start * views, count=rows.count * views,
+                                  total=rows.total * views)
+    rounded, gray_img, vals_c, vals_g = every
+    sample_c = take_rows(torch.poisson(rounded * vals_c, generator=generator), view_rows)
+    sample_g = take_rows(torch.poisson(gray_img * vals_g, generator=generator), view_rows)
     out, meta, scaled = apply_poisson_noise(img, per_view(scale, views),
                                             per_view(gray, views), sample_c, sample_g,
                                             rates, clip)

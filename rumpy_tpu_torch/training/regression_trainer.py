@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from rumpy_tpu_torch.models import contrastive_labelling as cl
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.training.trainer import TrainingHandler
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 
@@ -144,6 +145,7 @@ class RegressionTrainingHandler(TrainingHandler):
             handler.register_vector(cl.degradation_vector_size(self._valid))
         if self._warm_start:
             self._do_warm_start(self._warm_start)
+            mesh_mod.replicate(self.mesh, self.model.state)
 
     def _first_dataset(self):
         if self.train_data is None:
@@ -214,20 +216,25 @@ class RegressionTrainingHandler(TrainingHandler):
         """The HR crops (N, P, H, W, C) of a batch degraded on the device in
         one pass, each image's P views with one set of draws; the metadata
         (N, M) of those draws; colour distortion, if asked, with
-        independent draws per view."""
+        independent draws per view. Under a data-parallel group the batch is
+        this rank's images and the draws are the global batch's."""
         from rumpy_tpu_torch.ops.color_aug import apply_colour_distortion, colour_distortion_draws
         gen = self.model.model.rng
         hr = batch["hr"]
         if hr.dim() == 4:
             hr = hr[:, None]
         n, p = hr.shape[:2]
+        rows = None if self.mesh is None else self.mesh.rows(n)
         with torch.no_grad():
             lr, meta = self.online_pipeline.degrade_batch(
-                gen, hr.reshape((n * p,) + tuple(hr.shape[2:])), views=p)
+                gen, hr.reshape((n * p,) + tuple(hr.shape[2:])), views=p, rows=rows)
             mat, _ = self.online_pipeline.metadata_matrix(meta)
             if self._colour_distort:
-                lr = apply_colour_distortion(
-                    lr, *colour_distortion_draws(gen, n * p, self._distortion_strength))
+                view_rows = None if rows is None else rows._replace(
+                    start=rows.start * p, count=n * p, total=rows.total * p)
+                draws = colour_distortion_draws(
+                    gen, n * p if rows is None else rows.total * p, self._distortion_strength)
+                lr = apply_colour_distortion(lr, *mesh_mod.take_rows(draws, view_rows))
         out = dict(batch)
         out["lr"] = lr.reshape((n, p) + tuple(lr.shape[1:]))
         out["metadata"] = mat
@@ -298,7 +305,13 @@ class RegressionTrainingHandler(TrainingHandler):
                              labelling_strategy=self._labelling_strategy)
         embeddings, labels = ce.generate_data_encoding(self.eval_data)
         scores = ce.clustering_scores(embeddings, labels)
-        if self.model.logs_dir and not self.model.no_directories:
+        if self.model.logs_dir and not self.model.no_directories and self.writes:
             ce.dump_embeddings(embeddings, labels, os.path.join(
                 self.model.logs_dir, f"encodings_epoch_{epoch}"))
+        if self.mesh is not None and self.mesh.size > 1:  # the same numbers on every rank
+            keys = sorted(scores)
+            values = torch.tensor([scores[k] for k in keys], dtype=torch.float64,
+                                  device=self.device)
+            mesh_mod.mean_over_group([values], self.mesh)
+            scores = dict(zip(keys, values.tolist()))
         return {f"val-{k}": v for k, v in scores.items()}

@@ -2,11 +2,25 @@
 
 Port of ``rumpy_tpu/training/trainer.py::TrainingHandler``: the epoch loop,
 loss aggregation, summary.csv, early stopping, per-epoch checkpointing,
-periodic cleanup, and resume with branching. One device, no mesh
-(``use_mesh`` is accepted for call compatibility). The data-vs-compute
+periodic cleanup, and resume with branching. The data-vs-compute
 efficiency line is kept: it says how far the input pipeline holds the card
 back. Losses stay on the device during an epoch and are fetched once at
 its end.
+
+Data parallel (``use_mesh``, under ``torchrun --nproc_per_node=N``): the
+process joins the group of ``parallel/mesh.py`` on ``cuda:LOCAL_RANK``
+(NCCL; gloo where more ranks than cards share a host). As in
+the JAX trainer the data axis is ``gcd(batch, ranks)``; where that is not
+every rank, the trainer raises. Every rank runs the global loader, with the
+same seed and order, and keeps its rows of each batch (an array whose
+first axis does not divide stays whole), as JAX's one process shards one
+host batch; the online chain draws for the global batch and applies this
+rank's draws; the handlers average gradients and losses and take
+BatchNorm statistics and queue entries over the group. Parameters are
+broadcast from rank 0 at build and after a resume. Every rank scores the
+whole validation set and the means are averaged over the group, so every
+rank holds the same numbers (and stops early together); only rank 0
+writes summary.csv, checkpoints, samples, the profile trace and Aim rows.
 
 A ``[data.online_degradations]`` table trains from HR-only sets: the
 datasets return HR crops and the pipeline (``degradations/pipeline.py``)
@@ -42,6 +56,7 @@ is installed.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import time
 from collections import defaultdict
@@ -54,6 +69,7 @@ from rumpy_tpu_torch.config.constants import metric_best_val
 from rumpy_tpu_torch.data.loader import sisr_data_setup
 from rumpy_tpu_torch.device import to_device
 from rumpy_tpu_torch.interface import SISRInterface
+from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.utils import metrics as metrics_mod
 from rumpy_tpu_torch.utils import stats as stats_mod
 from rumpy_tpu_torch.utils.checkpoint import available_epochs, checkpoint_path
@@ -108,6 +124,23 @@ class TrainingHandler:
                               or data_cfg.get("batch_size") or 8)
         load_epoch = train_cfg.get("continue_from_epoch")
 
+        # the data-parallel group: the JAX trainer sizes its data axis
+        # gcd(batch, devices); here the axis is the whole group or nothing
+        self.mesh = None
+        if use_mesh and ("WORLD_SIZE" in os.environ
+                         or mesh_mod.joined()):
+            mesh = mesh_mod.get_mesh(device=device)
+            if math.gcd(self.batch_size, mesh.size) != mesh.size:
+                raise ValueError(
+                    f"batch_size {self.batch_size} does not divide over the {mesh.size} "
+                    f"ranks of the group: the data axis would be "
+                    f"gcd = {math.gcd(self.batch_size, mesh.size)} ranks, and every "
+                    "rank must hold rows of the batch (pick a batch that the rank "
+                    "count divides)")
+            self.mesh, device = mesh, mesh.device
+        # only rank 0 writes files
+        self.writes = mesh_mod.process_index() == 0
+
         # multi_frame_config.use_masks turns on the model's loss masking
         if (data_cfg.get("multi_frame_config") or {}).get("use_masks"):
             model_cfg = dict(model_cfg)
@@ -127,6 +160,8 @@ class TrainingHandler:
             seed=self.seed,
             device=device)
         self.device = self.model.device
+        # the same weights on every rank, after a resume too
+        mesh_mod.replicate(self.mesh, self.model.state)
 
         # branching: resuming from a non-final epoch forks a branch dir
         if load_epoch is not None and self.model.model_save_dir:
@@ -181,7 +216,8 @@ class TrainingHandler:
 
         # optional Aim experiment tracking, gated on the aim import
         self.tracker = None
-        if train_cfg.get("logging") == "aim" and not config.get("no_directories"):
+        if (train_cfg.get("logging") == "aim" and not config.get("no_directories")
+                and self.writes):
             try:
                 import aim
                 self.tracker = aim.Run(experiment=config.get("experiment") or "experiment",
@@ -208,7 +244,10 @@ class TrainingHandler:
         columns = {}  # device -> index tensor of the requested columns
 
         def input_fn(generator, batch):
-            lr, meta = pipe.degrade_batch(generator, batch["hr"])
+            # under a group, this rank's rows of the global batch's chain
+            rows = None if self.mesh is None else self.mesh.rows(batch["hr"].shape[0])
+            lr, meta = (pipe.degrade_batch(generator, batch["hr"]) if rows is None
+                        else pipe.degrade_batch(generator, batch["hr"], rows=rows))
             mat, keys = pipe.metadata_matrix(meta)
             new_batch = dict(batch)
             new_batch["lr"] = lr
@@ -232,9 +271,16 @@ class TrainingHandler:
     # ------------------------------------------------------------------
 
     def _put(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch's arrays on the device; under a group this rank's rows
+        of each array whose first axis divides over it."""
+        arrays = {k: v for k, v in batch.items()
+                  if isinstance(v, np.ndarray) and v.dtype != object and v.size > 0}
+        if self.mesh is not None and self.mesh.size > 1:
+            n, r = self.mesh.size, self.mesh.rank
+            arrays = {k: v[r * (len(v) // n):(r + 1) * (len(v) // n)]
+                      if len(v) % n == 0 else v for k, v in arrays.items()}
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()
-                if isinstance(v, np.ndarray) and v.dtype != object and v.size > 0}
+                for k, v in arrays.items()}
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile
@@ -260,7 +306,7 @@ class TrainingHandler:
         agg: Dict[str, List[torch.Tensor]] = defaultdict(list)
         data_t = compute_t = 0.0
         profiler = None
-        if (self.profile_steps and not self._profiled
+        if (self.profile_steps and not self._profiled and self.writes
                 and self.model.logs_dir and not self.model.no_directories):
             self._profiled = True
             profiler = self._start_profile()
@@ -348,7 +394,7 @@ class TrainingHandler:
         # same-shape set must not become one forward
         chunk = int((self.cfg.get("training") or {}).get("eval_batch_size") or 8)
         sample = self.save_samples is not False and self.model.logs_dir \
-            and not self.model.no_directories
+            and not self.model.no_directories and self.writes
         for items in self._eval_groups().values():
             for lo in range(0, len(items), chunk):
                 part = items[lo:lo + chunk]
@@ -370,7 +416,14 @@ class TrainingHandler:
                 if sample:
                     sample = False  # the first SR image of each validation
                     self._save_sample(rgb[0], epoch)
-        return {k: float(np.mean(v)) for k, v in agg.items()}
+        means = {k: float(np.mean(v)) for k, v in agg.items()}
+        if self.mesh is not None and self.mesh.size > 1:
+            # the same numbers on every rank: the group's mean of each
+            values = torch.tensor(list(means.values()), dtype=torch.float64,
+                                  device=self.device)
+            mesh_mod.mean_over_group([values], self.mesh)
+            means = dict(zip(means, values.tolist()))
+        return means
 
     def _save_sample(self, img, epoch: int) -> None:
         """The epoch's first SR image as a PNG in result_outputs/samples.
@@ -399,7 +452,7 @@ class TrainingHandler:
                              force: bool = False) -> None:
         """Keep best-1 / best / best+1 / last."""
         if not (self.aggressive_cleanup or force) \
-                or not self.model.model_save_dir:
+                or not self.model.model_save_dir or not self.writes:
             return
         keep = {best_epoch - 1, best_epoch, best_epoch + 1, last_epoch}
         for e in available_epochs(self.model.model_save_dir):
@@ -407,8 +460,9 @@ class TrainingHandler:
                 os.remove(checkpoint_path(self.model.model_save_dir, e))
 
     def run_experiment(self) -> Dict[int, Dict[str, float]]:
-        self.model.save_metadata()
-        self.model.model_structure_dump()
+        if self.writes:
+            self.model.save_metadata()
+            self.model.model_structure_dump()
         start = self.model.model_epoch
         direction = metric_best_val.get(self.early_stopping_metric, "max")
         best_val = -np.inf if direction == "max" else np.inf
@@ -422,13 +476,13 @@ class TrainingHandler:
             if epoch % self.eval_frequency == 0:
                 row.update(self.eval(epoch))
             self.stats[epoch] = row
-            if self.model.logs_dir and not self.model.no_directories:
+            if self.model.logs_dir and not self.model.no_directories and self.writes:
                 stats_mod.save_statistics(self.model.logs_dir, row)
                 try:
                     stats_mod.plot_stats(self.model.logs_dir)
                 except Exception:  # no matplotlib, or nothing to plot
                     pass
-            if self.model.model_save_dir and not self.model.no_directories:
+            if self.model.model_save_dir and not self.model.no_directories and self.writes:
                 self.model.save()
             if self.tracker is not None:
                 for k, v in row.items():

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from rumpy_tpu_torch.config.constants import metric_best_val
+from rumpy_tpu_torch.parallel.mesh import process_index
 from rumpy_tpu_torch.utils import flax_msgpack
 
 CKPT_PREFIX = "train_model_"
@@ -38,6 +39,10 @@ _META_KEYS = ("model_name", "model_epoch", "handler_metadata")
 
 def save_checkpoint(path: str, payload: Dict[str, Any],
                     minimal: bool = False) -> None:
+    """``payload`` to ``path`` through a temporary file. In a data-parallel
+    group every rank holds the same state and only rank 0 writes."""
+    if process_index() != 0:
+        return
     payload = dict(payload)
     if minimal:
         payload.pop("optimizer", None)

@@ -15,6 +15,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from rumpy_tpu_torch.parallel.mesh import process_index
+
 
 def _read(path: str):
     with open(path, newline="") as f:
@@ -39,8 +41,11 @@ def _number(text: str) -> float:
 def save_statistics(log_dir: str, stats: Dict[str, float],
                     filename: str = "summary.csv") -> str:
     """Append one epoch row; align columns with any existing file,
-    zero-filling metrics that a row lacks."""
+    zero-filling metrics that a row lacks. In a data-parallel group only
+    rank 0 writes."""
     path = os.path.join(log_dir, filename)
+    if process_index() != 0:
+        return path
     os.makedirs(log_dir, exist_ok=True)
     columns, rows = _read(path) if os.path.isfile(path) else ([], [])
     columns += [k for k in stats if k not in columns]
@@ -62,9 +67,9 @@ def load_statistics(log_dir: str, filename: str = "summary.csv"
 
 def truncate_statistics(log_dir: str, epoch: int,
                         filename: str = "summary.csv") -> None:
-    """Drop rows past ``epoch`` on resume/branch."""
+    """Drop rows past ``epoch`` on resume/branch (rank 0 of a group)."""
     path = os.path.join(log_dir, filename)
-    if not os.path.isfile(path):
+    if process_index() != 0 or not os.path.isfile(path):
         return
     columns, rows = _read(path)
     if "epoch" in columns:

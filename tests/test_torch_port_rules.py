@@ -1021,3 +1021,105 @@ def test_resumed_optimizer_steps_stay_on_the_host_clock():
     assert st["step"].device.type == "cpu" and st["step"].dtype == torch.float32
     assert float(st["step"]) == 5 and st["exp_avg"].stride() == p.stride()
     assert torch.equal(st["exp_avg"], mu) and torch.equal(st["exp_avg_sq"], mu.abs())
+
+
+# The collectives the port's scale-out uses: all_reduce, broadcast and
+# all_gather (their ``_into_tensor`` and ``nn.functional`` forms too). They
+# run under NCCL and, staged through the host, under gloo on CUDA tensors;
+# send/recv, reduce_scatter, all_to_all and the object collectives do not
+# all do both.
+ALLOWED_COLLECTIVES = {"all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+                       "all_reduce_coalesced", "broadcast_coalesced"}
+DIST_CALLS = {"send", "recv", "isend", "irecv", "reduce", "reduce_scatter",
+              "reduce_scatter_tensor", "all_to_all", "all_to_all_single", "scatter",
+              "gather", "barrier", "monitored_barrier", "batch_isend_irecv",
+              "broadcast_object_list", "all_gather_object", "gather_object",
+              "scatter_object_list", "send_object_list", "recv_object_list",
+              "reduce_scatter_tensor_coalesced", "all_gather_into_tensor_coalesced"}
+
+
+def _distributed_calls(path):
+    """(name, line) of every call through ``torch.distributed`` (as
+    ``dist.x``, ``torch.distributed.x``, ``torch.distributed.nn.functional.x``
+    or a name imported from those modules) in a file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    aliases, names = set(), {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.startswith("torch.distributed"):
+                    aliases.add(a.asname or a.name)
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "torch.distributed"):
+            for a in node.names:
+                if a.name in ("nn", "functional", "distributed"):
+                    aliases.add(a.asname or a.name)
+                else:
+                    names[a.asname or a.name] = a.name
+        elif isinstance(node, ast.ImportFrom) and node.module == "torch":
+            for a in node.names:
+                if a.name == "distributed":
+                    aliases.add(a.asname or a.name)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Name) and f.id in names:
+            yield names[f.id], node.lineno
+        elif isinstance(f, ast.Attribute):
+            base = ast.unparse(f.value)
+            if base in aliases or base.startswith("torch.distributed") or any(
+                    base.startswith(a + ".") for a in aliases):
+                yield f.attr, node.lineno
+
+
+def test_port_uses_only_three_collectives():
+    """The port and its smoke call no collective of ``torch.distributed``
+    beyond all_reduce, broadcast and all_gather."""
+    bad, seen = [], set()
+    for p in _port_files():
+        for name, line in _distributed_calls(p):
+            if name in DIST_CALLS:
+                bad.append(f"{p.relative_to(ROOT)}:{line} calls {name}")
+            elif name in ALLOWED_COLLECTIVES:
+                seen.add(name)
+    assert not bad, bad
+    assert {"all_reduce", "broadcast", "all_gather"} <= seen
+
+
+def test_collective_scan_sees_the_forms_it_refuses(tmp_path):
+    """The scan finds a refused collective however it is reached."""
+    src = tmp_path / "m.py"
+    src.write_text("import torch\nimport torch.distributed as dist\n"
+                   "from torch.distributed import reduce_scatter as rs\n"
+                   "import torch.distributed.nn.functional as dfn\n"
+                   "dist.send(1)\ntorch.distributed.all_to_all(1)\nrs(1)\n"
+                   "dfn.reduce_scatter(1)\ndist.all_reduce(1)\n")
+    found = sorted(n for n, _ in _distributed_calls(src))
+    assert found == ["all_reduce", "all_to_all", "reduce_scatter", "reduce_scatter", "send"]
+
+
+def test_parallel_package_imports_nothing_of_the_jax_package():
+    files = sorted((ROOT / "rumpy_tpu_torch" / "parallel").glob("*.py"))
+    assert {p.name for p in files} >= {"__init__.py", "mesh.py", "spatial.py"}
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}" for p in files
+           for mod, line in _imported_roots(p) if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_chip_smoke_drives_the_scale_out_phases():
+    """chip_smoke.py drives slice 22's phases from main() in rank processes
+    started by "spawn", each recording its RCAB launches, and prints the
+    four rows."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    called = {n.func.id for n in ast.walk(fns["main"])
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert {"scale_out_phases", "trainer_resume_phase", "launch_coverage_phase"} <= called
+    ranks = ast.unparse(fns["start_ranks"]) + ast.unparse(fns["rank_process"])
+    assert "SPAWN.Process" in ranks and "record_launches(rcab)" in ranks
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert 'SPAWN = multiprocessing.get_context("spawn")' in text
+    for phase in ("data_parallel_train", "bobw_joint_parallel", "spatial_forward",
+                  "serving_mesh"):
+        assert f'"phase": "{phase}"' in text, phase
