@@ -154,7 +154,22 @@ seeded random weights):
   process (``bobw_joint_parallel``); the halo-exchange spatial forward over
   2 ranks on a DIV2K LR image, exact for RCAN's convolutions and its seams
   recorded for the full RCAN (``spatial_forward``); the Set5 x4 requests
-  through the mesh predictor (``serving_mesh``);
+  through the mesh predictor (``serving_mesh``); FaceGAN at full width,
+  its real half drawn from the global batch's permutation: 2 steps in a
+  1-rank NCCL group bit for bit against this process in float32; over 2
+  gloo ranks within 1e-9 of it in float64, and in float32 the first step
+  within twice the gap of this process with cuDNN off, in each network's
+  worst leaf and in the losses, the second recorded (``facegan_parallel``);
+* the last tools: a RUMpy torch checkpoint of full-width RCAN x4 loaded by
+  ``load_reference_checkpoint`` bit for bit as the same weights loaded
+  directly, curated as an experiment (``extract_best_model``,
+  ``model_report``, ``clean_models --dry_run``), and served by the GUI
+  server on localhost: ``/super_resolve`` of a 128 x 128 filter-0 PNG and
+  of the page's canvas PNGs (RGBA, libpng's per-row filters) at 128 x 128
+  and 480 x 640, each bit for bit the interface's output, 200 RCAB
+  launches a request, its latency and decode time; the gallery and the scatter
+  plot, or the ImportError naming matplotlib or scikit-learn where missing
+  (``tools_serving``);
 * every RCAB kernel launch of the run, recorded by shape, dtype, direction
   and which gate inputs are per image: each one that no phase held against
   the plain version is held after the paths, in the directions launched,
@@ -213,6 +228,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2257,11 +2273,12 @@ def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
     """The forward kernel, and with ``backward`` the backward kernel, with
     the gate inputs of ``form`` (per image or shared) at one shape against
     their plain versions, two runs bit for bit, and the ms of a call beside the shared
-    form's at the same shape and the bound. In bf16, where a gradient
-    disagrees and the kernel's ReLU mask differs from the plain version's
-    at ReLU ties only (``relu_ties``), the plain version is taken with the
-    kernel's mask (``masked_plain_backward``) and held to the same
-    tolerance; the row records the ties. Marks the shape, dtype and form
+    form's at the same shape and the bound. Where a gradient disagrees and
+    the kernel's ReLU mask differs from the plain version's at ReLU ties
+    only (``relu_ties``: conv1's float32 sums in two orders, in bf16 and in
+    float32 alike), the plain version is taken with the kernel's mask
+    (``masked_plain_backward``) and held to the same tolerance; the row
+    records the ties. Marks the shape, dtype and form
     held in those directions. Returns the row (backward numbers None
     without ``backward``)."""
     args, scale = qrcab_inputs(shape, dtype, seed, form)
@@ -2320,7 +2337,7 @@ def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
             return errs, bad
 
         errs, bad = compare(want)
-        if bad and dtype == torch.bfloat16:
+        if bad:
             # A ReLU tie falls either way in two sum orders (bwd_against_f32).
             # Where the kernel's mask and the plain version's differ at ties
             # only, the plain version is taken with the kernel's mask.
@@ -6860,6 +6877,44 @@ SPATIAL_HALO_FULL = 24
 SERVE_DP_REL = 2.0 ** -5
 
 
+# FaceGAN over the group: its defaults (latent 100, nf 128), SGD at 1e-2 for
+# both networks (a parameter moves by lr x its gradient), 2 steps at
+# TRAIN_BATCH 80 x 80 faces (the real half 8, 4 a rank). In float32, as it
+# trains, the 1-rank NCCL group is one process bit for bit. 2 gloo ranks sum
+# the discriminator's BatchNorm and the gradients in another order. At this
+# width float32 does not resolve the step to the 1e-4 of a leaf's move that
+# tests/test_torch_data_parallel.py holds at its small width: one process with
+# cuDNN off (other convolution sums) stands as far off one process with it, up
+# to a tenth of a generator bias's first move (its gradient reaches it through
+# the discriminator's train-mode BatchNorm, which takes the mean out of it).
+# So the first step, the one step the data-parallel tests hold a GAN to
+# (ESRGAN's, FaceGAN's), is held against that spread, in the same run: in each
+# network the largest share of a leaf's move by which the 2 ranks stand off
+# one process (beyond FACEGAN_DP_F32_ULPS, the test's 2**-22 for weights under
+# 1; a FACEGAN_BN_FED bias's share of the discriminator's largest move, as the
+# test holds them) within FACEGAN_DP_F32_SPREAD times the cuDNN-off process's
+# plus the test's FACEGAN_DP_F32_MOVE_REL, and each loss within
+# FACEGAN_DP_F32_SPREAD times its gap plus FACEGAN_DP_F32_LOSS_ATOL, what
+# tests/test_torch_data_parallel.py gives ESRGAN's losses over ranks. The
+# second step starts from parameters that already differ by that spread, and
+# each float32 run moves away from the others by one to two orders of
+# magnitude more (the cuDNN-off process's loss gap too): it is recorded
+# against the spread, not held. In float64 every parameter, statistic and loss
+# of 2 ranks is within 1e-9 of one process, both steps, the tolerance
+# tests/test_torch_data_parallel.py holds its float64 cases of ranks against
+# one process to.
+FACEGAN_DP_STEPS = 2
+FACEGAN_DP_LR = 1e-2
+FACEGAN_DP_F64_ATOL = 1e-9
+FACEGAN_DP_F32_SPREAD = 2.0
+FACEGAN_DP_F32_MOVE_REL = 1e-4
+FACEGAN_DP_F32_ULPS = 2.0 ** -22
+FACEGAN_DP_F32_LOSS_ATOL = 1e-4
+# the discriminator's strided convs' biases: each feeds a train-mode
+# BatchNorm, whose mean takes it out again
+FACEGAN_BN_FED = tuple(f"discriminator.convs.{i}.bias" for i in range(1, 5))
+
+
 SPAWN = multiprocessing.get_context("spawn")
 
 
@@ -7082,8 +7137,138 @@ def serving_task(spec):
     return {"outs": outs, "ms": 1e3 * (time.perf_counter() - t0)}
 
 
+def facegan_task(spec):
+    """FaceGAN (FACEGAN_FULL, SGD at ``spec["lr"]``, default FACEGAN_DP_LR,
+    for both networks) from its seed-DP_SEED init, in float32 or, with
+    ``spec["float64"]``, in float64 (``utils/precision.py::float64``, as
+    the CPU tests hold BatchNorm), with cuDNN off where ``spec["cudnn"]``
+    is False: the state dict before, then FACEGAN_DP_STEPS ``train_batch``
+    steps on this rank's rows of the global batch (the whole batch with no
+    group; the draws the global batch's either way), each step's ms, losses
+    and state dict."""
+    from rumpy_tpu_torch.models.base import build_optimizer
+    from rumpy_tpu_torch.parallel import mesh as mesh_mod
+    from rumpy_tpu_torch.registry import get_model
+    from rumpy_tpu_torch.utils.precision import float64
+    mesh = mesh_mod.get_mesh() if spec["grouped"] else None
+    hr = torch.load(spec["batch_file"], weights_only=False)
+    if mesh is not None and mesh.size > 1:
+        hr = mesh_mod.shard_batch(mesh, {"hr": hr})["hr"]
+    lr = spec.get("lr", FACEGAN_DP_LR)
+    h = get_model("facegan")(device="cuda", seed=DP_SEED, optimizer_type="sgd", lr=lr,
+                             **FACEGAN_FULL)
+    state = h.init_state()
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = spec.get("cudnn", True)
+    with (float64(h) if spec.get("float64") else contextlib.nullcontext(state)) as state:
+        h._d_optimizer = build_optimizer(h.discriminator.parameters(), lr, "sgd")
+        h._optimizer = None
+        init = {k: v.detach().cpu().clone() for k, v in h.module.state_dict().items()}
+        batch = {"hr": hr.cuda().to(torch.get_default_dtype())}
+        steps = []
+        for _ in range(FACEGAN_DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = h.train_batch(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": 1e3 * (time.perf_counter() - t0),
+                          "losses": {k: float(v) for k, v in losses.items()},
+                          "state": {k: v.detach().cpu().clone()
+                                    for k, v in h.module.state_dict().items()}})
+    torch.backends.cudnn.enabled = cudnn
+    return {"steps": steps, "init": init, "rows": int(hr.shape[0]),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
 RANK_TASKS = {"train": train_task, "bobw": bobw_task, "spatial": spatial_task,
-              "serving": serving_task}
+              "serving": serving_task, "facegan": facegan_task}
+
+
+def facegan_worst_leaves(runs, base, i):
+    """After step ``i``, in each network the leaf that stands off ``base``
+    (one process) by the largest share of its move from the init: the
+    largest gap of ``runs`` beyond FACEGAN_DP_F32_ULPS over that move (for
+    a FACEGAN_BN_FED bias, over the discriminator's largest parameter move).
+    {network: {"leaf", "gap", "scale", "share"}}."""
+    want, init = base["steps"][i]["state"], base["init"]
+    moves = {k: float((want[k].double() - init[k].double()).abs().max())
+             for k in want if not k.endswith("num_batches_tracked")}
+    top_d = max(v for k, v in moves.items() if k.startswith("discriminator.")
+                and "running_" not in k)
+    worst = {}
+    for k, move in moves.items():
+        gap = max(float((r["steps"][i]["state"][k].double() - want[k].double()).abs().max())
+                  for r in runs)
+        scale = top_d if k in FACEGAN_BN_FED else move
+        leaf = {"leaf": k, "gap": gap, "scale": scale,
+                "share": max(gap - FACEGAN_DP_F32_ULPS, 0.0) / max(scale, 1e-30)}
+        net = k.split(".")[0]
+        if net not in worst or leaf["share"] > worst[net]["share"]:
+            worst[net] = leaf
+    return worst
+
+
+def facegan_parallel_row(alone, one, two, card):
+    """The facegan_parallel row from one process (``alone``: float32, its
+    cuDNN-off twin and float64), the 1-rank NCCL group (``one``) and the
+    2-rank gloo group (``two``); raises where it does not hold."""
+    ref, ref64, other = alone["facegan"], alone["facegan64"], alone["facegan_cudnn_off"]
+    one_gan = one["facegan"]["steps"]
+    two32 = [r["facegan"] for r in two]
+    two64 = [r["facegan64"] for r in two]
+    gan_keys = list(ref["init"])
+
+    def gaps(runs, base, what):
+        return [max(largest_gap(r["steps"][i]["state"], base["steps"][i]["state"])
+                    if what == "state" else
+                    max(abs(r["steps"][i]["losses"][k] - base["steps"][i]["losses"][k])
+                        for k in base["steps"][i]["losses"]) for r in runs)
+                for i in range(FACEGAN_DP_STEPS)]
+
+    two_worst = [facegan_worst_leaves(two32, ref, i) for i in range(FACEGAN_DP_STEPS)]
+    spread = [facegan_worst_leaves([other], ref, i) for i in range(FACEGAN_DP_STEPS)]
+    two_loss, spread_loss = gaps(two32, ref, "losses"), gaps([other], ref, "losses")
+    within = [all(two_worst[i][n]["share"] <= FACEGAN_DP_F32_SPREAD * spread[i][n]["share"]
+                  + FACEGAN_DP_F32_MOVE_REL for n in two_worst[i])
+              and two_loss[i] <= FACEGAN_DP_F32_SPREAD * spread_loss[i] + FACEGAN_DP_F32_LOSS_ATOL
+              for i in range(FACEGAN_DP_STEPS)]
+    row = {
+        "phase": "facegan_parallel", "card": card, "model": "facegan latent 100 nf 128",
+        "global_batch": TRAIN_BATCH, "steps": FACEGAN_DP_STEPS, "optimizer": "sgd",
+        "lr": FACEGAN_DP_LR, "rows_a_rank": [r["rows"] for r in two32],
+        "one_rank_nccl_bit_for_bit_each_step_f32": [
+            all(torch.equal(x["state"][k], y["state"][k]) for k in gan_keys)
+            and x["losses"] == y["losses"] for x, y in zip(one_gan, ref["steps"])],
+        "two_rank_f32_worst_leaf_each_step": two_worst,
+        "two_rank_f32_losses_max_abs_each_step": two_loss,
+        "one_process_cudnn_off_f32_worst_leaf_each_step": spread,
+        "one_process_cudnn_off_f32_losses_max_abs_each_step": spread_loss,
+        "two_rank_f32_within_spread_each_step": within,
+        "two_rank_f64_params_max_abs_each_step": gaps(two64, ref64, "state"),
+        "two_rank_f64_losses_max_abs_each_step": gaps(two64, ref64, "losses"),
+        "two_rank_f64_ranks_bit_identical": all(
+            torch.equal(two64[0]["steps"][-1]["state"][k], two64[1]["steps"][-1]["state"][k])
+            for k in gan_keys),
+        "losses_f32": [s_["losses"] for s_ in ref["steps"]],
+        "ms_a_step_f32": {"one_process": [s_["ms"] for s_ in ref["steps"]],
+                          "one_rank_nccl": [s_["ms"] for s_ in one_gan],
+                          "two_rank_gloo": [[s_["ms"] for s_ in r["steps"]] for r in two32]},
+        "launches": [one["facegan"]["launches"]] + [r["facegan"]["launches"] for r in two]
+        + [r["facegan64"]["launches"] for r in two],
+        "tolerance_f32": {"spread": FACEGAN_DP_F32_SPREAD, "move": FACEGAN_DP_F32_MOVE_REL,
+                          "ulps": FACEGAN_DP_F32_ULPS, "losses": FACEGAN_DP_F32_LOSS_ATOL,
+                          "held_steps": 1},
+        "tolerance_f64": FACEGAN_DP_F64_ATOL}
+    print(json.dumps(row), flush=True)
+    if (not all(row["one_rank_nccl_bit_for_bit_each_step_f32"])
+            or not within[0]
+            or max(row["two_rank_f64_params_max_abs_each_step"]) > FACEGAN_DP_F64_ATOL
+            or max(row["two_rank_f64_losses_max_abs_each_step"]) > FACEGAN_DP_F64_ATOL
+            or not row["two_rank_f64_ranks_bit_identical"]
+            or row["rows_a_rank"] != [TRAIN_BATCH // DP_RANKS] * DP_RANKS
+            or any(v for d in row["launches"] for v in d.values())):
+        raise AssertionError(f"facegan_parallel: {row}")
+    return row
 
 
 def largest_gap(a, b):
@@ -7091,11 +7276,11 @@ def largest_gap(a, b):
 
 
 def scale_out_phases(rcab, card):
-    """The scale-out paths (slice 22), in a 1-rank NCCL group and a 2-rank
-    gloo group on the card, against this process alone on the same global
-    batch. Prints the rows data_parallel_train, bobw_joint_parallel,
-    spatial_forward and serving_mesh; returns each path's RCAB launches in
-    the ranks."""
+    """The scale-out paths (slices 22 and 23), in a 1-rank NCCL group and a
+    2-rank gloo group on the card, against this process alone on the same
+    global batch. Prints the rows data_parallel_train, bobw_joint_parallel,
+    spatial_forward, serving_mesh and facegan_parallel; returns each path's
+    RCAB launches in the ranks."""
     from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
 
     t_all = time.perf_counter()
@@ -7126,6 +7311,9 @@ def scale_out_phases(rcab, card):
     bodyless = dict(RCAN_FULL, n_resgroups=0, n_resblocks=0)
     full = dict(RCAN_FULL, dtype="bf16")
     images = [rng.random((h, w, 3), dtype=np.float32) for h, w in SET5_X4_LR]
+    faces_file = os.path.join(root, "faces.pt")
+    torch.save(torch.from_numpy(rng.random((TRAIN_BATCH, FACEGAN_SIDE, FACEGAN_SIDE, 3),
+                                           dtype=np.float32)), faces_file)
 
     def tasks(grouped, tag):
         """The tasks of a 2-rank group (``grouped``), or of one process:
@@ -7140,14 +7328,18 @@ def scale_out_phases(rcab, card):
                                   "image_file": image_file, "halo": SPATIAL_HALO_EXACT},
                 "spatial_full": {"task": "spatial", "grouped": grouped, "kwargs": full,
                                  "image_file": image_file, "halo": SPATIAL_HALO_FULL},
-                "serving": {"task": "serving", "grouped": grouped, "images": images}}
+                "serving": {"task": "serving", "grouped": grouped, "images": images},
+                "facegan": {"task": "facegan", "grouped": grouped, "batch_file": faces_file},
+                "facegan64": {"task": "facegan", "grouped": grouped, "batch_file": faces_file,
+                              "float64": True}}
 
     # the rank processes start (and import) while this process computes the
     # references alone, no group; then the 1-rank group takes the card, then
     # the 2-rank group
     go_one, go_two = SPAWN.Event(), SPAWN.Event()
     started_two = start_ranks(DP_RANKS, tasks(True, "gloo2"), root, go_two)
-    started_one = start_ranks(1, {"train": tasks(False, "nccl1")["train"]}, root, go_one)
+    started_one = start_ranks(1, {"train": tasks(False, "nccl1")["train"],
+                                  "facegan": tasks(True, "nccl1")["facegan"]}, root, go_one)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -7158,6 +7350,8 @@ def scale_out_phases(rcab, card):
                 spec = dict(spec, pad=SPATIAL_HALO_EXACT)
             torch.cuda.reset_peak_memory_stats()
             alone[name] = RANK_TASKS[spec["task"]](spec)
+        alone["facegan_cudnn_off"] = facegan_task(dict(tasks(False, "alone")["facegan"],
+                                                       cudnn=False))
         alone_launches = {"rcab_fused": rcab.launches,
                           "rcab_fused_backward": rcab.backward_launches}
         torch.backends.cudnn.deterministic = deterministic
@@ -7306,6 +7500,8 @@ def compare_scale_out(card, alone, alone_launches, one, one_s, two, two_s, t_all
     if serve_gap > serve_tol or not serve_row["shapes_ok"]:
         raise AssertionError(f"serving_mesh: {serve_row}")
 
+    facegan_parallel_row(alone, one, two, card)
+
     launches = {
         "data_parallel_train": {k: a["launches"][k] + sum(r["train"]["launches"][k] for r in two)
                                 for k in a["launches"]},
@@ -7320,6 +7516,266 @@ def compare_scale_out(card, alone, alone_launches, one, one_s, two, two_s, t_all
                       "seconds": time.perf_counter() - t_all}), flush=True)
     shutil.rmtree(root)
     return launches
+
+
+# slice 23: the last tools. The reference's RCAN x4 state dict as a RUMpy
+# checkpoint, curated and served over HTTP; the GUI's request at Set5's
+# largest x4 LR size.
+TOOLS_EXP = "rcan_x4_reference"
+TOOLS_EPOCHS, TOOLS_BEST = 5, 1
+GUI_SIDE = 128
+# what the page uploads: a canvas's PNG at GUI_SIDE and at a VGA photo's size
+GUI_UPLOADS = {"canvas_128": (GUI_SIDE, GUI_SIDE), "canvas_480x640": (480, 640)}
+TOOLS_EVAL_LR = [(40, 48), (32, 32)]
+
+
+def photo_like(rng, h, w):
+    """An (h, w, 4) uint8 RGBA image, opaque, smooth with noise as a
+    photograph is: the rows a browser's PNG encoder writes under Average
+    and Paeth filters."""
+    yy, xx = np.mgrid[:h, :w]
+    smooth = (60 * np.sin(yy[..., None] / 17 + np.arange(3)) + 60 * np.cos(xx[..., None] / 23)
+              + 128 + rng.normal(0, 6, (h, w, 3)))
+    rgb = np.clip(smooth, 0, 255).astype(np.uint8)
+    return np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], axis=-1)
+
+
+def png_filter_rows(png, shape):
+    """The filter type of each row of a one-IDAT PNG of ``encode_png``."""
+    import zlib
+    raw = zlib.decompress(png[33 + 8:-12 - 4])
+    return np.frombuffer(raw, np.uint8)[::shape[1] * shape[2] + 1]
+
+
+def tools_serving_phase(rcab, card):
+    """The slice's tools on the card: a seeded full-width RCAN x4 written as
+    a RUMpy torch checkpoint (``{"network": state_dict}``, float32, the
+    registration order) loaded by ``utils/torch_convert.py``'s
+    ``load_reference_checkpoint`` bit for bit as the same weights loaded
+    directly; that model as an experiment of TOOLS_EPOCHS checkpoints and a
+    summary through the curation CLIs (``extract_best_model``,
+    ``model_report``, ``clean_models --dry_run``); the extracted model
+    served by the GUI server on localhost, bf16 as the eval path runs it: a
+    POST to ``/super_resolve`` of a GUI_SIDE x GUI_SIDE filter-0 PNG and of
+    each GUI_UPLOADS canvas PNG equals the interface's output bit for bit,
+    and runs 200 RCAB launches (their shapes held by launch_coverage); then
+    the gallery collages and the scatter plot
+    where matplotlib and scikit-learn are installed, or the ImportError
+    naming each where not. Returns the row."""
+    import base64
+    import importlib.util
+    import urllib.request
+
+    from rumpy_tpu_torch.cli import curation
+    from rumpy_tpu_torch.config.loader import dump_toml
+    from rumpy_tpu_torch.evaluation.contrastive_eval import ContrastiveEval
+    from rumpy_tpu_torch.evaluation.eval_hub import EvalHub
+    from rumpy_tpu_torch.gui import server as gui
+    from rumpy_tpu_torch.gui.png import decode_png, encode_png
+    from rumpy_tpu_torch.interface import SISRInterface
+    from rumpy_tpu_torch.registry import get_model
+    from rumpy_tpu_torch.utils.checkpoint import available_epochs, checkpoint_path
+    from rumpy_tpu_torch.utils.torch_convert import load_reference_checkpoint
+
+    t_all = time.perf_counter()
+    root = os.path.join(ROOT, "rumpy_tpu_torch", "build", "smoke_tools")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    internal = dict(RCAN_FULL, dtype="bf16")
+    rcab.launches = rcab.backward_launches = 0
+    # (a) the reference checkpoint: seed 23's weights onto a seed-0 handler
+    source = get_model("rcan")(device="cuda", **internal)
+    source.init_state(seed=23)
+    ref_sd = {k: v.detach().float().cpu().clone() for k, v in source.module.state_dict().items()}
+    ref_path = os.path.join(root, "train_model_0_reference.pth")
+    torch.save({"network": ref_sd}, ref_path)
+    del source
+    t0 = time.perf_counter()
+    loaded = get_model("rcan")(device="cuda", **internal)
+    loaded.init_state(seed=0)
+    state = load_reference_checkpoint(ref_path, loaded)
+    load_s = time.perf_counter() - t0
+    direct = get_model("rcan")(device="cuda", **internal)
+    direct.init_state(seed=0)
+    direct.module.load_state_dict(ref_sd)
+    got_sd, want_sd = loaded.module.state_dict(), direct.module.state_dict()
+    convert = {"tensors": len(ref_sd), "parameters": sum(v.numel() for v in ref_sd.values()),
+               "bit_for_bit_with_direct_load": all(torch.equal(got_sd[k], want_sd[k])
+                                                   for k in want_sd),
+               "on_card": all(v.is_cuda for v in got_sd.values()), "load_s": load_s}
+    del direct
+
+    # (b) the experiment and the curation CLIs
+    results = os.path.join(root, "Results")
+    exp = os.path.join(results, TOOLS_EXP)
+    models = os.path.join(exp, "saved_models")
+    loaded.save_model(state, models, 0)
+    for e in range(1, TOOLS_EPOCHS):
+        shutil.copy(checkpoint_path(models, 0), checkpoint_path(models, e))
+    dump_toml({"model": {"name": "rcan", "internal_params": internal}},
+              os.path.join(exp, "config.toml"))
+    os.makedirs(os.path.join(exp, "result_outputs"))
+    psnr = [24.0 + 0.5 * e - (1.5 if e > TOOLS_BEST else 0.0) for e in range(TOOLS_EPOCHS)]
+    with open(os.path.join(exp, "result_outputs", "summary.csv"), "w") as f:
+        f.write("epoch,val-PSNR\n" + "".join(f"{e},{v}\n" for e, v in enumerate(psnr)))
+    del loaded, state
+    deploy = os.path.join(root, "deploy")
+    best = curation.extract_best_model(exp, os.path.join(deploy, TOOLS_EXP))
+    report = curation.model_report(results)
+    with open(os.path.join(results, "model_report.csv")) as f:
+        report_csv = f.read()
+    would = curation.clean_models(results, dry_run=True)
+    keep = {TOOLS_BEST - 1, TOOLS_BEST, TOOLS_BEST + 1, TOOLS_EPOCHS - 1}
+    curation_row = {
+        "best_epoch": best, "report": report, "report_csv": report_csv,
+        "dry_run_would_remove": [os.path.basename(p) for p in would],
+        "still_there": available_epochs(models),
+        "deployed": available_epochs(os.path.join(deploy, TOOLS_EXP, "saved_models"))}
+
+    # (c) the extracted model served over HTTP: a random image as filter-0
+    # PNG, then what the page sends, a canvas's RGBA PNG with libpng's
+    # per-row filters, of a photo-like image at GUI_SIDE and at a photo's
+    # size
+    httpd = gui.make_server(deploy, 0, default_model=TOOLS_EXP, scale=TRAIN_SCALE)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 256, (GUI_SIDE, GUI_SIDE, 3), dtype=np.uint8)
+    uploads = {"filter0": (img, 0)}
+    for name, (h, w) in GUI_UPLOADS.items():
+        uploads[name] = (photo_like(rng, h, w), "adaptive")
+
+    def post(path, png):
+        body = json.dumps({"image": "data:image/png;base64,"
+                           + base64.b64encode(png).decode()}).encode()
+        req = urllib.request.Request(url + path, data=body,
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out = json.load(r)
+        return out, 1e3 * (time.perf_counter() - t)
+
+    served, requests = {}, {}
+    before = 0
+    try:
+        with urllib.request.urlopen(url + "/test_page", timeout=60) as r:
+            page = json.load(r)
+        for name, (up, filters) in uploads.items():
+            png = encode_png(up, filters)
+            rows = png_filter_rows(png, up.shape)
+            t = time.perf_counter()
+            decode_png(png)
+            decode_ms = 1e3 * (time.perf_counter() - t)
+            post("/super_resolve", png)  # the first forward at this shape
+            before += rcab.launches
+            rcab.launches = rcab.backward_launches = 0
+            served[name], request_ms = post("/super_resolve", png)
+            requests[name] = {
+                "request": list(up.shape), "png_bytes": len(png),
+                "rows_by_filter": {str(f): int((rows == f).sum()) for f in range(5)},
+                "decode_ms": decode_ms, "request_ms": request_ms,
+                "server_runtime_ms": 1e3 * served[name]["runtime"],
+                "launches": {"rcab_fused": rcab.launches,
+                             "rcab_fused_backward": rcab.backward_launches}}
+        bicubic, bicubic_ms = post("/super_resolve_bicubic", encode_png(img))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    iface = SISRInterface(model_loc=deploy, experiment=TOOLS_EXP, mode="eval",
+                          load_epoch="best", no_directories=True, device="cuda")
+    for name, (up, _) in uploads.items():
+        out_u8 = decode_png(base64.b64decode(served[name]["output"]))
+        rgb, _, _, _ = iface.net_run_and_process(up[None, ..., :3].astype(np.float32) / 255.0,
+                                                 pad_multiple=8)
+        want_u8 = (np.clip(rgb[0], 0, 1) * 255).round().astype(np.uint8)
+        t = time.perf_counter()
+        gui.ModelServer._encode_b64(rgb[0])  # the server's reply, on the host
+        requests[name]["reply_encode_ms"] = 1e3 * (time.perf_counter() - t)
+        requests[name]["output"] = list(out_u8.shape)
+        requests[name]["bit_for_bit_with_interface"] = bool(np.array_equal(out_u8, want_u8))
+    from rumpy_tpu_torch.ops.resize import pil_resize
+    bic_want = pil_resize(torch.from_numpy(img).cuda(),
+                          (TRAIN_SCALE * GUI_SIDE, TRAIN_SCALE * GUI_SIDE)).cpu().numpy()
+    serving_row = {
+        "model": "rcan x4 10x20x64 bf16", "test_page": page, "requests": requests,
+        "bicubic_bit_for_bit_with_pil_resize": bool(np.array_equal(
+            decode_png(base64.b64decode(bicubic["output"])), bic_want)),
+        "bicubic_request_ms": bicubic_ms}
+    del iface
+
+    # (d) the figures, or the ImportError that names what is missing
+    have = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "sklearn")}
+    lr_dir, hr_dir = os.path.join(root, "pairs", "lr"), os.path.join(root, "pairs", "hr")
+    os.makedirs(lr_dir)
+    os.makedirs(hr_dir)
+    for k, (h, w) in enumerate(TOOLS_EVAL_LR):
+        hr = rng.integers(0, 256, (h * TRAIN_SCALE, w * TRAIN_SCALE, 3), dtype=np.uint8)
+        np.save(os.path.join(hr_dir, f"t{k}.npy"), hr)
+        np.save(os.path.join(lr_dir, f"t{k}.npy"),
+                np.ascontiguousarray(hr[::TRAIN_SCALE, ::TRAIN_SCALE]))
+    out_loc = os.path.join(root, "eval")
+    emb = rng.standard_normal((64, 16)).astype(np.float32)
+    labels = rng.integers(0, 4, 64)
+    figures = {"libraries": have}
+
+    def gallery():
+        hub = EvalHub(models=[{"experiment": TOOLS_EXP, "epoch": "best"}], model_loc=deploy,
+                      data_cfg={"lr_dir": lr_dir, "hr_dir": hr_dir}, out_loc=out_loc,
+                      scale=TRAIN_SCALE, gallery=True, device="cuda")
+        hub.full_image_protocol()
+        return sorted(f for f in os.listdir(out_loc) if f.endswith("_comparison.pdf"))
+
+    def scatter():
+        return ContrastiveEval.scatter_plot(torch.from_numpy(emb).cuda(), labels,
+                                            os.path.join(root, "tsne.pdf"))
+
+    for name, fn, need in (("gallery", gallery, ("matplotlib",)),
+                           ("scatter_plot", scatter, ("matplotlib", "sklearn"))):
+        missing = [m for m in need if not have[m]]
+        if not missing:
+            figures[name] = fn()
+            continue
+        try:
+            fn()
+        except ImportError as e:
+            named = {"matplotlib": "matplotlib", "sklearn": "scikit-learn"}[missing[0]]
+            figures[name] = {"raised": str(e), "names_it": named in str(e)}
+        else:
+            figures[name] = {"raised": None, "names_it": False}
+    row = {"phase": "tools_serving", "card": card, "convert": convert,
+           "curation": curation_row, "serving": serving_row, "figures": figures,
+           "launches": {"rcab_fused": before + rcab.launches,
+                        "rcab_fused_backward": rcab.backward_launches},
+           "seconds": time.perf_counter() - t_all}
+    print(json.dumps(row), flush=True)
+    print(f"tools_serving: {row['seconds']:.1f} s", flush=True)
+    ok_figures = all((isinstance(v, dict) and v["names_it"])
+                     or (k == "gallery" and v == ["t0_comparison.pdf", "t1_comparison.pdf"])
+                     or (k == "scatter_plot" and v and os.path.getsize(v) > 0)
+                     for k, v in figures.items() if k != "libraries")
+    if (not convert["bit_for_bit_with_direct_load"] or not convert["on_card"]
+            or best != TOOLS_BEST or curation_row["deployed"] != [TOOLS_BEST]
+            or curation_row["still_there"] != list(range(TOOLS_EPOCHS))
+            or sorted(curation_row["dry_run_would_remove"]) != sorted(
+                os.path.basename(checkpoint_path(models, e)) for e in range(TOOLS_EPOCHS)
+                if e not in keep)
+            or f"{TOOLS_EXP},{TOOLS_EPOCHS},{TOOLS_EPOCHS - 1},{TOOLS_BEST}," not in report_csv
+            or page["model"] != TOOLS_EXP
+            or any(r["output"] != [TRAIN_SCALE * r["request"][0], TRAIN_SCALE * r["request"][1], 3]
+                   or not r["bit_for_bit_with_interface"]
+                   or r["launches"] != {"rcab_fused": 200, "rcab_fused_backward": 0}
+                   for r in requests.values())
+            or not all(requests[n]["rows_by_filter"]["3"] + requests[n]["rows_by_filter"]["4"]
+                       for n in GUI_UPLOADS)
+            or not serving_row["bicubic_bit_for_bit_with_pil_resize"]
+            or row["launches"]["rcab_fused_backward"]
+            or not ok_figures):
+        raise AssertionError(f"tools_serving: {row}")
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return row
 
 
 def main() -> int:
@@ -7425,6 +7881,9 @@ def main() -> int:
     scale_out = scale_out_phases(rcab, card)
     dp_launches = scale_out["data_parallel_train"]
     bobw_dp_launches = scale_out["bobw_joint_parallel"]
+    # slice 23, the last tools: a RUMpy checkpoint converted, curated and
+    # served by the GUI server on the RCAB kernels
+    tools = tools_serving_phase(rcab, card)
     # the GAN group launches no RCAB kernel: each phase failed on any
     gan_group_launches = {
         "realesrgan_training_path": realesrgan["launches"],
@@ -7474,7 +7933,8 @@ def main() -> int:
                      + split["launches"]["rcab_fused"] + split["eval_rcab_launches"]
                      + resume_launches["rcab_fused"] + profiled_launches["rcab_fused"]
                      + dp_launches["rcab_fused"] + bobw_dp_launches["rcab_fused"]
-                     + scale_out["spatial_forward"] + scale_out["serving_mesh"]),
+                     + scale_out["spatial_forward"] + scale_out["serving_mesh"]
+                     + tools["launches"]["rcab_fused"]),
         "launches_serving_path": serve_launches,
         "launches_training_path": train_launches["rcab_fused"],
         "launches_blind_training_path": blind_launches["rcab_fused"],
@@ -7517,6 +7977,11 @@ def main() -> int:
         "launches_bobw_joint_parallel_path": bobw_dp_launches["rcab_fused"],
         "launches_spatial_forward_path": scale_out["spatial_forward"],
         "launches_serving_mesh_path": scale_out["serving_mesh"],
+        # slice 23: the GUI server's request, the interface it is held
+        # against and the gallery's evaluation
+        "launches_tools_serving_path": tools["launches"]["rcab_fused"],
+        "launches_gui_request": {name: r["launches"]["rcab_fused"]
+                                 for name, r in tools["serving"]["requests"].items()},
         # QRCAB: per-image bd, bu and scale (qrcab_kernel phase)
         "per_image_gate_inputs": per_image,
         "max_abs_err": main_row["max_abs_err"],

@@ -23,8 +23,9 @@ writes one; without it LPIPS raises ``NotImplementedError``, as in the JAX
 package). ``-m FR_rank`` ranks every output against ``--fr_gallery`` (a
 features npz or a folder of ``<identity>`` images) with the
 ``--fr_extractor`` (default ``lightcnn``) of ``--fr_extractor_weights``.
-``--gallery`` comes with a later slice and raises ``NotImplementedError``
-(ROADMAP queue 1 item 10).
+``--gallery`` writes a captioned comparison collage an image
+(``<stem>_comparison.pdf``, matplotlib; ``--no_image_comparison`` turns it
+off).
 """
 
 from __future__ import annotations
@@ -33,9 +34,6 @@ import argparse
 from typing import Optional, Sequence
 
 from rumpy_tpu_torch.config.loader import load_config, merge_overrides
-
-# option -> ROADMAP queue 1 item that ports it
-_LATER = {"gallery": "10"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -67,7 +65,7 @@ def _parser() -> argparse.ArgumentParser:
                         "FR_rank); repeatable.")
     p.add_argument("--save_im", action=flag, default=None)
     p.add_argument("--gallery", action=flag, default=None,
-                   help="Per-image comparison collages (not ported yet).")
+                   help="Per-image comparison collages (PDF, matplotlib).")
     p.add_argument("--no_image_comparison", action="store_true", default=None)
     p.add_argument("--lanczos_upsample", action="store_true", default=None)
     p.add_argument("--time_models", action=flag, default=None)
@@ -110,10 +108,6 @@ def main(argv: Optional[Sequence[str]] = None):
         data["ignore_degradation_location"] = True
     if args.recursive:
         data["recursive_search"] = True
-    for key, item in _LATER.items():
-        if cfg.get(key):
-            raise NotImplementedError(f"--{key} is not ported yet: it comes with "
-                                      f"ROADMAP queue 1 item {item}")
 
     models = list(cfg.get("models") or [])
     # [[models]] tables, or plain experiment names with a load_epochs list
@@ -139,6 +133,7 @@ def main(argv: Optional[Sequence[str]] = None):
         scale=cfg.get("scale") or 4,
         metrics=list(args.metrics) or list(cfg.get("metrics") or ["PSNR", "SSIM"]),
         save_im=bool(cfg.get("save_im")),
+        gallery=bool(cfg.get("gallery")),
         lanczos_upsample=bool(cfg.get("lanczos_upsample")),
         time_models=bool(cfg.get("time_models")),
         no_image_comparison=bool(cfg.get("no_image_comparison")),

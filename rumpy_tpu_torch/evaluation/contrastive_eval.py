@@ -6,8 +6,9 @@ clustering scores are computed there in float64 with the definitions of
 scikit-learn's ``davies_bouldin_score``, ``calinski_harabasz_score`` and
 ``silhouette_score`` (Euclidean), without scikit-learn; one copy brings
 the three numbers back. :meth:`ContrastiveEval.dump_embeddings` writes the
-npz and a CSV (pandas' layout, by the csv module). The t-SNE / UMAP
-scatter plots wait for ROADMAP queue 1 item 10.
+npz and a CSV (pandas' layout, by the csv module), and
+:meth:`ContrastiveEval.scatter_plot` a t-SNE (or UMAP) map of them
+(scikit-learn and matplotlib, imported when called).
 """
 
 from __future__ import annotations
@@ -121,6 +122,37 @@ class ContrastiveEval:
 
     @staticmethod
     def scatter_plot(embeddings, labels, out_path: str, method: str = "tsne") -> Optional[str]:
-        raise NotImplementedError(
-            "t-SNE / UMAP scatter plots of the embeddings are not ported yet: "
-            "they come with ROADMAP queue 1 item 10")
+        """A 2-D map of the embeddings coloured by class, written to
+        ``out_path``: UMAP where ``method`` is "umap" and ``umap`` is
+        installed, else scikit-learn's t-SNE (perplexity ``min(30, max(2,
+        N // 3))``). None under 5 embeddings."""
+        emb = torch.as_tensor(embeddings).cpu().numpy()
+        lab = torch.as_tensor(labels).cpu().numpy()
+        if len(emb) < 5:
+            return None
+        from rumpy_tpu_torch.utils.visualization import pyplot
+        plt = pyplot()
+        if method not in ("tsne", "umap"):
+            raise ValueError(f"Unknown scatter method {method!r} (expected 'tsne' or 'umap')")
+        if method == "umap":
+            try:
+                import umap
+                pts = umap.UMAP(n_components=2).fit_transform(emb)
+            except ImportError:
+                method = "tsne"
+        if method == "tsne":
+            try:
+                from sklearn.manifold import TSNE
+            except ImportError as e:
+                raise ImportError("the t-SNE scatter plot needs scikit-learn (sklearn), "
+                                  "which is not installed") from e
+            perp = min(30, max(2, len(emb) // 3))
+            pts = TSNE(n_components=2, perplexity=perp).fit_transform(emb)
+        fig, ax = plt.subplots(figsize=(6, 5))
+        sc = ax.scatter(pts[:, 0], pts[:, 1], c=lab, cmap="tab20", s=12)
+        fig.colorbar(sc, ax=ax, label="degradation class")
+        ax.set_title(f"{method} embedding map")
+        fig.tight_layout()
+        fig.savefig(out_path)
+        plt.close(fig)
+        return out_path

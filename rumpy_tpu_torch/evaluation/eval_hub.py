@@ -20,6 +20,9 @@ Port of ``rumpy_tpu/evaluation/eval_hub.py`` without pandas:
   and metric, then ``image``) and ``average_metrics.csv`` (one ``mean``
   row) with the ``csv`` module in the layout pandas gives the JAX package,
   and per-model PNGs with ``save_im``;
+* with ``gallery`` (and not ``no_image_comparison``), a collage an image,
+  ``<stem>_comparison.pdf``: HR and each output captioned with its PSNR
+  (matplotlib; where it is missing, building the hub raises);
 * face recognition (``fr_gallery``: a features npz with ``out_stack`` and
   ``id_stack``, or a folder of ``<identity>`` images; ``fr_extractor``
   with ``fr_extractor_weights``): a per-image ``FR_rank`` column for every
@@ -28,9 +31,8 @@ Port of ``rumpy_tpu/evaluation/eval_hub.py`` without pandas:
   ranks (``individual_im_ranks.csv``), with ``cmc_curves.pdf`` where
   matplotlib is installed.
 
-Not ported yet, and raising ``NotImplementedError``: comparison collages
-(``gallery``: ROADMAP queue 1 item 10). LPIPS without weights raises
-``NotImplementedError``, as in the JAX package.
+LPIPS without weights raises ``NotImplementedError``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -52,12 +54,8 @@ from rumpy_tpu_torch.ops.resize import pil_resize
 from rumpy_tpu_torch.utils import metrics as metrics_mod
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
 from rumpy_tpu_torch.utils.csv_text import float_cell, write_rows, write_table
-from rumpy_tpu_torch.utils.visualization import safe_image_save
-
-
-def _later(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"ROADMAP queue 1 item {item}")
+from rumpy_tpu_torch.utils.visualization import (interpret_sisr_images, pyplot,
+                                                 safe_image_save)
 
 
 def _sync(device: torch.device) -> None:
@@ -130,8 +128,9 @@ class EvalHub:
                  fr_extractor_weights: Optional[str] = None,
                  pad_to_bucket: Optional[int] = None,
                  device=None):
-        if gallery:
-            raise _later("comparison collages (gallery, matplotlib)", "10")
+        self.collages = not no_image_comparison and gallery
+        if self.collages:
+            pyplot()  # matplotlib missing: raise before any model runs
         self.device = resolve_device(device)
         self.out_loc = out_loc
         self.scale = scale
@@ -326,6 +325,11 @@ class EvalHub:
             if self.save_im:
                 for name, img in outputs.items():
                     safe_image_save(img, os.path.join(self.out_loc, name), tag)
+            if self.collages:
+                caps = {n: f"PSNR {rows[tag].get(f'{n}>PSNR', 0):.2f}" for n in outputs}
+                interpret_sisr_images({"HR": hr, **outputs},
+                                      os.path.join(self.out_loc, f"{stem}_comparison.pdf"),
+                                      captions=caps)
         if self.face_recognizer is not None:
             self.face_recognition_calculations()
         table = MetricTable(rows)

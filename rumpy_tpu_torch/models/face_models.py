@@ -544,13 +544,14 @@ class FaceGANHandler(PairedGANHandler):
                 < GANFaceDiscriminator.keep_prob}
 
     def train_batch(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        """One step from the handler's draws. Under a data-parallel group
+        the draws are the global batch's (every rank's generator is the
+        same), as ``step_from_draws`` takes them."""
         self._use_params(state.params)
         batch = device_batch(batch, self.device)
-        if mesh_mod.active_mesh() is not None:
-            raise NotImplementedError(
-                "FaceGAN over a data-parallel group (its real/fake split permutes the "
-                "global batch) is item 10's next part")
-        losses = self.step_from_draws(state, batch, self.draws(batch["hr"].shape[0]))
+        mesh = mesh_mod.active_mesh()
+        n = batch["hr"].shape[0] * (1 if mesh is None else mesh.size)
+        losses = self.step_from_draws(state, batch, self.draws(n))
         return TrainState(step=int(state.step) + 1, params=state.params,
                           extra=state.extra), losses
 
@@ -558,28 +559,46 @@ class FaceGANHandler(PairedGANHandler):
         """One step with the caller's draws (see ``draws``): the
         discriminator's update on real (the first half of the permutation,
         rescaled to [-1, 1]) and fake images, then the generator's through
-        the updated discriminator in eval mode."""
+        the updated discriminator in eval mode.
+
+        Under a data-parallel group ``batch`` holds this rank's rows and
+        ``draws`` are the global batch's: the real half is taken from the
+        gathered batch, and each rank runs its share of the half, of the
+        fakes and of the generator's latents; BatchNorm's statistics are the
+        global half's, and gradients and losses the group's means. The group
+        must divide the half batch."""
         eps = self.eps
+        mesh = mesh_mod.active_mesh()
         y = batch["hr"].float()
-        half = max(1, y.shape[0] // 2)
-        real = (y[draws["perm"][:half]] * 2.0 - 1.0).permute(0, 3, 1, 2)
+        n = y.shape[0] * (1 if mesh is None else mesh.size)
+        half = max(1, n // 2)
+        draws = {k: torch.as_tensor(v, device=self.device) for k, v in draws.items()}
+        real = y if mesh is None else mesh_mod.all_gather_rows(y, mesh)
+        real = real[draws["perm"][:half]] * 2.0 - 1.0
+        if mesh is not None:
+            if half % mesh.size:
+                raise ValueError(f"FaceGAN's real half batch {half} (of {n}) does not divide "
+                                 f"over the {mesh.size} ranks of the data-parallel group")
+            halves = mesh_mod.Rows(mesh.rank * (half // mesh.size), half // mesh.size, half)
+            real = halves.take(real)
+            draws.update(halves.take({k: draws[k] for k in ("z_d", "keep_real", "keep_fake")}))
+            draws["z_g"] = mesh.rows(n // mesh.size).take(draws["z_g"])
+        real = real.permute(0, 3, 1, 2)
         d, g = self.discriminator, self.module.generator
         with torch.no_grad():
-            fakes = g(torch.as_tensor(draws["z_d"], device=self.device))
+            fakes = g(draws["z_d"])
         with torch.enable_grad():
-            pred_real = d(real, train=True, keep=torch.as_tensor(draws["keep_real"],
-                                                                  device=self.device))
-            pred_fake = d(fakes, train=True, keep=torch.as_tensor(draws["keep_fake"],
-                                                                  device=self.device))
+            pred_real = d(real, train=True, keep=draws["keep_real"])
+            pred_fake = d(fakes, train=True, keep=draws["keep_fake"])
             loss_real = -torch.log(pred_real + eps).mean()
             loss_fake = -torch.log(1.0 - pred_fake + eps).mean()
             optimizer_update(self.d_optimizer(), d.parameters(), loss_real + loss_fake)
             with frozen(d):
-                gen = g(torch.as_tensor(draws["z_g"], device=self.device))
+                gen = g(draws["z_g"])
                 g_loss = -torch.log(d(gen, train=False) + eps).mean()
                 optimizer_update(self.optimizer(), g.parameters(), g_loss,
                                  self.grad_clip, self.schedule(int(state.step)))
-        return {"train-loss": g_loss.detach(), "d-loss-real": loss_real.detach(),
-                "d-loss-fake": loss_fake.detach(),
-                "d-acc-real": (pred_real > 0.5).float().mean(),
-                "d-acc-fake": (pred_fake <= 0.5).float().mean()}
+        return mesh_mod.mean_losses({
+            "train-loss": g_loss, "d-loss-real": loss_real, "d-loss-fake": loss_fake,
+            "d-acc-real": (pred_real > 0.5).float().mean(),
+            "d-acc-fake": (pred_fake <= 0.5).float().mean()}, mesh)

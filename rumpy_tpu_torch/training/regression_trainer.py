@@ -5,7 +5,8 @@ contrastive encoders (MoCo / SupMoCo / WeakCon / SupCon) and the direct
 regressors (``models/regressors.py``) on degraded LR patches, with
 contrastive evaluation every
 ``eval_frequency`` epochs (embeddings, clustering scores, an embedding
-dump; no scatter plots: ROADMAP queue 1 item 10) and an optional warm start
+dump, a t-SNE scatter plot where matplotlib and scikit-learn are installed,
+and a UMAP one where ``umap`` is too) and an optional warm start
 from an earlier experiment or a packaged network.
 
 A dataset item holds ``crop_count`` = positives + 1 patches of one image,
@@ -24,6 +25,7 @@ an epoch.
 
 from __future__ import annotations
 
+import importlib.util
 import inspect
 import os
 import time
@@ -292,6 +294,21 @@ class RegressionTrainingHandler(TrainingHandler):
                   f"compute efficiency {out['compute_efficiency']:.1f}%")
         return out
 
+    def _scatter_plots(self, ce, embeddings, labels, epoch: int) -> None:
+        """``tsne_epoch_<epoch>.pdf``, and ``umap_epoch_<epoch>.pdf`` where
+        ``umap`` is installed, in the logs folder; a note instead where
+        matplotlib or scikit-learn is missing."""
+        methods = ["tsne"]
+        if importlib.util.find_spec("umap") is not None:
+            methods.append("umap")
+        for method in methods:
+            try:
+                ce.scatter_plot(embeddings, labels, os.path.join(
+                    self.model.logs_dir, f"{method}_epoch_{epoch}.pdf"), method=method)
+            except ImportError as e:
+                print(f"no {method} scatter plot: {e}")
+                return
+
     def eval(self, epoch: int) -> Dict[str, float]:
         """Contrastive evaluation: the eval set's embeddings and classes,
         their clustering scores as ``val-<score>``, and the embeddings
@@ -308,6 +325,7 @@ class RegressionTrainingHandler(TrainingHandler):
         if self.model.logs_dir and not self.model.no_directories and self.writes:
             ce.dump_embeddings(embeddings, labels, os.path.join(
                 self.model.logs_dir, f"encodings_epoch_{epoch}"))
+            self._scatter_plots(ce, embeddings, labels, epoch)
         if self.mesh is not None and self.mesh.size > 1:  # the same numbers on every rank
             keys = sorted(scores)
             values = torch.tensor([scores[k] for k in keys], dtype=torch.float64,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import re
 from typing import Any, Dict, Optional
@@ -152,12 +153,16 @@ def select_epoch(model_save_dir: str, which, summary_csv: Optional[str] = None,
                     f"{sorted(metric_best_val)}); pass fallback='last' "
                     f"to accept the latest checkpoint")
             metric = present[0]
-        values = [float(v) for v in cols[metric]]
+        # an empty cell is a missing value (NaN to pandas), never the best
+        values = [float(v) if v.strip() else math.nan for v in cols[metric]]
         epochs = ([int(float(e)) for e in cols["epoch"]] if "epoch" in cols
                   else list(range(len(values))))
         # rows of an aborted earlier run: the last row per epoch wins
         last_row = {e: i for i, e in enumerate(epochs)}
-        rows = sorted(last_row.values())
+        rows = [i for i in sorted(last_row.values()) if not math.isnan(values[i])]
+        if not rows:
+            raise ValueError(f"'best' epoch requested but {summary_csv} has no value "
+                             f"of {metric}")
         direction = metric_best_val.get(metric, "max")
         pick = max if direction == "max" else min
         idx = pick(rows, key=lambda i: values[i])  # first best, as idxmax

@@ -35,6 +35,8 @@ from rumpy_tpu.models.base import TrainState
 from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+from torch_parallel_worker import default_threads
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 NA = 8
 SGD = dict(optimizer_type="sgd", lr=1.0)
@@ -195,38 +197,39 @@ def test_pretrain_and_gan_steps_match_jax(name, monkeypatch):
     calls = []
     th.discriminator.register_forward_pre_hook(
         lambda m, a, k: calls.append(bool(k.get("train"))), with_kwargs=True)
-    for epoch in (0, 1):
-        th.module.load_state_dict(start)
-        th.load_optimizer_state(None)
-        th.set_epoch(epoch)
-        calls.clear()
-        if epoch == 0:
-            _, tl = th.train_batch(th._own_state(), tb)
-            assert calls == []
-        else:
-            th._own_state()
-            tl = th.step_from_draws(tb, draws)
-            assert sorted(calls) == [False, False, True, True]
-        wp, wl, wst = want[epoch]
-        assert set(tl) == set(wl)
-        for k, w in wl.items():
-            rel = F64_REL if f64 else LOSS_REL
-            assert abs(float(tl[k]) - w) <= rel * max(abs(w), 1e-12), (epoch, k)
-        got = jax_tree_from_state_dict(th.module.state_dict(), th.module)
-        assert max(np.abs(w - b).max() for w, b in zip(
-            jax.tree_util.tree_leaves(wp["generator"]),
-            jax.tree_util.tree_leaves(params["generator"]))) > 1e-6
-        for part in ("generator", "discriminator"):
-            _assert_step(got[part], wp[part], params[part], None if f64 else MOVE_REL[name])
-        if f64:
-            assert float(tl["gan-loss"]) > 0 if epoch else float(tl["gan-loss"]) == 0
-            got_stats = jax_tree_from_state_dict(th.module.state_dict(), th.module,
-                                                 "batch_stats")["generator"]
-            for g, w, b in zip(jax.tree_util.tree_leaves(got_stats),
-                               jax.tree_util.tree_leaves(wst),
-                               jax.tree_util.tree_leaves(stats["generator"])):
-                assert np.abs(g - w).max() <= F64_REL * np.abs(w).max()
-                assert not np.array_equal(w, b)
+    with default_threads():  # float32 steps: see default_threads
+        for epoch in (0, 1):
+            th.module.load_state_dict(start)
+            th.load_optimizer_state(None)
+            th.set_epoch(epoch)
+            calls.clear()
+            if epoch == 0:
+                _, tl = th.train_batch(th._own_state(), tb)
+                assert calls == []
+            else:
+                th._own_state()
+                tl = th.step_from_draws(tb, draws)
+                assert sorted(calls) == [False, False, True, True]
+            wp, wl, wst = want[epoch]
+            assert set(tl) == set(wl)
+            for k, w in wl.items():
+                rel = F64_REL if f64 else LOSS_REL
+                assert abs(float(tl[k]) - w) <= rel * max(abs(w), 1e-12), (epoch, k)
+            got = jax_tree_from_state_dict(th.module.state_dict(), th.module)
+            assert max(np.abs(w - b).max() for w, b in zip(
+                jax.tree_util.tree_leaves(wp["generator"]),
+                jax.tree_util.tree_leaves(params["generator"]))) > 1e-6
+            for part in ("generator", "discriminator"):
+                _assert_step(got[part], wp[part], params[part], None if f64 else MOVE_REL[name])
+            if f64:
+                assert float(tl["gan-loss"]) > 0 if epoch else float(tl["gan-loss"]) == 0
+                got_stats = jax_tree_from_state_dict(th.module.state_dict(), th.module,
+                                                     "batch_stats")["generator"]
+                for g, w, b in zip(jax.tree_util.tree_leaves(got_stats),
+                                   jax.tree_util.tree_leaves(wst),
+                                   jax.tree_util.tree_leaves(stats["generator"])):
+                    assert np.abs(g - w).max() <= F64_REL * np.abs(w).max()
+                    assert not np.array_equal(w, b)
 
 
 @pytest.mark.parametrize("name", ["facesrattributesgan", "agagan"])

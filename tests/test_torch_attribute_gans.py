@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from rumpy_tpu.models import face_attribute_gans as jfag
 from rumpy_tpu_torch.models import face_attribute_gans as tfag
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_REL, GRAD_REL = 1e-5, 2e-5
 NA = 8  # attributes at the narrow widths

@@ -33,6 +33,7 @@ from rumpy_tpu_torch.models.contrastive import DASREncoder
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 PACKAGED = "supmoco_fullchain_d256"
 BOBW = dict(scale=2, n_feats=16, n_resgroups=1, n_resblocks=2, reduction=4)

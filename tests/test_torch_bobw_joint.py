@@ -37,6 +37,7 @@ import torch
 from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 # SGD at lr 1: a parameter moves by its gradient. Adam's first step,
 # lr * g / (|g| + 1e-8), would move a parameter whose gradient rounding

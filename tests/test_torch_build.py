@@ -9,6 +9,7 @@ import threading
 import pytest
 
 from rumpy_tpu_torch.ops.cuda import build
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 
 @pytest.fixture

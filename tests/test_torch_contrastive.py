@@ -35,6 +35,7 @@ from rumpy_tpu_torch.models import contrastive_labelling as tcl
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 from rumpy_tpu_torch.utils.losses import supcon_loss
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 PACKAGED = "supmoco_fullchain_d256"
 SGD = dict(optimizer_type="sgd", lr=1.0)

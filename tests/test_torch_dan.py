@@ -34,6 +34,7 @@ from rumpy_tpu_torch.models import dan as tdan
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import (jax_tree_from_state_dict, model_constants_from_jax,
                                            state_dict_from_jax)
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_ATOL, F32_GRAD_REL, BF16_REL = 1e-5, 1e-4, 2.0 ** -6
 PARAM_ULPS = 2.0 ** -22

@@ -18,6 +18,7 @@ from rumpy_tpu.ops import entropy as jentropy
 from rumpy_tpu.ops.pallas.entropy_kernel import local_entropy_pallas
 from rumpy_tpu_torch.data import datasets as tdata
 from rumpy_tpu_torch.data import loader as tloader
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 SCALE = 2
 

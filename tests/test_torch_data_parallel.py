@@ -9,7 +9,10 @@ mesh to: EDSR, DAN v1 and ESRGAN's G + D step against ``shard_batch`` steps
 of the JAX handlers from the same weights (the port's seeded init carried
 over by the weight bridge); the BoBW joint step, MoCo and SupMoCo (their
 queues, pointers and label queue advance by the global batch) against the
-port's one-process step; flax-style BatchNorm's statistics, output and
+port's one-process step; FaceGAN's step (its real half drawn from the
+global batch's permutation) from the JAX step's draws against the JAX mesh
+and, in float64, against one process, and from its own draws against one
+process; flax-style BatchNorm's statistics, output and
 input gradient over the group against the global batch's in float64; the
 degradation chain's rows against the one-process chain, single- and
 multi-view; a checkpoint written by rank 0 and resumed by every rank; and
@@ -20,7 +23,10 @@ and returns the results); the tests then assert case by case. Tolerances:
 losses within 1e-5 of JAX's (1e-4 for ESRGAN's four, as in
 ``test_sharding.py``), parameters after an Adam step within 1e-5 absolute
 of JAX's; the port across ranks against the port in one process within
-1e-5 absolute (float32 sums in another order); BatchNorm in float64
+1e-5 absolute (float32 sums in another order); FaceGAN's losses within
+1e-5 of JAX's and each move within 1e-4 of its leaf's largest move (as
+``tests/test_torch_face_models.py`` holds the one-process step), its
+ranks within 1e-9 of one process in float64; BatchNorm in float64
 within 1e-9; the chain's draws and metadata bit for bit, its images within
 1e-6 (its float32 convolutions on fewer rows).
 """
@@ -34,13 +40,16 @@ import pytest
 import torch
 
 import torch_parallel_worker as worker
+from test_torch_face_models import _assert_moves, _dropout_keep
 from rumpy_tpu.models.base import TrainState
+from rumpy_tpu.models.base import build_optimizer as jax_optimizer
 from rumpy_tpu.parallel import mesh as jmesh
 from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.parallel import mesh as mesh_mod
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.checkpoint import checkpoint_path
-from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 WORLDS = (2, 4)
 F32_ATOL = 1e-5
@@ -61,6 +70,8 @@ BOBW = dict(scale=2, combined_loss_mode="moco", crop_count=2, contrastive_K=16,
             n_resblocks=1, **SGD)
 MOCO = dict(K=16, dim=32, **SGD)
 SUPMOCO = dict(K=16, dim=32, dropdown=8, positives_per_class=2, **SGD)
+FACEGAN = dict(latent_dim=8, nf=8, **SGD)
+FACEGAN_D_LR = 1e-2  # a discriminator moved at lr 1 calls every fake
 CHAIN = {"pipeline": [["realesrganblur", "b"], ["downsample", "d"],
                       ["realesrgannoise", "n"], ["jpegcompress", "j"]],
          "deg_configs": {"b": {"kernel_range": ["iso", "aniso", "generalized_iso",
@@ -113,6 +124,47 @@ def _jax_step(name, kw, module, sd, batch, epoch=None):
             jax.tree_util.tree_map(np.asarray, state.params))
 
 
+def _facegan(specs, jax_cases):
+    """FaceGAN's specs from the JAX handler's seeded init: a step with the
+    JAX step's draws (float32, and float64 for one process), one from the
+    handler's own draws, and a half batch of 2 that 4 ranks do not divide;
+    the JAX mesh step runs in the test process."""
+    jh = jax_model("facegan")(**FACEGAN)
+    jh.d_tx = jax_optimizer(FACEGAN_D_LR, "sgd")
+    js = jh.init_state()
+    th = torch_model("facegan")(device="cpu", **FACEGAN)
+    th.module.load_state_dict(state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, js.params), th.module,
+        batch_stats={"discriminator": jax.tree_util.tree_map(np.asarray,
+                                                             js.extra["d_bstats"])}))
+    sd = {k: v.detach().clone() for k, v in th.module.state_dict().items()}
+    n, half = 8, 4
+    hr = _batch(13, hr=(n, 80, 80, 3))
+    _, zk_d, zk_g, perm_k, drop1, drop2 = jax.random.split(js.rng, 6)
+    d_vars = {"params": js.params["discriminator"], "batch_stats": js.extra["d_bstats"]}
+    draws = {"perm": np.asarray(jax.random.permutation(perm_k, n)),
+             "z_d": np.asarray(jax.random.uniform(zk_d, (half, 8))),
+             "z_g": np.asarray(jax.random.uniform(zk_g, (n, 8))),
+             "keep_real": _dropout_keep(jh.discriminator, d_vars, drop1, (half, 80, 80, 3)),
+             "keep_fake": _dropout_keep(jh.discriminator, d_vars, drop2, (half, 80, 80, 3))}
+    base = dict(case="facegan", model="facegan", kwargs=FACEGAN, state_dict=sd,
+                d_lr=FACEGAN_D_LR, batch=hr)
+    specs["facegan"] = dict(base, draws=draws)
+    specs["facegan64"] = dict(base, draws=draws, float64=True)
+    specs["facegan_own"] = dict(base, kwargs=dict(FACEGAN, lr=1e-2), float64=True)
+    specs["facegan_split"] = dict(base, batch={"hr": hr["hr"][:4]})
+    jax_cases["facegan"] = (jh, js, hr, th.module)
+
+
+def _jax_facegan(jh, js, hr, module):
+    """The JAX FaceGAN step on the 8-device mesh: losses and params."""
+    mesh = jmesh.get_mesh(n_data=8)
+    state, losses = jh.train_batch(jmesh.replicate(mesh, jax.tree_util.tree_map(jnp.copy, js)),
+                                   jmesh.shard_batch(mesh, hr))
+    return ({k: float(v) for k, v in losses.items()},
+            jax.tree_util.tree_map(np.asarray, state.params), js.params)
+
+
 def _specs(tmp):
     """Every case's spec (the same for each world) and the JAX side's inputs."""
     specs, jax_cases = {}, {}
@@ -142,6 +194,7 @@ def _specs(tmp):
     specs["chain"] = dict(case="chain", hr=hr, views=1, seed=11, **CHAIN)
     specs["chain_views"] = dict(case="chain", hr=hr, views=2, seed=12, **CHAIN)
     specs["mesh_errors"] = dict(case="mesh_errors")
+    _facegan(specs, jax_cases)
     return specs, jax_cases
 
 
@@ -225,10 +278,12 @@ def runs(tmp_path_factory):
     by_size[1] = {k: dict(v, first_group=True) for k, v in by_size[1].items()}
     out = os.path.join(tmp, "ranks")
     ctx = worker.start_world(max(WORLDS), by_size, out)
-    jax_runs = {name: _jax_step(*args) for name, args in jax_cases.items()}
+    jax_runs = {name: (_jax_facegan if name == "facegan" else _jax_step)(*args)
+                for name, args in jax_cases.items()}
     ranks = worker.results(ctx, (1,) + WORLDS, out)
     return {"worlds": {w: ranks[w] for w in WORLDS}, "alone": ranks[1][0], "jax": jax_runs,
-            "modules": {name: args[2] for name, args in jax_cases.items()},
+            "modules": {name: args[-1] if name == "facegan" else args[2]
+                        for name, args in jax_cases.items()},
             "trainer_dirs": {"world2": os.path.join(tmp, "world2", "edsr_dp")}}
 
 
@@ -397,3 +452,55 @@ def test_mesh_refuses_a_partial_data_axis(runs):
     assert mesh_mod.local_batch_size(mesh, 32) == 4
     with pytest.raises(ValueError, match="not divisible by data-parallel size 8"):
         mesh_mod.local_batch_size(mesh, 12)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_facegan_step_matches_the_jax_mesh_step(runs, world):
+    """FaceGAN's step from the JAX step's draws on every rank: the losses
+    and accuracies against the JAX handler's step on the 8-device mesh from
+    the same weights and global batch, and every move of both networks."""
+    j_losses, j_params, j_before = runs["jax"]["facegan"]
+    module = runs["modules"]["facegan"]
+    before = jax.tree_util.tree_map(np.asarray, j_before)
+    for rank in runs["worlds"][world]:
+        got = rank["facegan"]
+        for k in ("train-loss", "d-loss-real", "d-loss-fake"):
+            assert abs(got["losses"][k] - j_losses[k]) <= F32_ATOL, (k, got["losses"][k],
+                                                                    j_losses[k])
+        for k in ("d-acc-real", "d-acc-fake"):
+            assert got["losses"][k] == j_losses[k], k
+        after = jax_tree_from_state_dict({k: torch.from_numpy(v)
+                                          for k, v in got["state"].items()}, module)
+        for part in ("discriminator", "generator"):
+            _assert_moves(after[part], before[part], j_params[part],
+                          # the strided convs' biases feed a train-mode BatchNorm
+                          zero_in_exact=lambda p: part == "discriminator" and "bias" in p
+                          and "TConv_0" not in p)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_facegan_ranks_hold_the_one_process_step(runs, world):
+    """Every rank's FaceGAN state, BatchNorm statistics included, and losses
+    as one process's on the global batch, in float64 within 1e-9: from the
+    given draws, and from the handler's own draws (the global batch's, the
+    same generator on every rank). In float32 its first-step gradients
+    (hundreds for the first conv's bias) carry rounding of the BatchNorm
+    sums' order to 1e-5 of a move."""
+    for name, tol in (("facegan64", F64_ATOL), ("facegan_own", F64_ATOL)):
+        want = runs["alone"][name]
+        for rank in runs["worlds"][world]:
+            got = rank[name]
+            _assert_state(got["state"], want["state"], atol=tol)
+            for k, v in want["losses"].items():
+                assert abs(got["losses"][k] - v) <= tol, (name, k, got["losses"][k], v)
+
+
+def test_facegan_refuses_a_half_batch_the_group_does_not_divide(runs):
+    """A global batch of 4 has a real half of 2: 2 ranks take one image
+    each, 4 ranks raise, as ``get_mesh`` refuses a batch the ranks do not
+    divide."""
+    for rank in runs["worlds"][2]:
+        assert "error" not in rank["facegan_split"]
+    for rank in runs["worlds"][4]:
+        assert "real half batch 2 (of 4) does not divide over the 4 ranks" in \
+            rank["facegan_split"]["error"]

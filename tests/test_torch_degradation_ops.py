@@ -24,6 +24,7 @@ from rumpy_tpu_torch.ops import blur_kernels as tbk
 from rumpy_tpu_torch.ops import color_aug as tcolor
 from rumpy_tpu_torch.ops import noise as tnoise
 from rumpy_tpu_torch.ops import special as tspecial
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 
 def _t(x):

@@ -37,6 +37,7 @@ from rumpy_tpu_torch.models import dic as tdic
 from rumpy_tpu_torch.models import face_attribute_gans as tfag
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_REL, F32_GRAD_REL, HEAT_ATOL = 2e-5, 1e-4, 1e-6
 PARAM_ULPS = 2.0 ** -22

@@ -17,6 +17,7 @@ from rumpy_tpu.ops import entropy as jentropy
 from rumpy_tpu.ops.pallas.entropy_kernel import local_entropy_pallas
 from rumpy_tpu_torch.ops import entropy as tentropy
 from rumpy_tpu_torch.ops.cuda import local_entropy as tkernel
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 
 def _pallas_best(gray, region=10, levels=64):

@@ -21,6 +21,7 @@ from rumpy_tpu_torch.ops import entropy as tentropy
 from rumpy_tpu_torch.ops.cuda import local_entropy as tkernel
 from rumpy_tpu_torch.ops.cuda import window_sum as twindow
 from rumpy_tpu_torch.utils.color import rgb_to_ycbcr
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 # chip_smoke.py's tolerance of the kernel against its plain version
 ENTROPY_ATOL = 1e-5

@@ -32,6 +32,7 @@ from rumpy_tpu_torch.evaluation.eval_hub import EvalHub, MetricTable
 from rumpy_tpu_torch.interface import SISRInterface
 from rumpy_tpu_torch.training.trainer import TrainingHandler
 from rumpy_tpu_torch.utils import checkpoint as ckpt
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 MODEL_PSNR, MODEL_SSIM = 1e-3, 1e-5
 BICUBIC_PSNR, BICUBIC_SSIM = 1e-5, 1e-6
@@ -288,7 +289,10 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
     to its npz reader (tests/test_torch_lpips.py scores with one). Face
     recognition, ported since, is held in tests/test_torch_face_tools.py.
     A train-mode resume of the JAX-written experiment, ported since, takes
-    its optax state (tests/test_torch_optax_resume.py holds it)."""
+    its optax state (tests/test_torch_optax_resume.py holds it). The
+    gallery, ported since, writes a comparison collage an image through
+    EvalHub and through ``--gallery`` (tests/test_torch_visualization.py
+    holds the collages against JAX's)."""
     model_loc, _ = experiment
     lr_dir, hr_dir = data
     if option == "resume_jax_optimizer":
@@ -337,6 +341,14 @@ def test_options_of_later_slices_raise(tmp_path, data, experiment, option):
     if option == "cli_lpips_weights":
         with pytest.raises(FileNotFoundError, match="absent.npz"):
             cases[option]()
+        return
+    if option in ("gallery", "cli_gallery"):
+        hub = cases[option]()
+        if option == "gallery":
+            hub.full_image_protocol()
+        stems = sorted(os.path.splitext(f)[0] for f in os.listdir(lr_dir))
+        assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".pdf")) == [
+            f"{stem}_comparison.pdf" for stem in stems]
         return
     with pytest.raises(NotImplementedError,
                        match="weights" if option == "LPIPS" else "item|later slice|not ported yet"):

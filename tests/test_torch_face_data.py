@@ -25,6 +25,7 @@ from rumpy_tpu.data import metadata as jmeta
 from rumpy_tpu_torch.data import datasets as tdata
 from rumpy_tpu_torch.data import loader as tloader
 from rumpy_tpu_torch.data import metadata as tmeta
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 CELEBA = ("5_o_Clock_Shadow Arched_Eyebrows Attractive Bags_Under_Eyes Bald Bangs Big_Lips "
           "Big_Nose Black_Hair Blond_Hair Blurry Brown_Hair Bushy_Eyebrows Chubby Double_Chin "

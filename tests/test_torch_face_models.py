@@ -43,6 +43,7 @@ from rumpy_tpu_torch.models import face_models as tfm
 from rumpy_tpu_torch.models.base import build_optimizer as torch_optimizer
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_ATOL, DEEP_ATOL, STAT_ATOL = 1e-5, 1e-4, 1e-5
 MOVE_REL, SPAR_MOVE_REL, F64_MOVE_REL, PARAM_ULPS = 1e-4, 1e-3, 1e-9, 2.0 ** -22

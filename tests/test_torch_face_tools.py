@@ -35,6 +35,7 @@ from rumpy_tpu_torch.utils import face_recognition as tfr
 from rumpy_tpu_torch.utils import face_segmentation as tseg
 from rumpy_tpu_torch.utils import face_tools as ttools
 from rumpy_tpu_torch.utils.metrics import Metrics
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 SCALE = 4
 

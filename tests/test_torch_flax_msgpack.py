@@ -20,6 +20,7 @@ from rumpy_tpu_torch.registry import get_model
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 from rumpy_tpu_torch.utils import flax_msgpack as fm
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGED = sorted(glob.glob(os.path.join(ROOT, "rumpy_tpu", "pretrained", "*",

@@ -36,6 +36,7 @@ from rumpy_tpu_torch.models import fssr as tfssr
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.lpips import ALEX_CFG
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_REL, F64_REL, FILTER_REL = 2e-5, 1e-9, 1e-6
 SGD = dict(optimizer_type="sgd", lr=1.0)

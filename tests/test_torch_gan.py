@@ -39,6 +39,7 @@ from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils import losses as tlosses
 from rumpy_tpu_torch.utils.weights import (jax_tree_from_state_dict, model_constants_from_jax,
                                            state_dict_from_jax)
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_REL, F32_GRAD_REL, STAT_TOL = 1e-5, 1e-4, 1e-6
 PARAM_ULPS = 2.0 ** -22

@@ -31,6 +31,7 @@ from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
 
 from test_torch_gan import (STEP_CASES, _assert_gan_step, _assert_losses, _assert_moves, _gan_batch,
                             _gan_kwargs, _gan_pair, _jnp, _nchw, _np, vgg_npz)
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 
 # -- the GAN handler ---------------------------------------------------------------

@@ -37,6 +37,7 @@ from rumpy_tpu_torch.cli import eval_sisr
 from rumpy_tpu_torch.evaluation.eval_hub import EvalHub
 from rumpy_tpu_torch.utils import lpips
 from rumpy_tpu_torch.utils.metrics import Metrics
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 REL = 1e-5
 MODEL_TOL = {"PSNR": 1e-3, "SSIM": 1e-5, "LPIPS": 1e-5}

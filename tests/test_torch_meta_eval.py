@@ -50,6 +50,7 @@ from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.training.trainer import TrainingHandler
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
 from test_torch_eval import assert_same_metrics
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLE = os.path.join(ROOT, "examples", "train_qrcan_meta_attention.toml")

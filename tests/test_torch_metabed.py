@@ -29,6 +29,8 @@ from rumpy_tpu_torch.models import attention_manipulators as tam
 from rumpy_tpu_torch.models import metabed as tmb
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import default_threads
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_REL, F32_GRAD_REL = 1e-5, 1e-4
 PARAM_ULPS = 2.0 ** -22
@@ -226,7 +228,8 @@ def test_metabedesrgan_steps_match_jax():
     jh.set_epoch(0)
     th.set_epoch(0)
     js2, jl = jh.train_batch(jax.tree_util.tree_map(jnp.copy, js), jb)
-    state2, tl = th.train_batch(state, batch)
+    with default_threads():  # a float32 step: see default_threads
+        state2, tl = th.train_batch(state, batch)
     _assert_losses(tl, jl)
     _assert_moves(th.module.generator,
                   {k[len("generator."):]: v for k, v in state2.params.items()
@@ -238,7 +241,8 @@ def test_metabedesrgan_steps_match_jax():
     jh.set_epoch(1)
     th.set_epoch(1)
     js3, jl = jh.train_batch(js2, jb)
-    state3, tl = th.train_batch(th._own_state(), batch)
+    with default_threads():
+        state3, tl = th.train_batch(th._own_state(), batch)
     _assert_losses(tl, jl)
     got = jax_tree_from_state_dict(state3.params, th.module, collection="batch_stats")
     for g, w in zip(jax.tree_util.tree_leaves(got["discriminator"]),

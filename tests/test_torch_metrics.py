@@ -9,6 +9,7 @@ import torch
 
 from rumpy_tpu.utils import metrics as jm
 from rumpy_tpu_torch.utils import metrics as tm
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 PSNR_TOL = 1e-5  # dB
 SSIM_TOL = 1e-6

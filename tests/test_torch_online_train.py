@@ -22,6 +22,7 @@ from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.training.trainer import TrainingHandler
 from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 RCAN_KW = dict(scale=4, n_feats=16, n_resgroups=2, n_resblocks=2, reduction=4)
 # no random draws: a fixed iso sigma 2 blur, x4 downsample, JPEG quality 60
@@ -49,7 +50,6 @@ def _input_fn(pipe):
 def test_deterministic_chain_trains_one_step_like_jax():
     """The same weights through the bridge and the same HR batch: the
     metadata matrices equal, the step's loss within 1e-4 relative."""
-    torch.set_num_threads(2)
     hr = np.random.default_rng(0).random((2, 32, 32, 3), dtype=np.float32)
     jpipe, tpipe = JaxPipeline(**DETERMINISTIC), ImagePipeline(**DETERMINISTIC)
     jlr, jmeta = jpipe.degrade_batch(jax.random.PRNGKey(0), jnp.asarray(hr))
@@ -182,7 +182,6 @@ def test_training_handler_runs_the_online_table(hr_images, tmp_path):
     """Two steps of batch 2 from HR-only .npy files through the bench
     chain; the requested metadata columns reach the batch; a bare
     boolean is refused."""
-    torch.set_num_threads(2)
     cfg = _config(tmp_path / "c.toml", hr_images["npy"], tmp_path / "out", BENCH_TABLE,
                   metadata=["sigma_x", "quality"])
     h = TrainingHandler(cfg, verbose=False, device="cpu")

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_optax_resume import MULTI, SMALL, _saved
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 # the handlers test_torch_optax_resume.py holds by value
 BY_VALUE = {"rcan"} | {name for name, *_ in MULTI.values()}

@@ -29,6 +29,7 @@ from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.models import base as tbase
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 RCAN_KW = dict(scale=2, n_feats=16, n_resgroups=1, n_resblocks=2, reduction=4, lr=1e-3)
 STEP_ATOL = 2e-6

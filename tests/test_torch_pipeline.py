@@ -17,6 +17,7 @@ from rumpy_tpu.degradations.pipeline import fused_degrade
 from rumpy_tpu_torch.degradations import pipeline as tpipeline
 from rumpy_tpu_torch.degradations.pipeline import ImagePipeline
 from rumpy_tpu_torch.registry import available_tools, get_tool
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 BENCH_CHAIN = dict(
     pipeline=[["realesrganblur", "b"], ["downsample", "d"],

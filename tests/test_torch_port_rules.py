@@ -8,6 +8,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rumpy_tpu")
@@ -1123,3 +1124,98 @@ def test_chip_smoke_drives_the_scale_out_phases():
     for phase in ("data_parallel_train", "bobw_joint_parallel", "spatial_forward",
                   "serving_mesh"):
         assert f'"phase": "{phase}"' in text, phase
+
+
+SLICE_23_MODULES = ("gui/__init__.py", "gui/server.py", "gui/png.py", "cli/curation.py",
+                    "utils/torch_convert.py")
+
+
+def _module_level_imports(path):
+    """The roots a module imports when it is imported: its top-level
+    statements, and those under a top-level ``try``, ``if`` or ``with``
+    (not inside a function or class)."""
+    stack = list(ast.parse(path.read_text()).body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from ((a.name.split(".")[0], node.lineno) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+        elif isinstance(node, (ast.Try, ast.If, ast.With)):
+            stack += [n for field in ("body", "orelse", "finalbody", "handlers")
+                      for n in getattr(node, field, [])]
+        elif isinstance(node, ast.ExceptHandler):
+            stack += node.body
+
+
+@pytest.mark.parametrize("module", SLICE_23_MODULES)
+def test_slice_23_modules_import_only_what_the_card_machine_has(module):
+    """The GUI server, its PNG codec, the curation CLIs and the torch
+    checkpoint converter import neither JAX nor the JAX package, and no
+    PIL, pandas, click, matplotlib or sklearn when they are imported (also
+    under a top-level try or if); the GUI's page is beside its server."""
+    path = ROOT / "rumpy_tpu_torch" / module
+    assert path in _port_files()
+    bad = [f"{module}:{line} imports {mod}" for mod, line in _imported_roots(path)
+           if mod in FORBIDDEN]
+    bad += [f"{module}:{line} imports {mod} at module level"
+            for mod, line in _module_level_imports(path)
+            if mod in ("PIL", "pandas", "click", "matplotlib", "sklearn", "umap")]
+    assert not bad, bad
+    assert (ROOT / "rumpy_tpu_torch" / "gui" / "index.html").is_file()
+
+
+def test_no_port_module_raises_for_item_10():
+    """Nothing of the port still says that it comes with item 10 or is not
+    ported yet: the gallery, the scatter plot and FaceGAN over a group
+    run."""
+    bad = []
+    for p in _port_files():
+        text = p.read_text()
+        for phrase in ("item 10", "not ported yet", "_LATER", "def _later"):
+            if phrase in text:
+                bad.append(f"{p.relative_to(ROOT)} holds {phrase!r}")
+    assert not bad, bad
+
+
+# JAX files whose port has another name or form
+PORT_NAMES = {"utils/lpips_jax.py": "utils/lpips.py"}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each .py file of the JAX package has a file of the same name and
+    place in the port; the Pallas kernels (``ops/pallas/*``) are the CUDA
+    sources of ``csrc/``, and ``lpips_jax.py`` is ``lpips.py``."""
+    jax_root, port_root = ROOT / "rumpy_tpu", ROOT / "rumpy_tpu_torch"
+    missing = []
+    for p in sorted(jax_root.rglob("*.py")):
+        rel = str(p.relative_to(jax_root))
+        if rel.startswith("ops/pallas/"):
+            continue
+        if not (port_root / PORT_NAMES.get(rel, rel)).is_file():
+            missing.append(rel)
+    assert not missing, missing
+    assert {p.name for p in (port_root / "csrc").glob("*.cu")} >= {
+        "rcab_fused.cu", "rcab_fused_bwd.cu", "local_entropy.cu"}
+    assert (port_root / "gui" / "index.html").is_file()
+
+
+def test_chip_smoke_drives_the_slice_23_phases():
+    """chip_smoke.py runs the tools phase from main() after the scale-out
+    phases and before the launch coverage, counts its RCAB launches into
+    the kernel line, and runs FaceGAN as a rank task of the scale-out
+    groups."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    body = ast.unparse(fns["main"])
+    assert body.index("scale_out_phases(") < body.index("tools_serving_phase(") \
+        < body.index("launch_coverage_phase(")
+    assert "tools['launches']['rcab_fused']" in body
+    text = (ROOT / "chip_smoke.py").read_text()
+    for phase in ("tools_serving", "facegan_parallel"):
+        assert f'"phase": "{phase}"' in text, phase
+    assert '"facegan": facegan_task' in text
+    tools = ast.unparse(fns["tools_serving_phase"])
+    for call in ("load_reference_checkpoint", "extract_best_model", "model_report",
+                 "clean_models", "make_server", "scatter_plot", "gallery=True"):
+        assert call in tools, call

@@ -24,6 +24,7 @@ from rumpy_tpu.models import attention_manipulators as jam
 from rumpy_tpu_torch.models import attention_manipulators as tam
 from rumpy_tpu_torch.ops.cuda import rcab_fused as rcab
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 C, R = 16, 4
 SHAPE = (2, 9, 11, C)

@@ -15,6 +15,7 @@ from rumpy_tpu.ops.pallas import rcab_fused as jrcab
 from rumpy_tpu_torch.models import common as tcommon
 from rumpy_tpu_torch.ops.cuda import rcab_fused as trcab
 from rumpy_tpu_torch.utils.weights import _convs, _lookup
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 SHAPE = (2, 12, 16, 64)
 R = 16

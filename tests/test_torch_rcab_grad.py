@@ -15,6 +15,7 @@ import torch
 from rumpy_tpu.ops.pallas import rcab_fused as jrcab
 from rumpy_tpu_torch.models import common as tcommon
 from rumpy_tpu_torch.ops.cuda import rcab_fused as trcab
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 NAMES = ["x", "w1", "b1", "w2", "b2", "wd", "bd", "wu", "bu"]
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from rumpy_tpu.ops.pallas import rcab_fused as jrcab
 from rumpy_tpu_torch.ops.cuda import rcab_fused as trcab
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 # Units the tensor-core plan may pick (2*MU rows x 8 columns, MU in
 # {1, 2, 4}) and the CUDA-core plan's block tiles.

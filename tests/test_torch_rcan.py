@@ -13,6 +13,7 @@ from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.models.base import TrainState
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 # 11 blocks a group, so the bridge must tell RCAB_10 from RCAB_2
 RCAN_KW = dict(n_feats=64, n_resgroups=2, n_resblocks=11)
@@ -60,7 +61,6 @@ def _compare(name, scale, kw, atol=1e-4):
 
 @pytest.mark.parametrize("scale", [2, 3, 4])
 def test_rcan_matches_jax(scale):
-    torch.set_num_threads(2)
     _compare("rcan", scale, RCAN_KW)
 
 

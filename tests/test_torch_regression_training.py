@@ -21,6 +21,7 @@ from rumpy_tpu.data.metadata import read_augmentation_list as jax_read
 from rumpy_tpu_torch.config.loader import dump_toml, load_config
 from rumpy_tpu_torch.data.metadata import read_augmentation_list, select_metadata
 from rumpy_tpu_torch.training.regression_trainer import RegressionTrainingHandler
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -47,6 +47,7 @@ from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.models import regressors as treg
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_ATOL, HELPER_ATOL = 2e-5, 1e-6
 F64_REL, F64_STAT = 1e-8, 1e-12

@@ -16,6 +16,7 @@ from rumpy_tpu.utils.color import rgb_to_ycbcr as jrgb_to_ycbcr
 from rumpy_tpu.utils.color import ycbcr_to_rgb as jycbcr_to_rgb
 from rumpy_tpu_torch.ops import jpeg as tjpeg
 from rumpy_tpu_torch.ops import resize as tresize
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 PIL_FILTERS = {"bicubic": Image.BICUBIC, "bilinear": Image.BILINEAR,
                "lanczos": Image.LANCZOS, "box": Image.BOX, "hamming": Image.HAMMING}

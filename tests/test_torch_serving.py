@@ -16,6 +16,7 @@ from rumpy_tpu_torch.serving import BatchedPredictor, plan_batches
 from rumpy_tpu_torch.utils import checkpoint as ckpt
 from rumpy_tpu_torch.utils import color as tcolor
 from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 CONFIG = {"name": "rcan",
           "internal_params": {"scale": 2, "n_feats": 16, "n_resgroups": 1,

@@ -41,6 +41,7 @@ from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu.serving import BatchedPredictor as JaxPredictor
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 WORLDS = (2, 4)
 JAX_ATOL = 2e-5

@@ -32,6 +32,7 @@ from rumpy_tpu_torch.models import common as tcommon
 from rumpy_tpu_torch.models import swinir as tswin
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_ATOL, BF16_ATOL, LOSS_REL = 2e-5, 5e-2, 1e-6
 ADAM_LR, ADAM_REL, MOVE_REL, PARAM_ULPS = 1e-3, 1e-3, 1e-4, 2.0 ** -22

@@ -43,6 +43,7 @@ from rumpy_tpu_torch.registry import get_tool
 from rumpy_tpu_torch.utils.csv_text import write_table
 from test_torch_degradation_ops import _jax_draws
 from test_torch_pipeline import _jax_srmd_draws
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 SHAPES = [(40, 52), (37, 45), (48, 48)]
 CODECS = {"pipeline": [["jpegcompress", "q"], ["jmcompress", "j"], ["randomcompress", "r"]],

@@ -15,6 +15,7 @@ from rumpy_tpu_torch.models.base import TrainState
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import (jax_tree_from_state_dict,
                                            state_dict_from_jax)
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 RCAN_KW = dict(scale=2, n_feats=16, n_resgroups=2, n_resblocks=2, reduction=4)
 
@@ -124,7 +125,6 @@ TRAJECTORIES = {
 def test_trajectory_matches_jax(name):
     """25 steps on fixed batches from the same weights: per-step loss
     within 1e-5, final parameters leaf for leaf within 1e-4."""
-    torch.set_num_threads(2)
     steps = 25
     jh, js, th, ts = _handlers(**TRAJECTORIES[name])
     xs, ys = _batches(steps)

@@ -25,6 +25,7 @@ from rumpy_tpu_torch.ops.cuda import rcab_fused as rcab_ops
 from rumpy_tpu_torch.training.trainer import TrainingHandler
 from rumpy_tpu_torch.utils import stats as tstats
 from rumpy_tpu_torch.utils.weights import state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 
 def _pallas_best(gray, region=10, levels=64):
@@ -77,7 +78,6 @@ def _summary(handler):
 
 def test_two_epochs_match_jax(monkeypatch, tmp_path, dataset):
     monkeypatch.setattr(jentropy, "local_entropy_best", _pallas_best)
-    torch.set_num_threads(2)
     jh = JaxTrainingHandler(
         jax_load_config(_write_config(tmp_path / "j.toml", dataset, tmp_path / "jax")),
         use_mesh=False, verbose=False)

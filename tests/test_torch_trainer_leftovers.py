@@ -35,6 +35,7 @@ from rumpy_tpu_torch.utils import flax_msgpack
 from rumpy_tpu_torch.utils import stats as tstats
 from rumpy_tpu_torch.utils.checkpoint import load_checkpoint
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 LR = 1e-3
 EXP = "rcan_resume"

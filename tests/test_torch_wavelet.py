@@ -39,6 +39,7 @@ from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.models import wavelet as tw
 from rumpy_tpu_torch.registry import get_model as torch_model
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
+from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
 F32_REL, F64_REL, EXACT_REL = 2e-5, 1e-9, 1e-6
 NET = dict(scale=4, num_layers_res=1, wavelet_c=2)

@@ -1,14 +1,60 @@
-"""Rank processes for the port's data-parallel tests: a gloo group on the
+"""Processes of the port's tests.
+
+Rank processes for the port's data-parallel tests: a gloo group on the
 CPU, spawned once a world, runs every case it is handed and writes its
 results for the test process to hold against the JAX mesh and against the
-port in one process. Imports torch and the port only (the ranks
-start from ``spawn``: no JAX in them)."""
+port in one process. Imports torch and the port only (the ranks start
+from ``spawn``: no JAX in them).
 
+``single_threaded``: the fixture every ``tests/test_torch_*.py`` file
+imports. The tests run in several worker processes at once (and two files
+start four rank processes beside them); torch's OpenMP pool and numpy's
+BLAS, left at their default, each spin as many threads as the machine has
+cores in every one of them. A file's tests run both on one thread;
+``default_threads`` gives a block torch's default count back.
+"""
+
+import contextlib
 import os
 import sys
 import time
 
+import pytest
 import torch
+
+from rumpy_tpu_torch.utils.precision import float64, float_as_double
+
+
+# torch's intra-op thread count when this module is imported: its default
+DEFAULT_THREADS = torch.get_num_threads()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def single_threaded():
+    """torch's intra-op pool and every native thread pool threadpoolctl
+    finds (OpenMP, BLAS) on one thread for the importing file's tests;
+    torch's count before is restored after them."""
+    from threadpoolctl import threadpool_limits
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(before)
+
+
+@contextlib.contextmanager
+def default_threads():
+    """torch at its default intra-op thread count inside the block: for the
+    float32 steps whose tolerance against JAX holds at the summation order
+    of torch's threaded reductions (on one thread, a bias gradient summed
+    over 32,768 terms in order stands up to twice that tolerance off)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 CASES = {}
 
@@ -35,28 +81,6 @@ def _handler(spec):
             h.module.load_state_dict(spec["state_dict"])
         state = h._own_state()
     return h, state
-
-
-class float64:
-    """A handler in float64 inside the block: its modules widened and every
-    ``Tensor.float()`` (BatchNorm's and the losses' float32) made float64,
-    as the earlier slices hold BatchNorm over a few values a channel."""
-
-    def __init__(self, h):
-        self.h = h
-
-    def __enter__(self):
-        self.real = torch.Tensor.float
-        torch.Tensor.float = torch.Tensor.double
-        self.h.module.double()
-        for m in self.h.module.modules():
-            if hasattr(m, "dtype"):
-                m.dtype = torch.float64
-        self.h._optimizer = None
-        return self.h._own_state()
-
-    def __exit__(self, *exc):
-        torch.Tensor.float = self.real
 
 
 def handler_steps(spec, mesh):
@@ -92,6 +116,36 @@ def steps(spec, mesh):
 
 
 @case
+def facegan(spec, mesh):
+    """FaceGAN on this rank's rows of the global batch: with ``draws`` one
+    ``step_from_draws`` of those global draws, else ``train_batch`` from the
+    handler's own draws (SGD for both networks, the discriminator at
+    ``d_lr``; in float64 where ``spec["float64"]``, its own draws too).
+    Returns the losses and the state dict, or the error a step raised."""
+    import contextlib
+
+    from rumpy_tpu_torch.models.base import build_optimizer
+    from rumpy_tpu_torch.parallel import mesh as mesh_mod
+    h, state = _handler(spec)
+    batch = spec["batch"] if mesh is None else mesh_mod.shard_batch(mesh, spec["batch"])
+    with (float64(h) if spec.get("float64") else contextlib.nullcontext(state)) as state:
+        h._d_optimizer = build_optimizer(h.discriminator.parameters(), spec["d_lr"], "sgd")
+        dtype = torch.get_default_dtype()  # the handler's draws'
+        hr = torch.from_numpy(batch["hr"]).to(dtype)
+        try:
+            if spec.get("draws") is None:
+                _, lo = h.train_batch(state, {"hr": hr})
+            else:
+                lo = h.step_from_draws(state, {"hr": hr}, {
+                    k: torch.from_numpy(v).to(dtype) if v.dtype.kind == "f"
+                    else torch.from_numpy(v) for k, v in spec["draws"].items()})
+        except ValueError as e:
+            return {"error": str(e)}
+    return {"losses": {k: float(v) for k, v in lo.items()},
+            "state": {k: _np(v) for k, v in h.module.state_dict().items()}}
+
+
+@case
 def batchnorm(spec, mesh):
     """A flax-style BatchNorm in train mode in float64 (its float32
     statistics widened) on this rank's rows: output, input gradient of
@@ -101,15 +155,11 @@ def batchnorm(spec, mesh):
     batch = {"x": spec["x"], "g": spec["g"]}
     if mesh is not None:
         batch = mesh_mod.shard_batch(mesh, batch)
-    real_float = torch.Tensor.float
-    torch.Tensor.float = torch.Tensor.double
-    try:
+    with float_as_double():
         bn = BatchNorm(spec["x"].shape[1], dtype=torch.float64).double()
         x = torch.from_numpy(batch["x"]).requires_grad_(True)
         y = bn(x, train=True)
         (y * torch.from_numpy(batch["g"])).sum().backward()
-    finally:
-        torch.Tensor.float = real_float
     return {"y": _np(y), "dx": _np(x.grad), "mean": _np(bn.running_mean),
             "var": _np(bn.running_var)}
 
