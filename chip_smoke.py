@@ -62,8 +62,10 @@ seeded random weights):
   train shape and at 1x339x510, within twice the plain version's error
   (``rcab_bwd_f32_sums``);
 * iterative blind SR: examples/train_dan_qrcan_blind.toml (DAN v1QRCAN:
-  QRCAN 10x20x64 float32 on the f32 per-image RCAB kernels, 4 x 200
-  forward and 200 backward launches a step at loop 4), its chain
+  QRCAN 10x20x64 float32 on the f32 per-image RCAB kernels, 3xTF32 on the
+  tensor cores, 4 x 200 forward and 200 backward launches a step at loop
+  4, none of their passes on the CUDA cores, their share of the step's
+  busy time), its chain
   corrected to the PCA kernel code, through cli.train_sisr with
   validation and cli.eval_sisr, then steps of DAN v1 and DANv2
   (``dan_train``); IKC through its SFTMD pretrain epoch and an IKC epoch
@@ -182,7 +184,9 @@ levels and the window-sum kernel the plain pooled map, both bit for bit,
 that entropy picks on the card are the CPU's (or near ties), that one
 item's entropy path is at most 4 launches with at most 16 bytes copied to
 the host, that a bf16 train step runs no backward pass on the CUDA cores
-and no separate gate pass, that two runs of a forward or backward give the
+and no separate gate pass, that the float32 plans at C = 64 run on the
+tensor cores (3xTF32) and beat their plain versions at DAN v1QRCAN's
+shapes in both directions, that two runs of a forward or backward give the
 same bits, that the forward's tensor-core conv passes launch a block on
 every SM at the main-path shapes, that outputs and losses are finite, that
 a fixed batch's loss went down, and that the kernel path agrees with the
@@ -238,6 +242,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet) at 700 W.
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The RCAB kernels' products at their type's accuracy: float32-accurate
+# products run at the better of the CUDA cores' f32 rate and 3xTF32 on the
+# tensor cores (three TF32 products for one f32 product: 495 / 3 TFLOP/s),
+# the float32 plan's own route.
+PEAK_PRODUCTS = {torch.bfloat16: 989e12, torch.float32: max(67e12, 495e12 / 3)}
 PEAK_BYTES = 3.35e12
 CLOCK_HZ = 1.98e9  # H100 SXM boost clock: sleep cycles to seconds
 
@@ -300,9 +309,14 @@ BWD_BF16_REL = 2.0 ** -6
 # and C=24, which stays on the CUDA cores in bf16 too.
 BWD_EXTRA_SHAPES = [(2, 45, 51, 64), (1, 40, 33, 128), (1, 30, 41, 32), (2, 37, 24, 16),
                     (1, 33, 45, 24)]
-# Channel counts that the kernels run on the tensor cores in bf16. There the
-# backward must beat its plain version (cuDNN in full f32) at every shape held.
+# Channel counts that the kernels run on the tensor cores (bf16 on bf16
+# mma.sync, float32 in 3xTF32). There a bf16 backward must beat its plain
+# version (cuDNN in full f32) at every shape held, and a float32 forward and
+# backward at DAN_F32_SHAPES.
 MMA_WIDTHS = (16, 32, 64, 128)
+# DAN v1QRCAN's float32 RCAB shapes: its train step's and its evaluation
+# path's (its QRCAN is float32 at 64 channels).
+DAN_F32_SHAPES = [TRAIN_SHAPE, *EVAL_SHAPES]
 # One f32 train step of full RCAN x4, parameter gradients of the kernel
 # path against the plain path, relative to each gradient's largest entry:
 # 200 blocks of f32 rounding differences in either direction.
@@ -373,7 +387,7 @@ def rcab_bound_ms(shape, dtype):
     ops = 2 * (2 * n * h * w * c * c * 9)
     elt = torch.finfo(dtype).bits // 8
     nbytes = 2 * n * h * w * c * elt + 2 * 9 * c * c * elt
-    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops / PEAK_PRODUCTS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -399,20 +413,37 @@ def library_conv_ms(shape, dtype=torch.bfloat16):
     return cuda_ms(lambda: torch.nn.functional.conv2d(inp, weight, padding=1), 20)
 
 
+def f32_faster(row, shape, dtype, ms, plain_ms, what):
+    """Marks in ``row`` whether a float32 tensor-core launch (``what``:
+    forward or backward) at one of DAN_F32_SHAPES is faster than its plain
+    version (cuDNN in full f32); f32_slower_fails raises on it."""
+    if dtype == torch.float32 and tuple(shape) in DAN_F32_SHAPES and row["mma"]:
+        row[f"{what}_faster_than_plain"] = ms < plain_ms
+
+
+def f32_slower_fails(row):
+    for what in ("forward", "backward"):
+        if row.get(f"{what}_faster_than_plain") is False:
+            raise AssertionError(f"rcab {what} in 3xTF32 is no faster than its plain version "
+                                 f"at {row['shape']}: {row}")
+
+
 def kernel_phase(rcab):
     """Every main-path shape and the extras, f32 and bf16, res_scale 1 and
     0.5, each with the kernel's launch plan and two runs compared bit for
     bit (output and workspace: h2, tile sums, gate). At the train shape and
     the largest request's bucket, each pass's device time and the library's
-    conv beside it. Fails where a bf16 tensor-core plan at a main-path or
-    train shape launches fewer conv blocks than the card has SMs. Returns
-    the bf16 row of the largest request's bucket (the kernels line's
-    numbers), the bf16 row at the train shape, the bf16 rows at the eval
-    path's shapes (each with the library's conv beside it) and the largest
-    bf16 error at any shape."""
+    conv beside it (at DAN_F32_SHAPES in float32 too). Fails where a
+    tensor-core plan at a main-path or train shape launches fewer conv
+    blocks than the card has SMs, or a float32 one at DAN_F32_SHAPES is no
+    faster than its plain version. Returns the bf16 row of the largest
+    request's bucket (the kernels line's numbers), the bf16 row at the train
+    shape, the bf16 rows at the eval path's shapes (each with the library's
+    conv beside it), the float32 rows at DAN_F32_SHAPES and the largest bf16
+    error at any shape."""
     main_shapes = main_path_shapes()
     main_shape = max(main_shapes, key=lambda s: s[1] * s[2])
-    rows, main, train, evals = [], None, None, []
+    rows, main, train, evals, dan = [], None, None, [], []
     for i, shape in enumerate(dict.fromkeys(main_shapes + EXTRA_SHAPES)):
         for dtype in (torch.float32, torch.bfloat16):
             args = rcab_inputs(shape, dtype, seed=i)
@@ -428,6 +459,7 @@ def kernel_phase(rcab):
                        "res_scale": res_scale, "max_abs_err": err, "tol": tol}
                 if res_scale == 1.0:
                     row["plan"] = plan = rcab.plan(shape, dtype)
+                    row["mma"] = bool(plan["tensor_cores"])
                     runs = [rcab._forward(*args, None, res_scale)[:2] for _ in range(2)]
                     row["bit_identical_runs"] = all(
                         torch.equal(a, b) for a, b in zip(*runs))
@@ -447,7 +479,12 @@ def kernel_phase(rcab):
                     if shape in EVAL_SHAPES and dtype == torch.bfloat16:
                         row["eval_path"] = True
                         row["library_conv_ms"] = library_conv_ms(shape)
+                    if shape in DAN_F32_SHAPES and dtype == torch.float32:
+                        row["library_conv_ms"] = library_conv_ms(shape, dtype)
+                        f32_faster(row, shape, dtype, row["ms"], row["plain_ms"], "forward")
+                        dan.append(row)
                 print(json.dumps({"phase": "kernel", **row}), flush=True)
+                f32_slower_fails(row)
                 if not err <= tol:
                     raise AssertionError(f"rcab_fused disagrees with rcab_reference: {row}")
                 if not row.get("bit_identical_runs", True):
@@ -465,7 +502,8 @@ def kernel_phase(rcab):
                         train = row
                     if shape in EVAL_SHAPES:
                         evals.append(row)
-    return main, train, evals, max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+    return main, train, evals, dan, max(r["max_abs_err"] for r in rows
+                                        if r["dtype"] == "bfloat16")
 
 
 # Every RCAB kernel launch of the run by direction and launch_key, and the
@@ -563,7 +601,8 @@ FAMILIES = ("rcab_conv1_mma", "rcab_conv2_mma", "rcab_conv_kernel", "rcab_apply"
             "rcab_bwd_wgrad_mma", "rcab_bwd_dh1_mma", "rcab_bwd_dx_mma",
             "rcab_bwd_wgrad", "rcab_bwd_dh1", "rcab_bwd_dx", "rcab_bwd",
             "local_entropy", "window_sum")
-# The backward's CUDA-core passes: a bf16 step at C=64 must launch none.
+# The backward's CUDA-core passes: a bf16 or float32 step at C=64 must
+# launch none.
 CUDA_CORE_BWD = ("rcab_bwd_wgrad", "rcab_bwd_dh1", "rcab_bwd_dx")
 
 
@@ -575,11 +614,22 @@ def kernel_name(traced_name: str) -> str:
     return m.group(1) if m else traced_name
 
 
+def union_us(events):
+    """The time covered by the union of the events' intervals."""
+    busy, end = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        start, stop = max(e["ts"], end), e["ts"] + e["dur"]
+        if stop > start:
+            busy += stop - start
+        end = max(end, stop)
+    return busy
+
+
 def traced(fn, name: str, repeats: int, by_kernel: bool = False):
     """torch.profiler over ``repeats`` calls of ``fn``: device time by
     kernel family per call (with ``by_kernel``, by each kernel's own name
-    too), and the share of the traced span the card sat idle. The Chrome
-    trace goes to build/<name>.json."""
+    too), the time the RCAB kernels cover, and the share of the traced span
+    the card sat idle. The Chrome trace goes to build/<name>.json."""
     from torch.profiler import ProfilerActivity, profile
     path = os.path.join(ROOT, "build", f"{name}.json")
     # A session now and then records no device event at all, right after
@@ -610,16 +660,12 @@ def traced(fn, name: str, repeats: int, by_kernel: bool = False):
     # busy: the union of the kernels' intervals. A programmatic dependent
     # launch starts before the kernel ahead of it ends, so the families'
     # sums above count that overlap twice.
-    busy, end = 0.0, float("-inf")
-    for e in sorted(events, key=lambda e: e["ts"]):
-        start, stop = max(e["ts"], end), e["ts"] + e["dur"]
-        if stop > start:
-            busy += stop - start
-        end = max(end, stop)
+    busy = union_us(events)
     span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
     return {"per_call_device_us": by_family, "per_call_kernels_by_family": counts,
             **({"per_call_device_us_by_kernel": by_name} if by_kernel else {}),
             "kernels_per_call": len(events) / repeats, "busy_us": busy,
+            "rcab_busy_us": union_us([e for e in events if "rcab_" in e["name"]]),
             "span_us": span, "idle_share": 1 - busy / span}
 
 
@@ -887,18 +933,19 @@ def rcab_bwd_bound_ms(shape, dtype):
     ops = 5 * 2 * n * h * w * c * c * 9
     elt = torch.finfo(dtype).bits // 8
     nbytes = 3 * n * h * w * c * elt + n * h * w * c * 4 + 4 * 9 * c * c * 4
-    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops / PEAK_PRODUCTS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def library_conv_backward_ms(shape):
+def library_conv_backward_ms(shape, dtype=torch.bfloat16):
     """Two yardsticks the port never calls: one ``convolution_backward`` of a
-    3x3 conv on bf16 channels_last tensors of RCAB's shape, for the weight
-    gradient alone and for the input gradient alone. The backward kernel
-    computes two of each, and conv1 again."""
+    3x3 conv on channels_last tensors of RCAB's shape and type (float32 as
+    the run sets TF32: off), for the weight gradient alone and for the
+    input gradient alone. The backward kernel computes two of each, and
+    conv1 again."""
     n, h, w, c = shape
     g = torch.Generator().manual_seed(300)
-    t = lambda *s: torch.randn(*s, generator=g).cuda().to(torch.bfloat16).contiguous(
+    t = lambda *s: torch.randn(*s, generator=g).cuda().to(dtype).contiguous(
         memory_format=torch.channels_last)
     grad_out, inp, weight = t(n, c, h, w), t(n, c, h, w), t(c, c, 3, 3)
 
@@ -913,12 +960,15 @@ def library_conv_backward_ms(shape):
 def rcab_bwd_phase(rcab):
     """The backward kernel against autograd of the plain version: all nine
     gradients at the train step's shape, the serving shapes and
-    BWD_EXTRA_SHAPES, f32 and bf16, res_scale 1 and 0.5, and two runs of one
-    backward bit for bit; fails too where a bf16 backward on the tensor
-    cores is not faster than its plain version. Returns the bf16 row at the
-    train shape, which also holds the device time of each pass and the
-    library's yardsticks."""
-    main = None
+    BWD_EXTRA_SHAPES, f32 and bf16, res_scale 1 and 0.5 (the plain version
+    with the kernel's ReLU mask where the two masks differ at ReLU ties
+    only, as qrcab_check takes it), and two runs of one backward bit for
+    bit, each row with the backward's plan; fails too where
+    a bf16 backward on the tensor cores is not faster than its plain
+    version, or a float32 one at DAN_F32_SHAPES. Returns the bf16 and the
+    f32 rows at the train shape, which also hold the device time of each
+    pass and the library's yardsticks."""
+    main = f32_main = None
     shapes = [TRAIN_SHAPE] + main_path_shapes() + BWD_EXTRA_SHAPES
     for i, shape in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
@@ -937,21 +987,37 @@ def rcab_bwd_phase(rcab):
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):
                     raise AssertionError(f"rcab backward: two runs differ at {shape} {dtype}")
                 ref = rcab.rcab_backward_reference(dout, *args, res_scale=res_scale)
-                errs, worst = {}, 0.0
-                for name, a, b in zip(GRAD_NAMES, got, ref):
-                    scale = b.float().abs().max().item()
-                    err = (a.float() - b.float()).abs().max().item()
-                    errs[name] = {"max_abs_err": err, "ref_abs_max": scale}
-                    worst = max(worst, err / max(scale, 1e-30))
-                    if a.dtype != b.dtype or a.shape != b.shape or not err <= rel_tol * scale:
-                        raise AssertionError(
-                            f"rcab backward: {name} disagrees at {shape} {dtype} "
-                            f"res_scale {res_scale}: {errs[name]}, rel tol {rel_tol}")
+
+                def compare(ref):
+                    errs = {name: {"max_abs_err": (a.float() - b.float()).abs().max().item(),
+                                   "ref_abs_max": b.float().abs().max().item()}
+                            for name, a, b in zip(GRAD_NAMES, got, ref)}
+                    bad = [n for (n, e), a, b in zip(errs.items(), got, ref)
+                           if a.dtype != b.dtype or a.shape != b.shape
+                           or not e["max_abs_err"] <= rel_tol * e["ref_abs_max"]]
+                    return errs, bad
+
+                errs, bad = compare(ref)
+                ties = None
+                if bad:  # the plain version with the kernel's mask where they differ at ties
+                    masked, ties = tie_masked_reference(rcab, args, None, res_scale, dout)
+                    ties["first_errors"] = errs
+                    if masked is not None:
+                        errs, bad = compare(masked)
+                if bad:
+                    raise AssertionError(
+                        f"rcab backward: {bad} disagree at {shape} {dtype} res_scale "
+                        f"{res_scale}: {errs}, rel tol {rel_tol}, ReLU ties {ties}")
+                worst = max(e["max_abs_err"] / max(e["ref_abs_max"], 1e-30)
+                            for e in errs.values())
                 row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
                        "res_scale": res_scale, "worst_rel_err": worst, "rel_tol": rel_tol,
                        "bit_identical_runs": True,
-                       "max_abs_err": errs["dx"]["max_abs_err"], "grads": errs}
+                       "max_abs_err": errs["dx"]["max_abs_err"], "grads": errs,
+                       **({"relu_ties_kernel_vs_plain": ties} if ties else {})}
                 if res_scale == 1.0:
+                    row["plan"] = rcab.backward_plan(shape, dtype)
+                    row["mma"] = bool(row["plan"]["tensor_cores"])
                     ref_out = rcab.rcab_reference(*args)
                     backward = lambda: torch.autograd.grad(out, args, dout, retain_graph=True)
                     row["ms"] = cuda_ms(backward, 10)
@@ -962,18 +1028,23 @@ def rcab_bwd_phase(rcab):
                         row["pass_device_us"] = traced(
                             backward, f"rcab_backward_trace_{row['dtype']}", 5,
                             by_kernel=True)["per_call_device_us_by_kernel"]
-                    if shape == TRAIN_SHAPE and dtype == torch.bfloat16:
-                        row.update(library_conv_backward_ms(shape))
-                        main = row
+                    if shape == TRAIN_SHAPE:
+                        row.update(library_conv_backward_ms(shape, dtype))
+                        if dtype == torch.bfloat16:
+                            main = row
+                        else:
+                            f32_main = row
                     row["faster_than_plain"] = row["ms"] < row["plain_ms"]
+                    f32_faster(row, shape, dtype, row["ms"], row["plain_ms"], "backward")
                 print(json.dumps({"phase": "rcab_backward_kernel", **row}), flush=True)
+                f32_slower_fails(row)
                 if (dtype == torch.bfloat16 and shape[3] in MMA_WIDTHS
                         and not row.get("faster_than_plain", True)):
                     raise AssertionError(
                         f"rcab backward on the tensor cores is no faster than its plain "
                         f"version at {shape}: {row['ms']} ms against {row['plain_ms']} ms")
                 CHECKED["backward"].add(launch_key(args[0], args[6], args[8], None))
-    return main
+    return main, f32_main
 
 
 C128_SHAPE = (1, 40, 33, 128)
@@ -1087,6 +1158,33 @@ def masked_plain_backward(dout, args, res_scale, mask):
                           @ wu.float() + bu.float())
         y = (h2 * u[:, :, None, None] * s + xc.float()).to(dt).permute(0, 2, 3, 1)
         return torch.autograd.grad(y, leaves, dout)
+
+
+def tie_masked_reference(rcab, args, scale, res_scale, dout):
+    """A ReLU tie falls either way in two sum orders (bwd_against_f32):
+    the kernel's ReLU mask (from its own h1) against the plain version's
+    (conv1 in float32), and where they differ at ties only, the plain
+    backward with the kernel's mask (``masked_plain_backward``), else None.
+    ``scale`` is the per-image scale or None (then ``res_scale``)."""
+    keep = {}
+    with unrecorded():
+        _, workspace, kargs = rcab._forward(*args, scale, 1.0 if scale is not None else res_scale)
+        rcab._backward(dout, args[0], workspace, kargs,
+                       1.0 if scale is not None else res_scale, keep=keep)
+    mask_k = keep["h1"].permute(0, 3, 1, 2) > 0
+    pre64, bound = relu_ties(args)
+    c = args[0].shape[3]
+    pre32 = torch.nn.functional.conv2d(
+        args[0].detach().float().permute(0, 3, 1, 2),
+        args[1].detach().float().reshape(3, 3, c, c).permute(3, 2, 0, 1), padding=1) \
+        + args[2].detach().float()[:, None, None]
+    differ = mask_k != (pre32 > 0)
+    non_ties = int((differ & (pre64.abs() > bound)).sum().item())
+    info = {"differ": int(differ.sum().item()), "not_ties": non_ties}
+    res = res_scale if scale is None else scale
+    want = (masked_plain_backward(dout, args, res, mask_k.float())
+            if differ.any() and not non_ties else None)
+    return want, info
 
 
 def bwd_against_f32(rcab, args, scale, dout):
@@ -2278,9 +2376,10 @@ def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
     only (``relu_ties``: conv1's float32 sums in two orders, in bf16 and in
     float32 alike), the plain version is taken with the kernel's mask
     (``masked_plain_backward``) and held to the same tolerance; the row
-    records the ties. Marks the shape, dtype and form
-    held in those directions. Returns the row (backward numbers None
-    without ``backward``)."""
+    records the ties. Fails where a float32 tensor-core launch at
+    DAN_F32_SHAPES is no faster than its plain version, in either direction.
+    Marks the shape, dtype and form held in those directions. Returns the
+    row (backward numbers None without ``backward``)."""
     args, scale = qrcab_inputs(shape, dtype, seed, form)
     res = 1.0 if scale is None else scale
     ref = rcab.rcab_reference(*args, res_scale=res)
@@ -2306,7 +2405,9 @@ def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
         "bound_ms": bound, "bound_by": bound_by,
         "backward_ms": None, "backward_plain_ms": None,
         "backward_bound_ms": None, "backward_bound_by": None,
-        "library_conv_ms": library_conv_ms(shape, dtype)}
+        "library_conv_ms": library_conv_ms(shape, dtype),
+        "mma": bool(rcab.plan(shape, dtype)["tensor_cores"])}
+    f32_faster(row, shape, dtype, row["ms"], row["plain_ms"], "forward")
     shared = rcab_inputs(shape, dtype, seed=seed)
     with unrecorded():  # a yardstick: the shared form at this shape
         row["shared_form_ms"] = cuda_ms(lambda: rcab.rcab_fused(*shared), iters)
@@ -2338,27 +2439,11 @@ def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
 
         errs, bad = compare(want)
         if bad:
-            # A ReLU tie falls either way in two sum orders (bwd_against_f32).
-            # Where the kernel's mask and the plain version's differ at ties
-            # only, the plain version is taken with the kernel's mask.
-            keep = {}
-            with unrecorded():
-                _, workspace, kargs = rcab._forward(*args, scale, 1.0)
-                rcab._backward(dout, args[0], workspace, kargs, 1.0, keep=keep)
-            mask_k = keep["h1"].permute(0, 3, 1, 2) > 0
-            pre64, bound = relu_ties(args)
-            c = shape[3]
-            pre32 = torch.nn.functional.conv2d(
-                args[0].float().permute(0, 3, 1, 2),
-                args[1].float().reshape(3, 3, c, c).permute(3, 2, 0, 1), padding=1) \
-                + args[2].float()[:, None, None]
-            differ = mask_k != (pre32 > 0)
-            non_ties = int((differ & (pre64.abs() > bound)).sum().item())
-            row["relu_ties_kernel_vs_plain"] = {"differ": int(differ.sum().item()),
-                                                "not_ties": non_ties, "first_errors": errs}
-            if differ.any() and not non_ties:
-                errs, bad = compare(masked_plain_backward(dout, args, res, mask_k.float()))
-            del keep, workspace, kargs, mask_k, pre64, bound, pre32, differ
+            masked, ties = tie_masked_reference(rcab, args, scale, 1.0, dout)
+            row["relu_ties_kernel_vs_plain"] = {**ties, "first_errors": errs}
+            if masked is not None:
+                errs, bad = compare(masked)
+            del masked
         worst = max(e["max_abs_err"] / max(e["ref_abs_max"], 1e-30) for e in errs.values())
         if bad or any(a.shape != b.shape for a, b in zip(grads, want)):
             raise AssertionError(f"qrcab backward: {bad} disagree at {shape} {dtype} {form}: "
@@ -2378,11 +2463,12 @@ def qrcab_check(rcab, shape, dtype, seed, form=ALL_PER_IMAGE, backward=True,
             shared_out = rcab.rcab_fused(*shared_leaves)
             row["shared_form_backward_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 shared_out, shared_leaves, dout, retain_graph=True), iters)
-        if dtype == torch.bfloat16:  # one 3x3 conv's weight and input gradients
-            row.update(library_conv_backward_ms(shape))
+        row.update(library_conv_backward_ms(shape, dtype))  # one conv's weight, input gradients
+        f32_faster(row, shape, dtype, row["backward_ms"], row["backward_plain_ms"], "backward")
         del leaves, s_leaf, out, grads, ref_out, shared_out, shared_leaves
     row["bit_identical_runs"] = identical
     print(json.dumps(row), flush=True)
+    f32_slower_fails(row)
     if not err <= tol:
         raise AssertionError(f"qrcab forward disagrees with rcab_reference: {row}")
     if not identical:
@@ -3517,7 +3603,9 @@ def phase_step_row(rcab, handler, state, batch, name, loss_of):
     trace = traced(lambda: handler.train_batch(state, batch), f"{name}_step_trace", 1)
     row.update(fixed_batch_loss=[before, after], loss_lower_after_steps=after < before,
                step_busy_ms=trace["busy_us"] / 1e3, step_idle_share=trace["idle_share"],
-               kernels_a_step=trace["kernels_per_call"])
+               kernels_a_step=trace["kernels_per_call"],
+               step_rcab_busy_ms=trace["rcab_busy_us"] / 1e3,
+               step_device_us_by_family=trace["per_call_device_us"])
     if not np.isfinite([before, after]).all():
         raise AssertionError(f"{name}: fixed-batch loss {before} -> {after}")
     return row
@@ -3622,8 +3710,14 @@ def dan_train_phase(rcab, card):
     handler, state = trained_handler(cfg_steps, root, "steps")
     steps = phase_step_row(rcab, handler, state, {"hr": hr16}, "dan v1QRCAN 10x20x64 f32",
                            loss_of(handler))
+    # the f32 RCAB kernels' share of the traced step's busy time
+    steps["rcab_share_of_busy"] = steps["step_rcab_busy_ms"] / steps["step_busy_ms"]
     if steps["launches_a_step"] != {"rcab_fused": per_forward, "rcab_fused_backward": 200}:
         raise AssertionError(f"a DAN v1QRCAN step launched {steps['launches_a_step']}")
+    on_cuda_cores = [k for k in ("rcab_conv_kernel", *CUDA_CORE_BWD)
+                     if k in steps["step_device_us_by_family"]]
+    if on_cuda_cores:
+        raise AssertionError(f"the f32 DAN step ran {on_cuda_cores} on the CUDA cores")
     del handler, state
     torch.cuda.empty_cache()
     variants = []
@@ -7803,8 +7897,8 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                       "nvcc_seconds": build.build_seconds}), flush=True)
 
-    main_row, train_row, eval_rows, bf16_err = kernel_phase(rcab)
-    bwd_row = rcab_bwd_phase(rcab)
+    main_row, train_row, eval_rows, f32_rows, bf16_err = kernel_phase(rcab)
+    bwd_row, bwd_f32_row = rcab_bwd_phase(rcab)
     serve_launches = slice_phase(rcab, card)
     ent_row = entropy_phase(ent)
     front_phase(ent)
@@ -7999,6 +8093,11 @@ def main() -> int:
         "eval_shapes": [{k: r[k] for k in (
             "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_conv_ms", "plan",
             "max_abs_err")} for r in eval_rows],
+        # float32 in 3xTF32 at DAN v1QRCAN's shapes (shared form)
+        "f32_dan_shapes": [{k: r[k] for k in (
+            "shape", "mma", "ms", "plain_ms", "bound_ms", "bound_by", "library_conv_ms",
+            "max_abs_err")} for r in f32_rows],
+        "f32_launches_dan_a_step": dan["fixed_batch"]["launches_a_step"]["rcab_fused"],
     }, {
         "name": "rcab_fused_backward", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/rcab_fused_bwd.cu",
@@ -8049,6 +8148,13 @@ def main() -> int:
         "library_dgrad_ms": bwd_row["library_dgrad_ms"],
         "worst_rel_err": bwd_row["worst_rel_err"],
         "pass_device_us": bwd_row["pass_device_us"],
+        # float32 in 3xTF32 at DAN v1QRCAN's train shape (shared form)
+        "f32_train_shape": {k: bwd_f32_row[k] for k in (
+            "shape", "mma", "plan", "ms", "plain_ms", "bound_ms", "bound_by", "library_wgrad_ms",
+            "library_dgrad_ms", "worst_rel_err", "pass_device_us")},
+        "f32_launches_dan_a_step":
+            dan["fixed_batch"]["launches_a_step"]["rcab_fused_backward"],
+        "dan_step_rcab_share_of_busy": dan["fixed_batch"]["rcab_share_of_busy"],
     }, {
         "name": "local_entropy", "route": "cuda",
         "source": "rumpy_tpu_torch/csrc/local_entropy.cu",

@@ -17,10 +17,14 @@
 // Bound on an H100 SXM: the block does 2 * 2*N*H*W*C*C*9 operations and
 // must move x in and out, so it is bound by operations: 5.44 GFLOP at the
 // train shape (16,48,48,64), 5.5 us at 989 TFLOP/s bf16; 2.42 GFLOP, 2.4 us,
-// at the eval shape (1,128,128,64). In bf16 with C in {16, 32, 64, 128} the
-// convs run on the tensor cores (mma.sync m16n8k16, f32 accumulate); f32,
-// and other C, run on the CUDA cores in f32 (exact products for bf16
-// inputs). wgmma (through TMA's im2col mode) is later work.
+// at the eval shape (1,128,128,64). In float32 the products must keep f32's
+// accuracy: the better of the CUDA cores (67 TFLOP/s) and 3xTF32 on the
+// tensor cores (495 / 3 TFLOP/s), 0.033 ms at the train shape. With C in
+// {16, 32, 64, 128} the convs run on the tensor cores: bf16 on mma.sync
+// m16n8k16, float32 in 3xTF32 on m16n8k8 (each operand split into two tf32
+// halves, three products summed in f32: rcab_common.cuh), both with f32
+// accumulation; other C run on the CUDA cores in f32 (exact products for
+// bf16 inputs). wgmma (through TMA's im2col mode) is later work.
 //
 // Design. The TPU kernel holds one whole image in VMEM, so its global
 // average pool is local. A block here has at most 227 KB of shared memory,
@@ -31,9 +35,10 @@
 // the schedule or on which images share a batch; two runs give the same
 // bits).
 //
-// Tensor-core plan, three launches on one stream:
+// Tensor-core plan (bf16 and float32), three launches on one stream:
 //   1. rcab_conv1_mma_kernel: h1 = round(relu(conv(x, w1) + b1)) into the
-//      `out` buffer (the apply pass overwrites it last), in-image pixels only.
+//      `out` buffer (the apply pass overwrites it last), in-image pixels only;
+//      in float32 h1 stays f32.
 //   2. rcab_conv2_mma_kernel: h2 = conv(h1, w2) + b2 (f32) and the tile sums;
 //      h1 is read with masked loads, zero outside the image (SAME padding).
 //   3. rcab_apply_kernel: the gate, then out = h2 * u * res_scale + x.
@@ -44,14 +49,19 @@
 // warp's own shared buffer; MU m-tiles share each B fragment. Blocks are
 // persistent, at most one an SM: a block stages its slice's weights for all
 // 9 taps once and its warps walk units in a fixed stride, warp-major so
-// that the units spread over the SMs first. conv1 starts its first unit
+// that the units spread over the SMs first. Float32 doubles every byte in
+// shared memory: a slice of 32 output channels at C >= 64 (9 x 64 x 36
+// floats of weights, 83 KB), MU = 2 at most (eight 6 x 10-pixel tiles of 72
+// floats a pixel, 138 KB), and the warps a block capped by what fits; its
+// B fragments are split once a k-step and shared by the MU m-tiles, its A
+// fragments by the slice's n-tiles. conv1 starts its first unit
 // when the first third of its taps has landed (three barriers, in the first
 // unit only); after that a warp syncs only with itself. The plan
 // (make_plan) picks MU and the number of blocks and warps from the SM
 // count, so that the grid covers the SMs. Passes 2 and 3 are programmatic
 // dependents of the pass before: their blocks start as that one's retire,
 // conv2 staging its weights and apply its x before they wait for it.
-// CUDA-core plan (f32, and bf16 at other C), two launches:
+// CUDA-core plan (C outside {16, 32, 64, 128}, bf16 and f32), two launches:
 //   1. rcab_conv_kernel, one block per (tile, image): loads the x tile with
 //      a 2-pixel halo, computes h1 on a 1-pixel halo (set to 0 outside the
 //      image, as SAME padding of conv2 requires), then h2 on the tile;
@@ -196,18 +206,29 @@ rcab_conv_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core conv passes (bf16, C in {16, 32, 64, 128}).
+// Tensor-core conv passes (C in {16, 32, 64, 128}): bf16 on mma.sync
+// m16n8k16, float32 in 3xTF32 on m16n8k8 (rcab_common.cuh).
 // A unit is 2*MU x 8 output pixels of one image (MU m-tiles of 16 pixels:
 // two rows of 8) by the CB output channels of the block's slice
-// (blockIdx.y). Shared memory: the slice's weights [9][C][CB + 8], then one
-// input tile [(2*MU + 2) * 10][C + 8] a warp (the pads keep ldmatrix rows on
-// distinct banks).
+// (blockIdx.y). Shared memory: the slice's weights [9][C][CB + pad], then one
+// input tile [(2*MU + 2) * 10][C + 8] a warp (the pads keep a warp's
+// fragment loads on distinct banks: bf16 rows through ldmatrix, float32
+// weights as two floats a lane at rows 2t, 2t + 1, f32 activations as one
+// float2 a lane).
 // ---------------------------------------------------------------------------
 
 constexpr int kUnitW = 8;
 
+// Row pad of the staged weights, in elements.
+template <typename T>
+__host__ __device__ constexpr int weight_pad() {
+  return sizeof(T) == 2 ? 8 : 4;
+}
+
+template <typename T>
 constexpr int mma_smem(int C, int CB, int TH, int warps) {
-  return (9 * C * (CB + 8) + warps * (TH + 2) * (kUnitW + 2) * (C + 8)) * 2;
+  return (9 * C * (CB + weight_pad<T>()) + warps * (TH + 2) * (kUnitW + 2) * (C + 8)) *
+         (int)sizeof(T);
 }
 
 // Tap t of one unit into acc: per k-step of 16 input channels, the B
@@ -236,13 +257,41 @@ __device__ __forceinline__ void mma_tap(int t, float (&acc)[MU][CB / 8][4], cons
   }
 }
 
+// The same in float32, 3xTF32: per k-step of 8 input channels (k t, t + 4 at
+// channels 2t, 2t + 1), the split B fragments of the slice's n-tiles once,
+// then each m-tile's A (row g of m-tile mu is pixel (2mu, g), row g + 8
+// pixel (2mu + 1, g): one tile row further).
+template <int C, int CB, int MU>
+__device__ __forceinline__ void mma_tap(int t, float (&acc)[MU][CB / 8][4], const float* t_s,
+                                        const int (&rowoff)[MU], const float* wl) {
+  constexpr int NB = CB / 8, IW = kUnitW + 2, SP = C + 8, SPW = CB + 4;
+  const int toff = ((t / 3) * IW + t % 3) * SP;
+  const float* wt = wl + t * C * SPW;
+#pragma unroll 2
+  for (int k0 = 0; k0 < C; k0 += 8) {
+    Tf32B b[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) split_b(b[j], wt[k0 * SPW + j * 8], wt[(k0 + 1) * SPW + j * 8]);
+#pragma unroll
+    for (int mu = 0; mu < MU; ++mu) {
+      const float* p = t_s + rowoff[mu] + toff + k0;
+      Tf32A a;
+      split_a(a, *reinterpret_cast<const float2*>(p),
+              *reinterpret_cast<const float2*>(p + IW * SP));
+#pragma unroll
+      for (int j = 0; j < NB; ++j) mma_3xtf32(acc[mu][j], a, b[j]);
+    }
+  }
+}
+
 // Taps [T0, T1). Unrolled for MU <= 2; at MU = 4 (128 accumulators) the
 // unrolled taps need more than 255 registers and spill, and the loop is
-// faster (measured on an H100: PERF.md, section 6).
-template <int C, int CB, int MU, int T0, int T1>
-__device__ __forceinline__ void mma_taps(float (&acc)[MU][CB / 8][4], const bf16* t_s,
-                                         const int (&rowoff)[MU], const bf16* wl) {
-  if constexpr (MU >= 4) {
+// faster (measured on an H100: PERF.md, section 6). Float32 loops always:
+// its taps are three times the mma.
+template <int C, int CB, int MU, int T0, int T1, typename T>
+__device__ __forceinline__ void mma_taps(float (&acc)[MU][CB / 8][4], const T* t_s,
+                                         const int (&rowoff)[MU], const T* wl) {
+  if constexpr (MU >= 4 || sizeof(T) == 4) {
 #pragma unroll 1
     for (int t = T0; t < T1; ++t) mma_tap<C, CB, MU>(t, acc, t_s, rowoff, wl);
   } else {
@@ -256,23 +305,25 @@ __device__ __forceinline__ void mma_taps(float (&acc)[MU][CB / 8][4], const bf16
 // weights land in one group under the end of conv1.
 constexpr int kConv1TapGroups = 3;
 
-template <int C, int CB, int MU, bool CONV2>
+template <typename T, int C, int CB, int MU, bool CONV2>
 __device__ __forceinline__ void conv_mma_pass(
-    const bf16* in, const bf16* __restrict__ w, const float* __restrict__ bias,
-    bf16* __restrict__ h1, float* __restrict__ h2, float* __restrict__ partial, int N, int H,
+    const T* in, const T* __restrict__ w, const float* __restrict__ bias,
+    T* __restrict__ h1, float* __restrict__ h2, float* __restrict__ partial, int N, int H,
     int W, int tiles_x, int tiles) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int E = 16 / sizeof(T);  // elements a 16-byte copy
   constexpr int NB = CB / 8;         // n-tiles of the slice
   constexpr int TH = 2 * MU;
   constexpr int IH = TH + 2, IW = kUnitW + 2;
   constexpr int SP = C + 8;          // input tile: pixel stride
-  constexpr int SPW = CB + 8;        // weights: row stride
+  constexpr int SPW = CB + weight_pad<T>();  // weights: row stride
   constexpr int G = CONV2 ? 1 : kConv1TapGroups;
   static_assert(9 % G == 0, "tap groups split the 9 taps evenly");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* w_s = reinterpret_cast<bf16*>(smem_raw);
+  T* w_s = reinterpret_cast<T*>(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nwarps = blockDim.x / 32;
-  bf16* t_s = w_s + 9 * C * SPW + warp * IH * IW * SP;
+  T* t_s = w_s + 9 * C * SPW + warp * IH * IW * SP;
   const int cs0 = blockIdx.y * CB;
   const int units = N * tiles;
   const int first = warp * gridDim.x + blockIdx.x;  // warp-major: SMs first
@@ -282,21 +333,21 @@ __device__ __forceinline__ void conv_mma_pass(
   auto load_tile = [&](int u) {
     const int n = u / tiles, t = u - n * tiles;
     const int ty0 = (t / tiles_x) * TH - 1, tx0 = (t % tiles_x) * kUnitW - 1;
-    const bf16* inn = in + (size_t)n * H * W * C;
-    for (int i = lane; i < IH * IW * (C / 8); i += 32) {
-      const int p = i / (C / 8), c8 = (i % (C / 8)) * 8;
+    const T* inn = in + (size_t)n * H * W * C;
+    for (int i = lane; i < IH * IW * (C / E); i += 32) {
+      const int p = i / (C / E), ce = (i % (C / E)) * E;
       const int gy = ty0 + p / IW, gx = tx0 + p % IW;
       const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      cp_async16(t_s + p * SP + c8, ok ? inn + ((size_t)gy * W + gx) * C + c8 : in, ok);
+      cp_async16(t_s + p * SP + ce, ok ? inn + ((size_t)gy * W + gx) * C + ce : in, ok);
     }
     cp_async_commit();
   };
   // taps [g * 9/G, (g+1) * 9/G) of the slice's weights ([t][ci] rows)
   auto stage_taps = [&](int g) {
     const int rows = 9 / G * C;
-    for (int i = threadIdx.x; i < rows * (CB / 8); i += blockDim.x) {
-      const int row = g * rows + i / (CB / 8), c8 = (i % (CB / 8)) * 8;
-      cp_async16(w_s + row * SPW + c8, w + (size_t)row * C + cs0 + c8, true);
+    for (int i = threadIdx.x; i < rows * (CB / E); i += blockDim.x) {
+      const int row = g * rows + i / (CB / E), ce = (i % (CB / E)) * E;
+      cp_async16(w_s + row * SPW + ce, w + (size_t)row * C + cs0 + ce, true);
     }
     cp_async_commit();
   };
@@ -321,13 +372,17 @@ __device__ __forceinline__ void conv_mma_pass(
     b[j][0] = bias[cs0 + j * 8 + cq];
     b[j][1] = bias[cs0 + j * 8 + cq + 1];
   }
-  // lane's A row (pixel (2mu + (lane&15)/8, lane&7), k half lane/16) and B
-  // row (k row of the .trans ldmatrix of n-tile pair (j, j+1))
+  // bf16: lane's A row (pixel (2mu + (lane&15)/8, lane&7), k half lane/16)
+  // and B row (k row of the .trans ldmatrix of n-tile pair (j, j+1)).
+  // float32: lane's A pair (pixel (2mu, r0), channels cq, cq + 1) and B
+  // rows cq, cq + 1 at column r0.
   int rowoff[MU];
 #pragma unroll
   for (int mu = 0; mu < MU; ++mu)
-    rowoff[mu] = ((2 * mu + ((lane & 15) >> 3)) * IW + (lane & 7)) * SP + (lane >> 4) * 8;
-  const bf16* wl = w_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * SPW + (lane >> 4) * 8;
+    rowoff[mu] = F32 ? ((2 * mu) * IW + r0) * SP + cq
+                     : ((2 * mu + ((lane & 15) >> 3)) * IW + (lane & 7)) * SP + (lane >> 4) * 8;
+  const T* wl = F32 ? w_s + cq * SPW + r0
+                    : w_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * SPW + (lane >> 4) * 8;
 
   float acc[MU][NB][4];
   auto zero = [&]() {
@@ -391,8 +446,7 @@ __device__ __forceinline__ void conv_mma_pass(
             s[j][0] += v0;
             s[j][1] += v1;
           } else {
-            *reinterpret_cast<__nv_bfloat162*>(h1 + at + j * 8) =
-                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+            store_pair(h1 + at + j * 8, fmaxf(v0, 0.f), fmaxf(v1, 0.f));
           }
         }
       }
@@ -416,20 +470,20 @@ __device__ __forceinline__ void conv_mma_pass(
   }
 }
 
-template <int C, int CB, int MU>
+template <typename T, int C, int CB, int MU>
 __global__ void __launch_bounds__(kThreads, 1)
-rcab_conv1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                      const float* __restrict__ b1, bf16* __restrict__ h1, int N, int H, int W,
+rcab_conv1_mma_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                      const float* __restrict__ b1, T* __restrict__ h1, int N, int H, int W,
                       int tiles_x, int tiles) {
-  conv_mma_pass<C, CB, MU, false>(x, w1, b1, h1, nullptr, nullptr, N, H, W, tiles_x, tiles);
+  conv_mma_pass<T, C, CB, MU, false>(x, w1, b1, h1, nullptr, nullptr, N, H, W, tiles_x, tiles);
 }
 
-template <int C, int CB, int MU>
+template <typename T, int C, int CB, int MU>
 __global__ void __launch_bounds__(kThreads, 1)
-rcab_conv2_mma_kernel(const bf16* h1, const bf16* __restrict__ w2,
+rcab_conv2_mma_kernel(const T* h1, const T* __restrict__ w2,
                       const float* __restrict__ b2, float* __restrict__ h2,
                       float* __restrict__ partial, int N, int H, int W, int tiles_x, int tiles) {
-  conv_mma_pass<C, CB, MU, true>(h1, w2, b2, nullptr, h2, partial, N, H, W, tiles_x, tiles);
+  conv_mma_pass<T, C, CB, MU, true>(h1, w2, b2, nullptr, h2, partial, N, H, W, tiles_x, tiles);
 }
 
 // Eight consecutive activations (one pixel, channels c..c+7) as floats.
@@ -628,14 +682,16 @@ cudaError_t launch_after(void (*kernel)(P...), dim3 grid, int threads, int smem,
 // memory. Tiles are tried in order; the first whose conv work has a thread
 // for every item (the kernel drops items past its budget) and whose shared
 // memory lets two blocks share an SM wins, else the first that fits an SM.
-// Tensor-core plan: a warp's unit 2*MU x 8 pixels by CB channels. MU is
-// the largest of 4, 2 that gives every SM at least kMinUnitsPerSm units
-// (so that three or more of its four schedulers hold a warp; a larger unit
-// shares each B fragment among more m-tiles), else 1. Measured on an H100
-// (PERF.md, section 6): MU = 4 is fastest at 16x48x48x64 (576 units),
-// MU = 2 at 1x128x128x64 and 2x96x96x64, MU = 1 at 1x64x64x64. Then blocks
-// a slice = the SMs over the slices, at most the units, and warps a block =
-// the units over those blocks, at most 8.
+// Tensor-core plan: a warp's unit 2*MU x 8 pixels by CB channels (CB = C,
+// or 32 at bf16 C = 128 and float32 C >= 64: f32 weights take twice the
+// shared memory). MU is the largest of 4, 2 whose block of 8 warps fits
+// and that gives every SM at least kMinUnitsPerSm units (so that three or
+// more of its four schedulers hold a warp; a larger unit shares each B
+// fragment among more m-tiles), else 1. Measured on an H100 (PERF.md,
+// section 6): bf16 MU = 4 is fastest at 16x48x48x64 (576 units), MU = 2 at
+// 1x128x128x64 and 2x96x96x64, MU = 1 at 1x64x64x64. Then blocks a slice =
+// the SMs over the slices, at most the units, and warps a block = the units
+// over those blocks, at most 8 and at most what the shared memory holds.
 struct Plan {
   bool mma;
   int th, tw, smem;           // tile (a block's, or a warp's unit), shared memory a block
@@ -665,18 +721,22 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
     return cudaErrorInvalidValue;
   cudaError_t err = sm_count(&p->sms);
   if (err != cudaSuccess) return err;
-  p->mma = dtype == 1 && (C == 16 || C == 32 || C == 64 || C == 128);
+  p->mma = C == 16 || C == 32 || C == 64 || C == 128;
   // apply: one wave of two blocks an SM (its register budget), split over the images
   const int apply_cap = 2 * p->sms / N > 1 ? 2 * p->sms / N : 1;
   p->apply_blocks = cdiv((long long)H * W * C / 8, kThreads * kApplyItems);
   if (p->apply_blocks > apply_cap) p->apply_blocks = apply_cap;
   if (p->mma) {
-    p->cb = C == 128 ? 32 : C;
+    auto smem = [&](int th, int warps) {
+      return dtype == 1 ? mma_smem<bf16>(C, p->cb, th, warps)
+                        : mma_smem<float>(C, p->cb, th, warps);
+    };
+    p->cb = dtype == 1 ? (C == 128 ? 32 : C) : (C >= 64 ? 32 : C);
     p->slices = C / p->cb;
     p->th = 2;
     for (int mu : {4, 2}) {
       const long long units = (long long)N * cdiv(H, 2 * mu) * cdiv(W, kUnitW) * p->slices;
-      if (mma_smem(C, p->cb, 2 * mu, kThreads / 32) <= kSmemMax &&
+      if (smem(2 * mu, kThreads / 32) <= kSmemMax &&
           units >= (long long)kMinUnitsPerSm * p->sms) {
         p->th = 2 * mu;
         break;
@@ -690,7 +750,10 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
     if (p->blocks > units) p->blocks = (int)units;
     p->warps = cdiv(units, p->blocks);
     if (p->warps > kThreads / 32) p->warps = kThreads / 32;
-    p->smem = mma_smem(C, p->cb, p->th, p->warps);
+    const int fits = (kSmemMax - smem(p->th, 0)) / (smem(p->th, 1) - smem(p->th, 0));
+    if (fits < 1) return cudaErrorInvalidConfiguration;
+    if (p->warps > fits) p->warps = fits;
+    p->smem = smem(p->th, p->warps);
     p->per_sm = kSmemMax / p->smem;
     return cudaSuccess;
   }
@@ -735,34 +798,40 @@ cudaError_t conv_fma(const Plan& p, const void* x, const void* w1, const float* 
   return cudaGetLastError();
 }
 
-// Both tensor-core passes; h1 goes through `h1` (N,H,W,C) bf16.
-template <int C, int CB, int MU>
-cudaError_t conv_mma(const Plan& p, const bf16* x, const bf16* w1, const float* b1,
-                     const bf16* w2, const float* b2, bf16* h1, float* h2, float* partial,
-                     int N, int H, int W, cudaStream_t s) {
+// Both tensor-core passes; h1 goes through `h1` (N,H,W,C) of type T.
+template <typename T, int C, int CB, int MU>
+cudaError_t conv_mma(const Plan& p, const T* x, const T* w1, const float* b1, const T* w2,
+                     const float* b2, T* h1, float* h2, float* partial, int N, int H, int W,
+                     cudaStream_t s) {
   static int done1[kMaxDevices] = {}, done2[kMaxDevices] = {};
-  cudaError_t err = allow_smem(rcab_conv1_mma_kernel<C, CB, MU>, p.smem, done1);
-  if (err == cudaSuccess) err = allow_smem(rcab_conv2_mma_kernel<C, CB, MU>, p.smem, done2);
+  cudaError_t err = allow_smem(rcab_conv1_mma_kernel<T, C, CB, MU>, p.smem, done1);
+  if (err == cudaSuccess) err = allow_smem(rcab_conv2_mma_kernel<T, C, CB, MU>, p.smem, done2);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.blocks, p.slices);
-  rcab_conv1_mma_kernel<C, CB, MU><<<grid, p.warps * 32, p.smem, s>>>(
+  rcab_conv1_mma_kernel<T, C, CB, MU><<<grid, p.warps * 32, p.smem, s>>>(
       x, w1, b1, h1, N, H, W, p.tiles_x, p.tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_after(rcab_conv2_mma_kernel<C, CB, MU>, grid, p.warps * 32, p.smem, s, h1, w2,
-                      b2, h2, partial, N, H, W, p.tiles_x, p.tiles);
+  return launch_after(rcab_conv2_mma_kernel<T, C, CB, MU>, grid, p.warps * 32, p.smem, s, h1,
+                      w2, b2, h2, partial, N, H, W, p.tiles_x, p.tiles);
 }
 
-template <int C, int CB>
-cudaError_t conv_mma_mu(const Plan& p, const bf16* x, const bf16* w1, const float* b1,
-                        const bf16* w2, const float* b2, bf16* h1, float* h2, float* partial,
+template <typename T, int C, int CB>
+cudaError_t conv_mma_mu(const Plan& p, const void* x, const void* w1, const float* b1,
+                        const void* w2, const float* b2, void* h1, float* h2, float* partial,
                         int N, int H, int W, cudaStream_t s) {
+  auto tx = static_cast<const T*>(x), tw1 = static_cast<const T*>(w1),
+       tw2 = static_cast<const T*>(w2);
+  auto th1 = static_cast<T*>(h1);
   switch (p.th / 2) {
-    case 1: return conv_mma<C, CB, 1>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
-    case 2: return conv_mma<C, CB, 2>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+    case 1: return conv_mma<T, C, CB, 1>(p, tx, tw1, b1, tw2, b2, th1, h2, partial, N, H, W, s);
+    case 2:
+      if constexpr (mma_smem<T>(C, CB, 4, kThreads / 32) <= kSmemMax)
+        return conv_mma<T, C, CB, 2>(p, tx, tw1, b1, tw2, b2, th1, h2, partial, N, H, W, s);
+      return cudaErrorInvalidConfiguration;
     case 4:
-      if constexpr (mma_smem(C, CB, 8, kThreads / 32) <= kSmemMax)
-        return conv_mma<C, CB, 4>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      if constexpr (mma_smem<T>(C, CB, 8, kThreads / 32) <= kSmemMax)
+        return conv_mma<T, C, CB, 4>(p, tx, tw1, b1, tw2, b2, th1, h2, partial, N, H, W, s);
       [[fallthrough]];
     default: return cudaErrorInvalidConfiguration;
   }
@@ -771,15 +840,21 @@ cudaError_t conv_mma_mu(const Plan& p, const bf16* x, const bf16* w1, const floa
 cudaError_t conv(int dtype, const Plan& p, const void* x, const void* w1, const float* b1,
                  const void* w2, const float* b2, void* h1, float* h2, float* partial, int N,
                  int H, int W, int C, cudaStream_t s) {
-  if (p.mma) {
-    auto bx = static_cast<const bf16*>(x), bw1 = static_cast<const bf16*>(w1),
-         bw2 = static_cast<const bf16*>(w2);
-    auto bh1 = static_cast<bf16*>(h1);
+  if (p.mma && dtype == 1) {
     switch (C) {
-      case 16: return conv_mma_mu<16, 16>(p, bx, bw1, b1, bw2, b2, bh1, h2, partial, N, H, W, s);
-      case 32: return conv_mma_mu<32, 32>(p, bx, bw1, b1, bw2, b2, bh1, h2, partial, N, H, W, s);
-      case 64: return conv_mma_mu<64, 64>(p, bx, bw1, b1, bw2, b2, bh1, h2, partial, N, H, W, s);
-      case 128: return conv_mma_mu<128, 32>(p, bx, bw1, b1, bw2, b2, bh1, h2, partial, N, H, W, s);
+      case 16: return conv_mma_mu<bf16, 16, 16>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      case 32: return conv_mma_mu<bf16, 32, 32>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      case 64: return conv_mma_mu<bf16, 64, 64>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      case 128: return conv_mma_mu<bf16, 128, 32>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (p.mma) {
+    switch (C) {
+      case 16: return conv_mma_mu<float, 16, 16>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      case 32: return conv_mma_mu<float, 32, 32>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      case 64: return conv_mma_mu<float, 64, 32>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
+      case 128: return conv_mma_mu<float, 128, 32>(p, x, w1, b1, w2, b2, h1, h2, partial, N, H, W, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -874,7 +949,7 @@ int rcab_fused_plan(int dtype, int N, int H, int W, int C, long long* plan) {
 // bd_stride R, bu (C) with bu_stride 0 or (N,C) with bu_stride C, float32;
 // scale: null (the branch times res_scale) or (N,C) float32; workspace:
 // `workspace_floats` float32, at least what rcab_fused_workspace gives. The
-// tensor-core plan (bf16, C in {16, 32, 64, 128}) needs w1 and w2 on
+// tensor-core plan (C in {16, 32, 64, 128}) needs w1 and w2 on
 // 16-byte boundaries too. Returns a cudaError_t (0 on success).
 int rcab_fused_forward(int dtype, const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, const void* wd, const void* bd,

@@ -50,19 +50,22 @@
 // two data gradients, two weight gradients: 13.6 GFLOP at 16x48x48x64;
 // four, 10.9 GFLOP, for a backward that kept h1 instead) against x, dout,
 // dx and the saved h2 (24 MB): bound by operations, 0.0137 ms in bf16 at
-// 989 TFLOP/s and 0.203 ms in f32 at 67. The tensor-core plan takes 0.13 ms
-// there, a tenth of that rate (PERF.md has the passes' times).
+// 989 TFLOP/s and 0.0824 ms in float32 at 165 (f32-accurate products: 3xTF32
+// on the tensor cores, 495 / 3, beats the CUDA cores' 67). The bf16 plan
+// takes 0.13 ms there, a tenth of that rate (PERF.md has the passes' times).
 //
-// Two plans, chosen by type and width in make_plan (as the forward's):
-// bf16 with C in {16, 32, 64, 128} runs every heavy product on the tensor
-// cores (mma.sync m16n8k16, bf16 operands, f32 accumulation); f32, and
-// other C, run them on the CUDA cores in f32. Both launch on one stream
-// and take every reduction in a fixed order (no float atomics, so a step
-// is reproducible run to run).
+// Two plans, chosen by width in make_plan (as the forward's): with C in
+// {16, 32, 64, 128} every heavy product runs on the tensor cores, bf16 on
+// mma.sync m16n8k16 and float32 in 3xTF32 on m16n8k8 (each operand split
+// into two tf32 halves, three products summed in f32: rcab_common.cuh),
+// f32 accumulation in both; other C run them on the CUDA cores in f32. Both
+// launch on one stream and take every reduction in a fixed order (no float
+// atomics, so a step is reproducible run to run).
 //
-// Tensor-core plan, six launches:
+// Tensor-core plan, six launches (float32: the same passes on f32 tiles,
+// with the differences noted at each):
 //   1. rcab_bwd_du_kernel: per-chunk sums of dout * h2; rcab_bwd_gate_kernel,
-//      one block an image: du, the gate's backward, dgap, and ctab.
+//      one block an image: du, the gate's backward, dgap, and (bf16) ctab.
 //   2. rcab_bwd_dh1_mma_kernel, one block per (tile, image): conv1 again on
 //      the x tile -> h1, rounded to bf16, staged in shared memory and written
 //      out 16 bytes a thread for pass 4, its sign kept as 64 bits a thread
@@ -98,6 +101,15 @@
 // The weight gradients are not folded into passes 2 and 3, though those hold
 // the tiles: a block's dw would have to leave as a 9CC partial per tile (42
 // MB a call at 16x48x48x64, written and read again), more than pass 4 moves.
+//
+// Float32 keeps none of the ctab machinery: dh2 = g * u + dgap / HW is
+// formed whole in f32 where a pass needs it (dh2_f32, the same operations
+// in each) and split into its tf32 halves at fragment load, which carries
+// about 22 of its bits, so the constant is not lost the way bf16 rounding
+// lost it; db2 sums that dh2. Its tiles and taps take twice the bf16
+// bytes: the dh1 and dx passes run 8x16 tiles (one an SM at C = 64, every
+// warp an m-tile), the weight gradient 32 x 32 blocks of the C x C matrix
+// with two n-tiles a warp.
 //
 // CUDA-core plan: rcab_bwd_flip_kernel (w^T with flipped taps, so a
 // transposed conv is conv3x3_smem on other weights), the same du and gate
@@ -654,57 +666,70 @@ __device__ __forceinline__ uint4 dh2_chunk(uint4 d, float res_scale, const float
 }
 
 // The TH x TW tile at (ty0, tx0) of image `img` with a 1-pixel halo into
-// `t_s` as [pixel][C + 8], zero outside the image, 8 channels a load.
-template <int C>
-__device__ __forceinline__ void load_halo_tile(const bf16* __restrict__ img, bf16* t_s, int ty0,
+// `t_s` as [pixel][C + 8], zero outside the image, 16 bytes a load.
+template <typename T, int C>
+__device__ __forceinline__ void load_halo_tile(const T* __restrict__ img, T* t_s, int ty0,
                                                int tx0, int H, int W, int TH, int TW) {
   constexpr int SP = C + 8;
+  constexpr int E = 16 / sizeof(T);
   const int XW = TW + 2;
-  for (int i = threadIdx.x; i < (TH + 2) * XW * (C / 8); i += kThreads) {
-    const int p = i / (C / 8), c8 = (i % (C / 8)) * 8;
+  for (int i = threadIdx.x; i < (TH + 2) * XW * (C / E); i += kThreads) {
+    const int p = i / (C / E), ce = (i % (C / E)) * E;
     const int gy = ty0 - 1 + p / XW, gx = tx0 - 1 + p % XW;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = *reinterpret_cast<const uint4*>(img + ((size_t)gy * W + gx) * C + c8);
-    *reinterpret_cast<uint4*>(t_s + p * SP + c8) = v;
+      v = *reinterpret_cast<const uint4*>(img + ((size_t)gy * W + gx) * C + ce);
+    *reinterpret_cast<uint4*>(t_s + p * SP + ce) = v;
   }
 }
 
 // The tile `o_s` ([pixel][C + 8]) to the in-image pixels of `img`, 16 bytes
 // a thread.
-template <int C>
-__device__ __forceinline__ void store_tile(const bf16* o_s, bf16* __restrict__ img, int ty0,
+template <typename T, int C>
+__device__ __forceinline__ void store_tile(const T* o_s, T* __restrict__ img, int ty0,
                                            int tx0, int H, int W, int TH, int TW) {
   constexpr int SP = C + 8;
-  for (int i = threadIdx.x; i < TH * TW * (C / 8); i += kThreads) {
-    const int p = i / (C / 8), c8 = (i % (C / 8)) * 8;
+  constexpr int E = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < TH * TW * (C / E); i += kThreads) {
+    const int p = i / (C / E), ce = (i % (C / E)) * E;
     const int gy = ty0 + p / TW, gx = tx0 + p % TW;
     if (gy < H && gx < W)
-      *reinterpret_cast<uint4*>(img + ((size_t)gy * W + gx) * C + c8) =
-          *reinterpret_cast<const uint4*>(o_s + p * SP + c8);
+      *reinterpret_cast<uint4*>(img + ((size_t)gy * W + gx) * C + ce) =
+          *reinterpret_cast<const uint4*>(o_s + p * SP + ce);
   }
+}
+
+// dh2 as the float32 tensor-core plan forms it, whole, in every pass that
+// needs it: the same f32 operations in the same order.
+__device__ __forceinline__ float dh2_f32(float dout, float res_scale, float gate, float dgap_hw) {
+  return __fmaf_rn(__fmul_rn(dout, res_scale), gate, dgap_hw);
 }
 
 // Pass 2: h1 again, then dh1 = conv^T(dh2, w2) * [h1 > 0] on a TH x TW tile.
 // Shared memory: t_s, the x tile with its halo and later the dh2 tile; o_s,
 // the h1 and later the dh1 tile on their way out; w_s, two buffers of a tap:
-// conv2's first tap arrives while conv1 ends and dh2 is built.
-template <int NT>
+// conv2's first tap arrives while conv1 ends and dh2 is built. bf16 feeds
+// round_bf16(g * u) to the transposed conv and adds dgap / HW's share from
+// `cterm` = ctab after it; float32 forms the whole dh2 = g * u + dgap / HW
+// in f32 (`cterm` = dgap_hw), which 3xTF32 carries to about 22 bits.
+template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads)
-rcab_bwd_dh1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                        const float* __restrict__ b1, const bf16* __restrict__ w2,
-                        const bf16* __restrict__ dout, const float* __restrict__ gate,
-                        const float* __restrict__ ctab, float res_scale,
-                        bf16* __restrict__ h1, bf16* __restrict__ dh1, int H, int W, int TH,
+rcab_bwd_dh1_mma_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                        const float* __restrict__ b1, const T* __restrict__ w2,
+                        const T* __restrict__ dout, const float* __restrict__ gate,
+                        const float* __restrict__ cterm, float res_scale,
+                        T* __restrict__ h1, T* __restrict__ dh1, int H, int W, int TH,
                         int TW) {
+  constexpr bool F32 = sizeof(T) == 4;
   constexpr int C = NT * 8;
   constexpr int MU = kMmaAcc / (4 * NT);
   constexpr int SP = C + 8;
+  constexpr int E = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int XH = TH + 2, XW = TW + 2, P = TH * TW;
-  bf16* t_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* o_s = t_s + XH * XW * SP;
-  bf16* w_s = o_s + P * SP;
+  T* t_s = reinterpret_cast<T*>(smem_raw);
+  T* o_s = t_s + XH * XW * SP;
+  T* w_s = o_s + P * SP;
   const int n = blockIdx.z;
   const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -712,7 +737,7 @@ rcab_bwd_dh1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const size_t img = (size_t)n * H * W * C;
 
   conv_stage_tap<NT, false>(w1, 0, w_s);  // arrives while the x tile is loaded
-  load_halo_tile<C>(x + img, t_s, ty0, tx0, H, W, TH, TW);
+  load_halo_tile<T, C>(x + img, t_s, ty0, tx0, H, W, TH, TW);
   float acc[MU][NT][4];
   conv3x3_mma<NT, false, true>(t_s, XW, TH, TW, SP, w1, w_s, 0, w2, acc);
   // h1, rounded as the forward rounds it before conv2; bit (u * NT + j) * 4
@@ -727,34 +752,50 @@ rcab_bwd_dh1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int co = j * 8 + cq;
-        const __nv_bfloat162 v = __floats2bfloat162_rn(
-            fmaxf(acc[u][j][2 * half] + b1[co], 0.f),
-            fmaxf(acc[u][j][2 * half + 1] + b1[co + 1], 0.f));
+        const float v0 = fmaxf(acc[u][j][2 * half] + b1[co], 0.f);
+        const float v1 = fmaxf(acc[u][j][2 * half + 1] + b1[co + 1], 0.f);
         const int bit = (u * NT + j) * 4 + 2 * half;
-        if (__low2float(v) > 0.f) positive |= 1ull << bit;
-        if (__high2float(v) > 0.f) positive |= 1ull << (bit + 1);
-        *reinterpret_cast<__nv_bfloat162*>(o_s + m * SP + co) = v;
+        if constexpr (F32) {
+          if (v0 > 0.f) positive |= 1ull << bit;
+          if (v1 > 0.f) positive |= 1ull << (bit + 1);
+          store_pair(o_s + m * SP + co, v0, v1);
+        } else {
+          const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
+          if (__low2float(v) > 0.f) positive |= 1ull << bit;
+          if (__high2float(v) > 0.f) positive |= 1ull << (bit + 1);
+          *reinterpret_cast<__nv_bfloat162*>(o_s + m * SP + co) = v;
+        }
       }
     }
   }
   __syncthreads();  // conv1 has read the x tile everywhere; the h1 tile is whole
-  store_tile<C>(o_s, h1 + img, ty0, tx0, H, W, TH, TW);
+  store_tile<T, C>(o_s, h1 + img, ty0, tx0, H, W, TH, TW);
 
-  // round_bf16(g * u) tile with a 1-pixel halo, zero outside the image; a
-  // thread meets the same 8 channels at every step of the loop
+  // the dh2 tile (bf16: round_bf16(g * u)) with a 1-pixel halo, zero outside
+  // the image; a thread meets the same E channels at every step of the loop
   {
-    const int c8 = (threadIdx.x % (C / 8)) * 8;
-    float u8[8];
+    const int ce = (threadIdx.x % (C / E)) * E;
+    float u8[E], c8[E];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) u8[k] = gate[(size_t)n * C + c8 + k];
-    for (int i = threadIdx.x; i < XH * XW * (C / 8); i += kThreads) {
-      const int p = i / (C / 8);
+    for (int k = 0; k < E; ++k) {
+      u8[k] = gate[(size_t)n * C + ce + k];
+      c8[k] = F32 ? cterm[(size_t)n * C + ce + k] : 0.f;
+    }
+    for (int i = threadIdx.x; i < XH * XW * (C / E); i += kThreads) {
+      const int p = i / (C / E);
       const int gy = ty0 - 1 + p / XW, gx = tx0 - 1 + p % XW;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = dh2_chunk(*reinterpret_cast<const uint4*>(dout + img + ((size_t)gy * W + gx) * C + c8),
-                      res_scale, u8);
-      *reinterpret_cast<uint4*>(t_s + p * SP + c8) = v;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        v = *reinterpret_cast<const uint4*>(dout + img + ((size_t)gy * W + gx) * C + ce);
+        if constexpr (F32) {
+          float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) f[k] = dh2_f32(f[k], res_scale, u8[k], c8[k]);
+        } else {
+          v = dh2_chunk(v, res_scale, u8);
+        }
+      }
+      *reinterpret_cast<uint4*>(t_s + p * SP + ce) = v;
     }
   }
   // its first barrier publishes the tile and ends the reads of the h1 tile
@@ -765,38 +806,41 @@ rcab_bwd_dh1_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     for (int half = 0; half < 2; ++half) {
       const int m = (warp + 8 * u) * 16 + r0 + 8 * half;
       if (m >= P) continue;
-      // dgap / HW's share, exact in f32, by the pixel's class
-      const float* k = ctab + ((size_t)n * 9 + 3 * edge_class(ty0 + m / TW, H)
-                               + edge_class(tx0 + m % TW, W)) * C + cq;
+      // bf16: dgap / HW's share, exact in f32, by the pixel's class
+      const float* k = F32 ? nullptr
+                           : cterm + ((size_t)n * 9 + 3 * edge_class(ty0 + m / TW, H)
+                                      + edge_class(tx0 + m % TW, W)) * C + cq;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int bit = (u * NT + j) * 4 + 2 * half;
-        const float2 kc = *reinterpret_cast<const float2*>(k + j * 8);
-        *reinterpret_cast<__nv_bfloat162*>(o_s + m * SP + j * 8 + cq) = __floats2bfloat162_rn(
-            (positive >> bit) & 1ull ? acc[u][j][2 * half] + kc.x : 0.f,
-            (positive >> (bit + 1)) & 1ull ? acc[u][j][2 * half + 1] + kc.y : 0.f);
+        float2 kc = make_float2(0.f, 0.f);
+        if constexpr (!F32) kc = *reinterpret_cast<const float2*>(k + j * 8);
+        store_pair(o_s + m * SP + j * 8 + cq,
+                   (positive >> bit) & 1ull ? acc[u][j][2 * half] + kc.x : 0.f,
+                   (positive >> (bit + 1)) & 1ull ? acc[u][j][2 * half + 1] + kc.y : 0.f);
       }
     }
   }
   __syncthreads();
-  store_tile<C>(o_s, dh1 + img, ty0, tx0, H, W, TH, TW);
+  store_tile<T, C>(o_s, dh1 + img, ty0, tx0, H, W, TH, TW);
 }
 
 // Pass 3: dx = conv^T(dh1, w1) + dout on a TH x TW tile. Shared memory as
 // in pass 2; o_s holds the dout tile, then dx.
-template <int NT>
+template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads)
-rcab_bwd_dx_mma_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1,
-                       const bf16* __restrict__ dout, bf16* __restrict__ dx, int H, int W,
+rcab_bwd_dx_mma_kernel(const T* __restrict__ dh1, const T* __restrict__ w1,
+                       const T* __restrict__ dout, T* __restrict__ dx, int H, int W,
                        int TH, int TW) {
   constexpr int C = NT * 8;
   constexpr int MU = kMmaAcc / (4 * NT);
   constexpr int SP = C + 8;
+  constexpr int E = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int XH = TH + 2, XW = TW + 2, P = TH * TW;
-  bf16* t_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* o_s = t_s + XH * XW * SP;
-  bf16* w_s = o_s + P * SP;
+  T* t_s = reinterpret_cast<T*>(smem_raw);
+  T* o_s = t_s + XH * XW * SP;
+  T* w_s = o_s + P * SP;
   const int n = blockIdx.z;
   const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -804,15 +848,15 @@ rcab_bwd_dx_mma_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1
   const size_t img = (size_t)n * H * W * C;
 
   // the dout tile arrives while the conv runs
-  for (int i = threadIdx.x; i < P * (C / 8); i += kThreads) {
-    const int p = i / (C / 8), c8 = (i % (C / 8)) * 8;
+  for (int i = threadIdx.x; i < P * (C / E); i += kThreads) {
+    const int p = i / (C / E), ce = (i % (C / E)) * E;
     const int gy = ty0 + p / TW, gx = tx0 + p % TW;
     const bool in = gy < H && gx < W;
-    cp_async16(o_s + p * SP + c8, in ? dout + img + ((size_t)gy * W + gx) * C + c8 : dout, in);
+    cp_async16(o_s + p * SP + ce, in ? dout + img + ((size_t)gy * W + gx) * C + ce : dout, in);
   }
   cp_async_commit();
   conv_stage_tap<NT, true>(w1, 0, w_s);
-  load_halo_tile<C>(dh1 + img, t_s, ty0, tx0, H, W, TH, TW);
+  load_halo_tile<T, C>(dh1 + img, t_s, ty0, tx0, H, W, TH, TW);
   float acc[MU][NT][4];
   // its first barrier publishes the dout tile too
   conv3x3_mma<NT, true>(t_s, XW, TH, TW, SP, w1, w_s, 0, nullptr, acc);
@@ -824,21 +868,22 @@ rcab_bwd_dx_mma_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1
       if (m >= P) continue;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(o_s + m * SP + j * 8 + cq);
-        const float2 d = __bfloat1622float2(*at);
-        *at = __floats2bfloat162_rn(acc[u][j][2 * half] + d.x, acc[u][j][2 * half + 1] + d.y);
+        T* at = o_s + m * SP + j * 8 + cq;
+        const float2 d = load_pair(at);
+        store_pair(at, acc[u][j][2 * half] + d.x, acc[u][j][2 * half + 1] + d.y);
       }
     }
   }
   __syncthreads();
-  store_tile<C>(o_s, dx + img, ty0, tx0, H, W, TH, TW);
+  store_tile<T, C>(o_s, dx + img, ty0, tx0, H, W, TH, TW);
 }
 
 // Pass 4: the weight and bias gradients of both convs, on kWTH x kWTW
 // tiles. Block (s, z): tiles [s * tps, (s+1) * tps) of the N * tiles-an-image
 // and z = (conv, cib, cob): conv 0 is conv1 (a = x, g = dh1), conv 1 is conv2
 // (a = h1, g = dh2, built in place from dout); (cib, cob) the CB x CB block
-// of the C x C matrix, CB = 8 * NTB = min(C, 64). It writes, for all 9 taps,
+// of the C x C matrix, CB = 8 * NTB = min(C, 64) (float32: min(C, 32), its
+// stages being twice the bytes). It writes, for all 9 taps,
 //   part_w[conv][s][3 ty + tx][ci][co] = sum_p a[p + (ty, tx)][ci] * g[p][co]
 // and the blocks with cib = 0 also part_b[conv][s][co] = sum_p g[p][co].
 // For conv2, g is round_bf16(g * u) and dgap / HW's share is added exactly:
@@ -854,20 +899,27 @@ rcab_bwd_dx_mma_kernel(const bf16* __restrict__ dh1, const bf16* __restrict__ w1
 // the g rows [kw, kw + 1) * kWTH / KW of each tile; the KW partial sums are
 // added in order at the end. Three tiles are in flight: the one multiplied
 // and the next two on their way through cp.async.
+// Float32 (3xTF32, m16n8k8): g is the whole dh2 in f32, so there are no
+// class sums; a K step is half a tile row (8 pixels), the fragments are
+// loaded as single floats (k t and t + 4 at pixels t, t + 4: the pixel
+// axis has no pairs) and split, and a warp owns WN = 2 n-tiles (the split
+// B fragments of three g rows wait in 24 registers beside 72 accumulators).
 constexpr int kWTH = 8, kWTW = 16, kWStages = 3;
 
-template <int NTB>
+template <typename T, int NTB>
 __global__ void __launch_bounds__(kThreads, 1)
-rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dh1,
-                          const bf16* __restrict__ h1, const bf16* __restrict__ dout,
+rcab_bwd_wgrad_mma_kernel(const T* __restrict__ x, const T* __restrict__ dh1,
+                          const T* __restrict__ h1, const T* __restrict__ dout,
                           const float* __restrict__ gate, const float* __restrict__ dgap_hw,
                           float res_scale, float* __restrict__ part_w,
                           float* __restrict__ part_b, int N, int H, int W, int C, int tps) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int E = 16 / sizeof(T);  // elements a 16-byte chunk
   constexpr int CB = NTB * 8;
   constexpr int SP = CB + 8;
-  constexpr int CH = CB / 8;  // 16-byte chunks a pixel
+  constexpr int CH = CB / E;  // 16-byte chunks a pixel
   constexpr int MT = CB / 16;
-  constexpr int WN = NTB == 2 ? 2 : 4;
+  constexpr int WN = F32 || NTB == 2 ? 2 : 4;
   constexpr int NG = NTB / WN;
   constexpr int KW = (kThreads / 32) / (MT * NG);
   constexpr int TH = kWTH, TW = kWTW, XH = TH + 2, XW = TW + 2, P = TH * TW;
@@ -876,15 +928,15 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
   constexpr int G = kThreads / CB;  // row groups of the class sums
   static_assert(TH % KW == 0 && TW == 16, "a K step is one tile row");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  T* stages = reinterpret_cast<T*>(smem_raw);
   float* red_s = reinterpret_cast<float*>(stages + kWStages * stage_elems);  // G x 9 x CB
   float* hs_s = red_s + 9 * kThreads;                                        // 9 x CB
   const int s = blockIdx.x, S = gridDim.x;
   const int nb = C / CB;
   const int conv = blockIdx.z / (nb * nb);
   const int cib = (blockIdx.z / nb) % nb, cob = blockIdx.z % nb;
-  const bf16* a = (conv ? h1 : x) + cib * CB;
-  const bf16* g = (conv ? dout : dh1) + cob * CB;
+  const T* a = (conv ? h1 : x) + cib * CB;
+  const T* g = (conv ? dout : dh1) + cob * CB;
   const int tiles_x = (W + TW - 1) / TW;
   const int per_image = tiles_x * ((H + TH - 1) / TH);
   const int total = N * per_image;
@@ -895,18 +947,18 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
   const int mt = wr / NG, ng = wr % NG;
   const int g0 = kw * (TH / KW), g1 = g0 + TH / KW;  // this warp's rows of g
   const bool bias = cib == 0;
-  const int c8 = (tid % CH) * 8;  // kThreads % CH == 0: the same at every step
+  const int c8 = (tid % CH) * E;  // kThreads % CH == 0: the same at every step
   const int grp = tid / CB, ci_s = tid % CB;  // the class sums' row group and channel
 
   float acc[9][WN][4];
-  float bsum[8], u8[8], g8[8];  // bias sums; the gate and dgap / HW of image gate_of
+  float bsum[E], u8[E], g8[E];  // bias sums; the gate and dgap / HW of image gate_of
   int gate_of = -1;
   float cls_sum[9];  // h1 of channel ci_s by pixel class, this thread's rows, image hs_of
   int hs_of = -1;
 #pragma unroll
   for (int k = 0; k < 9; ++k) cls_sum[k] = 0.f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) bsum[k] = u8[k] = g8[k] = 0.f;
+  for (int k = 0; k < E; ++k) bsum[k] = u8[k] = g8[k] = 0.f;
 #pragma unroll
   for (int t = 0; t < 9; ++t)
 #pragma unroll
@@ -920,8 +972,8 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
     if (tile < end) {
       const int n = tile / per_image, r = tile % per_image;
       const int ty0 = (r / tiles_x) * TH, tx0 = (r % tiles_x) * TW;
-      bf16* a_s = stages + ((tile - begin) % kWStages) * stage_elems;
-      bf16* g_s = a_s + a_elems;
+      T* a_s = stages + ((tile - begin) % kWStages) * stage_elems;
+      T* g_s = a_s + a_elems;
       const size_t img = (size_t)n * H * W * C;
       for (int i = tid; i < XH * XW * CH; i += kThreads) {
         const int p = i / CH;
@@ -977,18 +1029,21 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
     __syncthreads();  // red_s and hs_s are free again
   };
 
-  // lane's pixel and column in a B (g) and an A (a) ldmatrix.trans
+  // lane's pixel and column in a B (g) and an A (a) ldmatrix.trans; in
+  // float32 its pixel t and column g of a B (g) and an A (a) fragment
   const int lb = ((lane & 7) + ((lane >> 3) & 1) * 8) * SP + ng * WN * 8 + (lane >> 4) * 8;
   const int la = ((lane & 7) + ((lane >> 4) & 1) * 8) * SP + mt * 16 + ((lane >> 3) & 1) * 8;
+  const int lb32 = (lane & 3) * SP + ng * WN * 8 + (lane >> 2);
+  const int la32 = (lane & 3) * SP + mt * 16 + (lane >> 2);
 
   start_tile(begin);
   start_tile(begin + 1);
   for (int tile = begin; tile < end; ++tile) {
     start_tile(tile + 2);  // into the stage that the tile before this one has left
     cp_async_wait<2>();
-    const bf16* a_s = stages + ((tile - begin) % kWStages) * stage_elems;
-    bf16* g_s = stages + ((tile - begin) % kWStages) * stage_elems + a_elems;
-    if (conv && tile / per_image != hs_of) {  // block-uniform
+    const T* a_s = stages + ((tile - begin) % kWStages) * stage_elems;
+    T* g_s = stages + ((tile - begin) % kWStages) * stage_elems + a_elems;
+    if (!F32 && conv && tile / per_image != hs_of) {  // block-uniform
       if (hs_of >= 0) flush(hs_of);
       hs_of = tile / per_image;
     }
@@ -999,7 +1054,7 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
       if (conv && n != gate_of) {  // a split's tiles lie in few images
         gate_of = n;
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
+        for (int k = 0; k < E; ++k) {
           u8[k] = gate[(size_t)n * C + cob * CB + c8 + k];
           g8[k] = dgap_hw[(size_t)n * C + cob * CB + c8 + k];
         }
@@ -1009,7 +1064,15 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
         if (ty0 + p / TW >= H || tx0 + p % TW >= W) continue;  // stays 0
         uint4* at = reinterpret_cast<uint4*>(g_s + p * SP + c8);
         uint4 v = *at;
-        if (conv) {  // db2 sums the whole dh2 before any rounding
+        if constexpr (F32) {  // dh2 whole in f32; the bias sums of either conv
+          float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (conv) f[k] = dh2_f32(f[k], res_scale, u8[k], g8[k]);
+            if (bias) bsum[k] += f[k];
+          }
+          if (conv) *at = v;
+        } else if (conv) {  // db2 sums the whole dh2 before any rounding
           v = dh2_chunk(v, res_scale, u8, bias ? bsum : nullptr, g8);
           *at = v;
         } else if (bias) {
@@ -1024,14 +1087,14 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
       }
     }
     __syncthreads();
-    if (conv) {  // h1 of this tile's in-image pixels by class, rows grp, grp + G, ...
+    if (!F32 && conv) {  // h1 of this tile's in-image pixels by class, rows grp, grp + G, ...
       const int r = tile % per_image;
       const int ty0 = (r / tiles_x) * TH, tx0 = (r % tiles_x) * TW;
       for (int y = grp; y < TH && ty0 + y < H; y += G) {
-        const bf16* row = a_s + ((y + 1) * XW + 1) * SP + ci_s;
+        const T* row = a_s + ((y + 1) * XW + 1) * SP + ci_s;
         float first = 0.f, inner = 0.f, last = 0.f;
         for (int x = 0; x < TW && tx0 + x < W; ++x) {
-          const float v = __bfloat162float(row[x * SP]);
+          const float v = to_f(row[x * SP]);
           const int cx = edge_class(tx0 + x, W);
           if (cx == 0) first += v;
           else if (cx == 2) last += v;
@@ -1047,32 +1110,66 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
         }
       }
     }
-    uint32_t bw[3][WN / 2][4] = {};  // B fragments of the g rows r, r - 1, r - 2
+    if constexpr (F32) {
+      for (int x0 = 0; x0 < TW; x0 += 8) {  // the K steps of a tile row
+        Tf32B bw[3][WN] = {};  // split B fragments of the g rows r, r - 1, r - 2
 #pragma unroll 1
-    for (int r = g0; r < g1 + 2; ++r) {  // halo rows of a
+        for (int r = g0; r < g1 + 2; ++r) {  // halo rows of a
 #pragma unroll
-      for (int jj = 0; jj < WN / 2; ++jj)
+          for (int jj = 0; jj < WN; ++jj) {
+            bw[2][jj] = bw[1][jj];
+            bw[1][jj] = bw[0][jj];
+          }
+          if (r < g1) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          bw[2][jj][e] = bw[1][jj][e];
-          bw[1][jj][e] = bw[0][jj][e];
+            for (int jj = 0; jj < WN; ++jj) {
+              const float* q = g_s + (r * TW + x0) * SP + lb32 + jj * 8;
+              split_b(bw[0][jj], q[0], q[4 * SP]);
+            }
+          }
+#pragma unroll
+          for (int tx = 0; tx < 3; ++tx) {
+            const float* q = a_s + (r * XW + tx + x0) * SP + la32;
+            Tf32A af;
+            split_a(af, q[0], q[8], q[4 * SP], q[4 * SP + 8]);
+#pragma unroll
+            for (int ty = 0; ty < 3; ++ty) {
+              const int ks = r - ty;  // the g row that tap row ty pairs with halo row r
+              if (ks < g0 || ks >= g1) continue;  // warp-uniform
+#pragma unroll
+              for (int jj = 0; jj < WN; ++jj) mma_3xtf32(acc[ty * 3 + tx][jj], af, bw[ty][jj]);
+            }
+          }
         }
-      if (r < g1) {
-#pragma unroll
-        for (int jj = 0; jj < WN / 2; ++jj) ldmatrix_x4_trans(bw[0][jj], g_s + r * TW * SP + lb + jj * 16);
       }
+    } else {
+      uint32_t bw[3][WN / 2][4] = {};  // B fragments of the g rows r, r - 1, r - 2
+#pragma unroll 1
+      for (int r = g0; r < g1 + 2; ++r) {  // halo rows of a
 #pragma unroll
-      for (int tx = 0; tx < 3; ++tx) {
-        uint32_t af[4];
-        ldmatrix_x4_trans(af, a_s + (r * XW + tx) * SP + la);
+        for (int jj = 0; jj < WN / 2; ++jj)
 #pragma unroll
-        for (int ty = 0; ty < 3; ++ty) {
-          const int ks = r - ty;  // the g row that tap row ty pairs with halo row r
-          if (ks < g0 || ks >= g1) continue;  // warp-uniform
+          for (int e = 0; e < 4; ++e) {
+            bw[2][jj][e] = bw[1][jj][e];
+            bw[1][jj][e] = bw[0][jj][e];
+          }
+        if (r < g1) {
 #pragma unroll
-          for (int jj = 0; jj < WN / 2; ++jj) {
-            mma_bf16(acc[ty * 3 + tx][2 * jj], af, bw[ty][jj][0], bw[ty][jj][1]);
-            mma_bf16(acc[ty * 3 + tx][2 * jj + 1], af, bw[ty][jj][2], bw[ty][jj][3]);
+          for (int jj = 0; jj < WN / 2; ++jj) ldmatrix_x4_trans(bw[0][jj], g_s + r * TW * SP + lb + jj * 16);
+        }
+#pragma unroll
+        for (int tx = 0; tx < 3; ++tx) {
+          uint32_t af[4];
+          ldmatrix_x4_trans(af, a_s + (r * XW + tx) * SP + la);
+#pragma unroll
+          for (int ty = 0; ty < 3; ++ty) {
+            const int ks = r - ty;  // the g row that tap row ty pairs with halo row r
+            if (ks < g0 || ks >= g1) continue;  // warp-uniform
+#pragma unroll
+            for (int jj = 0; jj < WN / 2; ++jj) {
+              mma_bf16(acc[ty * 3 + tx][2 * jj], af, bw[ty][jj][0], bw[ty][jj][1]);
+              mma_bf16(acc[ty * 3 + tx][2 * jj + 1], af, bw[ty][jj][2], bw[ty][jj][3]);
+            }
           }
         }
       }
@@ -1124,13 +1221,13 @@ rcab_bwd_wgrad_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
       }
     }
   }
-  if (bias) {  // block-uniform; thread k * CH + c / 8 holds channel c's k-th term
+  if (bias) {  // block-uniform; thread k * CH + c / E holds channel c's k-th term
 #pragma unroll
-    for (int k = 0; k < 8; ++k) red[tid * 8 + k] = bsum[k];
+    for (int k = 0; k < E; ++k) red[tid * E + k] = bsum[k];
     __syncthreads();
     if (tid < CB) {
       float sum = 0.f;
-      for (int k = 0; k < kThreads / CH; ++k) sum += red[(k * CH + tid / 8) * 8 + tid % 8];
+      for (int k = 0; k < kThreads / CH; ++k) sum += red[(k * CH + tid / E) * E + tid % E];
       part_b[((size_t)conv * S + s) * C + cob * CB + tid] = sum;
     }
   }
@@ -1202,6 +1299,7 @@ rcab_bwd_finish_kernel(const float* __restrict__ part_w, const float* __restrict
 // tile and its splits, one block an SM; the chunks of the du pass.
 struct Plan {
   bool mma;
+  bool ctab;               // bf16 on the tensor cores: dgap / HW's share by pixel class
   int th, tw, smem;        // dh1 and dx passes
   int wsmem, cb, tps;      // weight gradient on the tensor cores: its stages' shared
                            // memory, its block of the C x C matrix, tiles a split
@@ -1210,6 +1308,12 @@ struct Plan {
 };
 
 constexpr int kTiles[][2] = {{16, 16}, {8, 16}, {8, 8}, {4, 8}, {4, 4}};
+// Float32 on the tensor cores (its tiles and taps take twice the bf16
+// bytes: at C = 64 one 8x16 or 16x16 block an SM, two 8x8): 8x16 comes
+// first, where each of the 8 warps holds an m-tile (at 8x8 half of them
+// idle) and the grid is twice 16x16's (144 blocks at 16x48x48x64: a second
+// wave of 12), with half of 8x8's weight copies.
+constexpr int kTilesF32[][2] = {{8, 16}, {16, 16}, {8, 8}, {4, 8}, {4, 4}};
 
 // For the current device.
 cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
@@ -1218,10 +1322,14 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  p->mma = dtype == 1 && (C == 16 || C == 32 || C == 64 || C == 128);
+  p->mma = C == 16 || C == 32 || C == 64 || C == 128;
+  const bool f32_mma = p->mma && dtype == 0;
+  p->ctab = p->mma && dtype == 1;
+  const int elt = dtype == 1 ? 2 : 4;
   bool found = false;
   for (int limit : {kSmemTwoPerSm, kSmemMax}) {
-    for (const auto& t : kTiles) {
+    if (f32_mma && limit != kSmemMax) continue;
+    for (const auto& t : f32_mma ? kTilesF32 : kTiles) {
       const int P = t[0] * t[1], halo = (t[0] + 2) * (t[1] + 2);
       int smem;
       if (p->mma) {
@@ -1230,7 +1338,7 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
         // loads, but only pays while its grid still has a block for every SM
         const long long blocks = (long long)N * ((H + t[0] - 1) / t[0]) * ((W + t[1] - 1) / t[1]);
         if (P > 128 && blocks < sms) continue;
-        smem = (halo + P + 2 * C) * (C + 8) * 2;  // the tiles and two taps
+        smem = (halo + P + 2 * C) * (C + 8) * elt;  // the tiles and two taps
       } else {
         if ((P + kPM - 1) / kPM * (C / kCM) > kMaxIt * kThreads) continue;
         smem = (9 * kKC * C + halo * (C + 1)) * (int)sizeof(float);
@@ -1248,8 +1356,8 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
   p->J = (H * W + kDuPixels - 1) / kDuPixels;
   const long long pixels = (long long)N * H * W;
   if (p->mma) {
-    p->cb = C < 64 ? C : 64;
-    p->wsmem = kWStages * ((kWTH + 2) * (kWTW + 2) + kWTH * kWTW) * (p->cb + 8) * 2
+    p->cb = dtype == 0 ? (C < 32 ? C : 32) : (C < 64 ? C : 64);
+    p->wsmem = kWStages * ((kWTH + 2) * (kWTW + 2) + kWTH * kWTW) * (p->cb + 8) * elt
                + (9 * kThreads + 9 * p->cb) * (int)sizeof(float);  // the class sums' flush
     const long long tiles =
         (long long)N * ((H + kWTH - 1) / kWTH) * ((W + kWTW - 1) / kWTW);
@@ -1272,8 +1380,8 @@ cudaError_t make_plan(int dtype, int N, int H, int W, int C, Plan* p) {
 // Float32 scratch of one backward, in this order: the flipped weights of
 // the CUDA-core plan (2 x 9CC elements of T, in float-sized slots; nothing
 // on the tensor-core plan), the dout * h2 chunk sums (N, J, C), dgap/HW, ds,
-// gap and the effective gate (N, C each), ctab (N, 9, C; the tensor-core
-// plan only), the weight-gradient splits (2, splits, 9CC) and bias splits (2,
+// gap and the effective gate (N, C each), ctab (N, 9, C; the bf16
+// tensor-core plan only), the weight-gradient splits (2, splits, 9CC) and bias splits (2,
 // splits, C), then dz and d (N, R each). C % 8 == 0 keeps every part but the
 // last two 32-byte aligned.
 struct Layout {
@@ -1287,40 +1395,58 @@ Layout make_layout(const Plan& p, int N, int C, int R) {
   l.part_du = l.wt + (p.mma ? 0 : 2 * cc);
   l.per_image = l.part_du + (long long)N * p.J * C;
   l.ctab = l.per_image + 4LL * N * C;
-  l.part_w = l.ctab + (p.mma ? 9LL * N * C : 0);
+  l.part_w = l.ctab + (p.ctab ? 9LL * N * C : 0);
   l.part_b = l.part_w + 2LL * p.splits * cc;
   l.dz = l.part_b + 2LL * p.splits * C;
   l.total = l.dz + 2LL * N * R;
   return l;
 }
 
-// Passes 2-4 of the tensor-core plan for C = 8 * NT.
-template <int NT>
-cudaError_t run_mma(const Plan& p, const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
-                    float res_scale, const bf16* dout, const float* gate, const float* dgap_hw,
-                    const float* ctab, bf16* dx, bf16* h1, bf16* dh1, float* part_w,
+// Passes 2-4 of the tensor-core plan for C = 8 * NT. bf16 feeds ctab to
+// the dh1 pass, float32 dgap / HW.
+template <typename T, int NT>
+cudaError_t run_mma(const Plan& p, const T* x, const T* w1, const float* b1, const T* w2,
+                    float res_scale, const T* dout, const float* gate, const float* dgap_hw,
+                    const float* ctab, T* dx, T* h1, T* dh1, float* part_w,
                     float* part_b, int N, int H, int W, cudaStream_t s) {
   constexpr int C = NT * 8;
-  constexpr int NTB = NT < 8 ? NT : 8;
+  constexpr int NTB_MAX = sizeof(T) == 4 ? 4 : 8;  // the weight gradient's CB: 32 or 64
+  constexpr int NTB = NT < NTB_MAX ? NT : NTB_MAX;
   static int done_dh1[kMaxDevices] = {};
   static int done_dx[kMaxDevices] = {};
   static int done_wgrad[kMaxDevices] = {};
-  cudaError_t err = allow_smem(rcab_bwd_dh1_mma_kernel<NT>, p.smem, done_dh1);
+  cudaError_t err = allow_smem(rcab_bwd_dh1_mma_kernel<T, NT>, p.smem, done_dh1);
   if (err != cudaSuccess) return err;
-  err = allow_smem(rcab_bwd_dx_mma_kernel<NT>, p.smem, done_dx);
+  err = allow_smem(rcab_bwd_dx_mma_kernel<T, NT>, p.smem, done_dx);
   if (err != cudaSuccess) return err;
-  err = allow_smem(rcab_bwd_wgrad_mma_kernel<NTB>, p.wsmem, done_wgrad);
+  err = allow_smem(rcab_bwd_wgrad_mma_kernel<T, NTB>, p.wsmem, done_wgrad);
   if (err != cudaSuccess) return err;
   const dim3 grid((W + p.tw - 1) / p.tw, (H + p.th - 1) / p.th, N);
-  rcab_bwd_dh1_mma_kernel<NT><<<grid, kThreads, p.smem, s>>>(
-      x, w1, b1, w2, dout, gate, ctab, res_scale, h1, dh1, H, W, p.th, p.tw);
+  rcab_bwd_dh1_mma_kernel<T, NT><<<grid, kThreads, p.smem, s>>>(
+      x, w1, b1, w2, dout, gate, sizeof(T) == 4 ? dgap_hw : ctab, res_scale, h1, dh1, H, W,
+      p.th, p.tw);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  rcab_bwd_dx_mma_kernel<NT><<<grid, kThreads, p.smem, s>>>(dh1, w1, dout, dx, H, W, p.th, p.tw);
+  rcab_bwd_dx_mma_kernel<T, NT><<<grid, kThreads, p.smem, s>>>(dh1, w1, dout, dx, H, W, p.th,
+                                                                 p.tw);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int nb = C / p.cb;
-  rcab_bwd_wgrad_mma_kernel<NTB><<<dim3(p.splits, 1, 2 * nb * nb), kThreads, p.wsmem, s>>>(
+  rcab_bwd_wgrad_mma_kernel<T, NTB><<<dim3(p.splits, 1, 2 * nb * nb), kThreads, p.wsmem, s>>>(
       x, dh1, h1, dout, gate, dgap_hw, res_scale, part_w, part_b, N, H, W, C, p.tps);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_mma_c(const Plan& p, const T* x, const T* w1, const float* b1, const T* w2,
+                      float res_scale, const T* dout, const float* gate, const float* dgap_hw,
+                      const float* ctab, T* dx, T* h1, T* dh1, float* part_w, float* part_b,
+                      int N, int H, int W, int C, cudaStream_t s) {
+  switch (C) {
+    case 16: return run_mma<T, 2>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s);
+    case 32: return run_mma<T, 4>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s);
+    case 64: return run_mma<T, 8>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s);
+    case 128: return run_mma<T, 16>(p, x, w1, b1, w2, res_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Passes 2-4 of the CUDA-core plan.
@@ -1384,9 +1510,9 @@ cudaError_t run(const Plan& p, const Layout& l, const T* x, const T* w1, const f
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int Q = C < kThreads ? kThreads / C : 1;
-  const __nv_bfloat16* w2_mma = nullptr;  // the tensor-core plan's ctab comes from w2
+  const __nv_bfloat16* w2_mma = nullptr;  // the bf16 tensor-core plan's ctab comes from w2
   if constexpr (std::is_same<T, bf16>::value) {
-    if (p.mma) w2_mma = w2;
+    if (p.ctab) w2_mma = w2;
   }
   const int gate_floats = 2 * C + 2 * R + 2 * Q * C + 2 * C * R + (w2_mma ? 10 * C : 0);
   rcab_bwd_gate_kernel<<<N, kThreads, gate_floats * sizeof(float), s>>>(
@@ -1394,18 +1520,10 @@ cudaError_t run(const Plan& p, const Layout& l, const T* x, const T* w1, const f
       dgap_hw, ds, gap, dz, d, w2_mma, w2_mma ? ctab : nullptr, p.J, n_tiles, H, W, C, R);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (p.mma) {
-      switch (C) {
-        case 16: err = run_mma<2>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 32: err = run_mma<4>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 64: err = run_mma<8>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        case 128: err = run_mma<16>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1, part_w, part_b, N, H, W, s); break;
-        default: err = cudaErrorInvalidValue;
-      }
-    }
-  }
-  if (!p.mma) {
+  if (p.mma) {
+    err = run_mma_c<T>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, ctab, dx, h1, dh1,
+                       part_w, part_b, N, H, W, C, s);
+  } else {
     T* w1t = reinterpret_cast<T*>(ws + l.wt);
     err = run_fma<T>(p, x, w1, b1, w2, pass_scale, dout, gate, dgap_hw, dx, h1, dh1, w1t, w1t + cc,
                      part_w, part_b, N, H, W, C, s);
@@ -1435,6 +1553,20 @@ int rcab_fused_backward_workspace(int dtype, int N, int H, int W, int C, int R,
   return (int)err;
 }
 
+// The plan of a backward on the current device, for reports: plan[0] 1 if
+// its convolutions and weight gradients run on the tensor cores; [1], [2]
+// the dh1 and dx passes' tile; [3] the weight gradient's block of the C x C
+// matrix (0 on the CUDA cores); [4] its splits; [5] tiles a split on the
+// tensor cores, pixels a split on the CUDA cores.
+int rcab_fused_backward_plan(int dtype, int N, int H, int W, int C, long long* plan) {
+  Plan p;
+  const cudaError_t err = make_plan(dtype, N, H, W, C, &p);
+  if (err != cudaSuccess) return (int)err;
+  const long long v[] = {p.mma, p.th, p.tw, p.mma ? p.cb : 0, p.splits, p.mma ? p.tps : p.chunk};
+  for (int i = 0; i < 6; ++i) plan[i] = v[i];
+  return 0;
+}
+
 // dtype as above; T is that type. x, dout, dx, h1, dh1: (N,H,W,C)
 // contiguous T (h1 and dh1 are scratch); w1, w2: (9,C,C) tap-major T;
 // b1, wd (C,R), wu (R,C): float32; bd (R) with bd_stride 0 or (N,R) with
@@ -1446,7 +1578,7 @@ int rcab_fused_backward_workspace(int dtype, int N, int H, int W, int C, int R,
 // with bd_stride R) and dbu (C, or N*C with bu_pe); dscale (N,C) where
 // scale is given, else unused.
 // workspace: at least what rcab_fused_backward_workspace gives, 16-byte
-// aligned; the tensor-core plan (bf16, C in {16, 32, 64, 128}) needs x, dout,
+// aligned; the tensor-core plan (C in {16, 32, 64, 128}) needs x, dout,
 // dx, h1, dh1, w1 and w2 on 16-byte boundaries too. Returns a cudaError_t
 // (0 on success).
 int rcab_fused_backward(int dtype, const void* x, const void* w1, const void* b1,

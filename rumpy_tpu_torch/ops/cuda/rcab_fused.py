@@ -18,27 +18,31 @@ read them per image in the passes that already read ``bd``, ``bu`` and
 ``res_scale``, and the backward returns gradients of the same shapes.
 The kernel (``csrc/rcab_fused.cu``) is
 bound by operations on an H100: 5.44 GFLOP at the train shape
-16x48x48x64 (5.5 us at the bf16 peak) against 9.4 MB of bf16 in and out.
-In bfloat16 with C in {16, 32, 64, 128} it runs three passes: conv1 on the
-tensor cores into h1 (bf16, kept in the output's buffer, so the call
-allocates no scratch for it), conv2 into h2 (float32) and per-tile channel
-sums, then one pass that computes each image's gate from the tile sums in
-a fixed order and applies it. Each conv pass is an implicit GEMM over
-pixels, split into warp-sized units over persistent blocks sized from the
-card's SM count (:func:`plan` reports it). Float32 and other widths run
-one conv pass on the CUDA cores (conv1 on a halo, then conv2) and the same
-gate-and-apply pass. ``rcab_fused`` launches it for CUDA tensors and raises
-if that fails; it runs ``rcab_reference`` only for tensors that lie on the
-CPU.
+16x48x48x64 (5.5 us at the bf16 peak, 33 us at the float32-accurate
+peak of 3xTF32) against 9.4 MB of bf16 in and out. With C in {16, 32, 64,
+128} it runs three passes on the tensor cores, bf16 on bf16 mma and
+float32 in 3xTF32 (each operand split into two tf32 halves, three products
+summed in f32, so the result keeps float32's accuracy): conv1 into h1 (in
+x's dtype, kept in the output's buffer, so the call allocates no scratch
+for it), conv2 into h2 (float32) and per-tile channel sums, then one pass
+that computes each image's gate from the tile sums in a fixed order and
+applies it. Each conv pass is an implicit GEMM over pixels, split into
+warp-sized units over persistent blocks sized from the card's SM count
+(:func:`plan` reports it). Other widths run one conv pass on the CUDA
+cores (conv1 on a halo, then conv2) and the same gate-and-apply pass.
+``rcab_fused`` launches it for CUDA tensors and raises if that fails; it
+runs ``rcab_reference`` only for tensors that lie on the CPU.
 
 When a gradient is wanted, ``rcab_fused`` goes through a
 ``torch.autograd.Function`` whose backward is hand-written too
 (``csrc/rcab_fused_bwd.cu``): it keeps the forward's workspace (h2, the
 tile sums and the gate), computes h1 again from x, and returns the
-gradients of all nine inputs, the parameters' in float32. In bfloat16 with
-C in {16, 32, 64, 128} its convolutions and weight gradients run on the
-tensor cores, and dh2 is rounded to bfloat16 on its way into them; float32
-and other widths run on the CUDA cores. The Pallas kernel has no backward;
+gradients of all nine inputs, the parameters' in float32. With C in {16,
+32, 64, 128} its convolutions and weight gradients run on the tensor cores
+(:func:`backward_plan` reports it): in bfloat16 dh2's image-wide constant
+enters exactly beside its rounded part, in float32 dh2 is formed whole and
+split as every operand is for 3xTF32; other widths run on the CUDA cores.
+The Pallas kernel has no backward;
 the yardstick is autograd of ``rcab_reference``
 (``rcab_backward_reference``), which the Function uses for tensors on the
 CPU and nowhere else.
@@ -310,6 +314,24 @@ def plan(shape, dtype) -> dict:
     return dict(zip(_PLAN_KEYS, out))
 
 
+_BACKWARD_PLAN_KEYS = ("tensor_cores", "tile_rows", "tile_cols", "wgrad_channels",
+                       "wgrad_splits", "wgrad_per_split")
+
+
+def backward_plan(shape, dtype) -> dict:
+    """The backward kernel's launch plan for an (N, H, W, C) input of
+    ``dtype`` on the current CUDA device: whether its convolutions and
+    weight gradients run on the tensor cores, the dh1 and dx passes' tile,
+    and the weight gradient's block of the C x C matrix (0 on the CUDA
+    cores), splits and tiles (tensor cores) or pixels (CUDA cores) a
+    split."""
+    n, h, w, c = shape
+    out = (ctypes.c_longlong * len(_BACKWARD_PLAN_KEYS))()
+    _raise_on(_backward_library().rcab_fused_backward_plan(_DTYPES[dtype], n, h, w, c, out),
+              "backward plan")
+    return dict(zip(_BACKWARD_PLAN_KEYS, out))
+
+
 @functools.lru_cache(maxsize=None)
 def _backward_workspace_floats(dtype: int, n: int, h: int, w: int, c: int, r: int,
                               device: int) -> int:
@@ -344,6 +366,8 @@ def _bind_backward(lib):
     lib.rcab_fused_backward.restype = i
     lib.rcab_fused_backward_workspace.argtypes = [i] * 6 + [ctypes.POINTER(ll)]
     lib.rcab_fused_backward_workspace.restype = i
+    lib.rcab_fused_backward_plan.argtypes = [i] * 5 + [ctypes.POINTER(ll)]
+    lib.rcab_fused_backward_plan.restype = i
 
 
 def _library():

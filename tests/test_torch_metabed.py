@@ -28,11 +28,11 @@ from rumpy_tpu.registry import get_model as jax_model
 from rumpy_tpu_torch.models import attention_manipulators as tam
 from rumpy_tpu_torch.models import metabed as tmb
 from rumpy_tpu_torch.registry import get_model as torch_model
+from rumpy_tpu_torch.utils.precision import float64
 from rumpy_tpu_torch.utils.weights import jax_tree_from_state_dict, state_dict_from_jax
-from torch_parallel_worker import default_threads
 from torch_parallel_worker import single_threaded  # noqa: F401 (autouse: one thread a pool)
 
-F32_REL, F32_GRAD_REL = 1e-5, 1e-4
+F32_REL, F32_GRAD_REL, F64_REL = 1e-5, 1e-4, 1e-9
 PARAM_ULPS = 2.0 ** -22
 SGD = dict(optimizer_type="sgd", lr=1.0)
 
@@ -204,12 +204,45 @@ ESRGAN_MB = dict(scale=4, num_features=16, num_blocks=2, meta_block="q-layer", d
                  pretrain_epochs=1, main_lr=1.0, d_lr=1.0, **SGD)
 
 
+def _f64_pretrain_moves(js, th, batch):
+    """The pre-train step in float64 in both packages from the same state:
+    the JAX handler's modules rebuilt with dtype float64 (flax casts params
+    and inputs to it), the port's handler widened by
+    ``utils.precision.float64``. Returns the generator's params before the
+    step and after each package's step, in flax's tree."""
+    f64 = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), t)
+    with jax.enable_x64(True):
+        jh = jax_model("metabedesrgan")(**ESRGAN_MB)
+        jh.set_epoch(0)
+        jh.dtype = jnp.float64
+        jh.module = jh.build_module(**jh.model_kwargs)
+        params = f64(_np(js.params))
+        state = jax.tree_util.tree_map(jnp.copy, js).replace(
+            params=params,
+            opt_state={**js.opt_state, "generator_pre": jh.tx.init(params["generator"])})
+        out, _ = jh.train_batch(state, {k: jnp.asarray(v, jnp.float64) for k, v in batch.items()})
+        want = _np(out.params["generator"])
+    th.set_epoch(0)
+    with float64(th) as state:
+        th._optimizers = {}
+        before = jax.tree_util.tree_map(
+            np.copy, jax_tree_from_state_dict(state.params, th.module)["generator"])
+        state2, _ = th.train_batch(state, {k: torch.from_numpy(v).double()
+                                           for k, v in batch.items()})
+        got = jax_tree_from_state_dict(state2.params, th.module)["generator"]
+    return before, got, want
+
+
 def test_metabedesrgan_steps_match_jax():
     """Metabed under the ESRGAN recipe (relativistic, VGG-128; LR 32 for
-    its 128 x 128 crops): the pre-train step (losses, generator update),
-    then the adversarial step's losses and the discriminator's BatchNorm
-    statistics (the relativistic updates through VGG-128 are held in
-    float64 in tests/test_torch_gan.py)."""
+    its 128 x 128 crops): the pre-train step (losses, then the generator's
+    update in float64 in both packages, each leaf within 1e-9 of its move:
+    the tail conv's bias gradient sums 2 x 128 x 128 terms, which float32
+    summed in order on one thread put 1.1 times 1e-4 of its move off JAX's
+    float32 step, at torch's threaded order within it), then the adversarial
+    step's losses and the discriminator's BatchNorm statistics (the
+    relativistic updates through VGG-128 are held in float64 in
+    tests/test_torch_gan_handler.py)."""
     jh = jax_model("metabedesrgan")(**ESRGAN_MB)
     js = jh.init_state()
     params = _jitter(js.params, 6)
@@ -224,16 +257,21 @@ def test_metabedesrgan_steps_match_jax():
              "metadata": rng.random((2, 1)).astype(np.float32)}
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     state = th._own_state()
-    before = jax.tree_util.tree_map(np.copy, jax_tree_from_state_dict(state.params, th.module))
     jh.set_epoch(0)
     th.set_epoch(0)
     js2, jl = jh.train_batch(jax.tree_util.tree_map(jnp.copy, js), jb)
-    with default_threads():  # a float32 step: see default_threads
-        state2, tl = th.train_batch(state, batch)
+    _, tl = th.train_batch(state, batch)
     _assert_losses(tl, jl)
-    _assert_moves(th.module.generator,
-                  {k[len("generator."):]: v for k, v in state2.params.items()
-                   if k.startswith("generator.")}, before["generator"], js2.params["generator"])
+    # the update in float64, from the same state in a handler of its own
+    th64 = torch_model("metabedesrgan")(device="cpu", **ESRGAN_MB)
+    th64.module.load_state_dict(state_dict_from_jax(params, th64.module,
+                                                    batch_stats={"discriminator": stats}))
+    start, got, want = _f64_pretrain_moves(js, th64, batch)
+    for (path, w), g, b in zip(jax.tree_util.tree_flatten_with_path(want)[0],
+                               jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(start)):
+        assert np.abs(g - w).max() <= F64_REL * np.abs(w - b).max(), jax.tree_util.keystr(path)
+    assert max(np.abs(w - b).max() for w, b in zip(
+        jax.tree_util.tree_leaves(want), jax.tree_util.tree_leaves(start))) > 0
     # the adversarial step from JAX's state after pre-training
     th.module.load_state_dict(state_dict_from_jax(
         _np(js2.params), th.module,
@@ -241,8 +279,7 @@ def test_metabedesrgan_steps_match_jax():
     jh.set_epoch(1)
     th.set_epoch(1)
     js3, jl = jh.train_batch(js2, jb)
-    with default_threads():
-        state3, tl = th.train_batch(th._own_state(), batch)
+    state3, tl = th.train_batch(th._own_state(), batch)
     _assert_losses(tl, jl)
     got = jax_tree_from_state_dict(state3.params, th.module, collection="batch_stats")
     for g, w in zip(jax.tree_util.tree_leaves(got["discriminator"]),

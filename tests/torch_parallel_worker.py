@@ -10,11 +10,9 @@ from ``spawn``: no JAX in them).
 imports. The tests run in several worker processes at once (and two files
 start four rank processes beside them); torch's OpenMP pool and numpy's
 BLAS, left at their default, each spin as many threads as the machine has
-cores in every one of them. A file's tests run both on one thread;
-``default_threads`` gives a block torch's default count back.
+cores in every one of them. A file's tests run both on one thread.
 """
 
-import contextlib
 import os
 import sys
 import time
@@ -23,10 +21,6 @@ import pytest
 import torch
 
 from rumpy_tpu_torch.utils.precision import float64, float_as_double
-
-
-# torch's intra-op thread count when this module is imported: its default
-DEFAULT_THREADS = torch.get_num_threads()
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,20 +34,6 @@ def single_threaded():
     with threadpool_limits(limits=1):
         yield
     torch.set_num_threads(before)
-
-
-@contextlib.contextmanager
-def default_threads():
-    """torch at its default intra-op thread count inside the block: for the
-    float32 steps whose tolerance against JAX holds at the summation order
-    of torch's threaded reductions (on one thread, a bias gradient summed
-    over 32,768 terms in order stands up to twice that tolerance off)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(DEFAULT_THREADS)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 CASES = {}
